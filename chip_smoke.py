@@ -7,11 +7,21 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It builds the hand-written CUDA kernels from ``spark_rapids_tpu_torch/csrc``
 for sm_90a, holds each kernel against its plain PyTorch version on the
-card, then drives the engine's main path through ``TpuSession`` on CUDA:
-TPC-H q6 and the q1-shaped group-by over 2^26 lineitem rows (the columns
-``bench.py``'s ``gen_host`` makes), and the sparse-key hash group-by
-(2^22 rows, 2^20 keys drawn from [0, 2^40)) with the hash path on and off.
-Answers are checked against float64 numpy oracles on the same host data.
+card, then drives the engine's paths through ``TpuSession`` on CUDA, each
+with the kernel launch counts reset just before it and read just after:
+
+- TPC-H q6 and the q1-shaped group-by over 2^26 lineitem rows (the
+  columns ``bench.py``'s ``gen_host`` makes);
+- the sparse-key hash group-by (2^22 rows, 2^20 keys drawn from
+  [0, 2^40)), hash path on and off;
+- TPC-H q3 at scale factor 10 (only the columns q3 reads, value for value
+  ``models/tpch.gen_tables``'), hash path on and off: two sort-merge
+  joins, the three-key group-by, TopN;
+- the fact-dim hash join (2^26 fact rows against 2^19 dim rows, then a
+  group-by on the key), hash path on (``hash_insert`` + ``hash_probe`` in
+  every probe batch) and off.
+
+Answers are checked against numpy / pandas oracles on the same host data.
 
 Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
@@ -39,9 +49,16 @@ HASH_ROWS = 1 << 22
 HASH_CARD = 1 << 20
 HASH_SLOTS = 1 << 21
 MMR_CHECK_ROWS = 1 << 26
+Q3_SF = 10
+FACT_ROWS = 1 << 26
+DIM_ROWS = 1 << 19
+BATCH_ROWS = 1 << 22
 
 KERNEL_RTOL = 1e-12   # kernel vs plain float sums (another summation order)
 QUERY_RTOL = 1e-9     # engine vs numpy oracle (bench.py's own q6 check)
+# q3 hash on vs off: the group-by's float sums add in another order
+# (atomics on the sort path, slot order on the hash path)
+PATH_RTOL = 1e-12
 
 # device-memory rate by card (NVIDIA data sheets), for the bound
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12,
@@ -209,6 +226,125 @@ def check_hash_overflow(torch, K, device):
     povf = K.hash_insert_plain(lo, hi, live, T)[4]
     check(bool(ovf) and bool(povf),
           f"hash_insert forced overflow ({n} keys, T={T}): flagged on both")
+
+
+def gen_fact_dim(n_fact: int, n_dim: int, seed: int = SEED):
+    """The repo's fact-dim hash-join shape (``tests/test_hash_wire.py``),
+    scaled: 2 * n_dim distinct int64 keys from [0, 2^40); dim holds every
+    second one with integer-valued ``w``; fact draws keys from all of
+    them (about half match) with integer-valued ``v`` in [0, 10^4)."""
+    rng = np.random.default_rng(seed)
+    uni = np.unique(rng.integers(0, 1 << 40, 8 * n_dim,
+                                 dtype=np.int64))[: 2 * n_dim]
+    dim = {"k": uni[::2],
+           "w": rng.integers(0, 100, n_dim).astype(np.float64)}
+    fact = {"k": uni[rng.integers(0, len(uni), n_fact)],
+            "v": rng.integers(0, 10 ** 4, n_fact).astype(np.float64)}
+    return fact, dim
+
+
+def split_lanes(torch, codes, device):
+    lo = (codes & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    hi = (codes >> 32).astype(np.int32)
+    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
+
+
+def check_probe(torch, K, device, n_build, T, n_probe, rng):
+    """hash_probe against its plain version: each pair (CUDA insert +
+    CUDA probe, plain insert + plain probe) builds its own table of
+    ``n_build`` distinct codes (0, -1 and the int64 extremes among them)
+    and probes ``n_probe`` rows, about half hits and 10% dead.  The pairs
+    lay tables out differently, so the contract is compared, not slots."""
+    ext = np.array([0, -1, np.iinfo(np.int64).min, np.iinfo(np.int64).max],
+                   dtype=np.int64)
+    pool = np.unique(rng.integers(np.iinfo(np.int64).min,
+                                  np.iinfo(np.int64).max, 3 * n_build,
+                                  dtype=np.int64))
+    pool = pool[~np.isin(pool, ext)]
+    rng.shuffle(pool)
+    build = np.concatenate([ext, pool[: n_build - len(ext)]])
+    absent = pool[n_build - len(ext):]
+    probe = np.where(rng.random(n_probe) < 0.5,
+                     build[rng.integers(0, n_build, n_probe)],
+                     absent[rng.integers(0, len(absent), n_probe)])
+    probe[: len(ext)] = ext
+    blo, bhi = split_lanes(torch, build, device)
+    plo, phi = split_lanes(torch, probe, device)
+    blive = torch.ones(n_build, dtype=torch.bool, device=device)
+    live = torch.from_numpy(rng.random(n_probe) >= 0.1).to(device)
+    table = K.hash_insert(blo, bhi, blive, T)
+    ptable = K.hash_insert_plain(blo, bhi, blive, T)
+    slot = K.hash_probe(plo, phi, live, *table[1:4])
+    pslot = K.hash_probe_plain(plo, phi, live, *ptable[1:4])
+    torch.cuda.synchronize()
+    tag = f"hash_probe n={n_probe} build={n_build} T={T}"
+    check(not bool(table[4]) and not bool(ptable[4]),
+          f"{tag}: both tables built without overflow")
+    code = (phi.to(torch.int64) << 32) | (plo.to(torch.int64) & 0xFFFFFFFF)
+    hits = []
+    for name, tb, sl in (("cuda", table, slot), ("plain", ptable, pslot)):
+        t64 = (tb[2].to(torch.int64) << 32) | \
+            (tb[1].to(torch.int64) & 0xFFFFFFFF)
+        sl = sl.to(torch.int64)
+        hit = sl < T
+        check(bool((t64[sl[hit]] == code[hit]).all())
+              and bool(tb[3][sl[hit]].all()),
+              f"{tag} {name}: every hit's slot holds the row's code")
+        check(not bool(torch.isin(code[~hit & live], t64[tb[3]]).any()),
+              f"{tag} {name}: no miss's code is stored")
+        check(bool((sl[~live] == T).all()), f"{tag} {name}: dead rows at T")
+        hits.append(hit)
+    disagree = int((hits[0] != hits[1]).sum())
+    check(disagree == 0, f"{tag}: hit/miss identical per row "
+          f"({int(hits[0].sum())} hits)")
+    t64 = (table[2].to(torch.int64) << 32) | \
+        (table[1].to(torch.int64) & 0xFFFFFFFF)
+    stored = torch.sort(t64[table[3]]).values
+    return (plo, phi, live, table, ptable, code, stored), disagree
+
+
+def q3_oracle(cols):
+    """pandas q3 on the host arrays: filter, merge, group, sort, top 11
+    (the 11th shows the margin at the cut)."""
+    import pandas as pd
+    host = {t: {k: v for k, (_, v, _) in c.items()} for t, c in cols.items()}
+    offsets, chars = host["customer"]["c_mktsegment"]
+    word = np.frombuffer(b"BUILDING", dtype=np.uint8)
+    lens = np.diff(offsets)
+    starts = offsets[:-1]
+    building = lens == len(word)
+    for i, b in enumerate(word):
+        building &= chars[np.minimum(starts + i, len(chars) - 1)] == b
+    cutoff = int((np.datetime64("1995-03-15") - np.datetime64("1970-01-01"))
+                 .astype(np.int64))
+    c = pd.DataFrame({"o_custkey": host["customer"]["c_custkey"][building]})
+    o = pd.DataFrame(host["orders"])
+    o = o[o.o_orderdate < cutoff].rename(columns={"o_orderkey":
+                                                  "l_orderkey"})
+    li = pd.DataFrame(host["lineitem"])
+    li = li[li.l_shipdate > cutoff]
+    j = c.merge(o, on="o_custkey").merge(li, on="l_orderkey")
+    j["rev"] = j.l_extendedprice * (1 - j.l_discount)
+    g = j.groupby(["l_orderkey", "o_orderdate", "o_shippriority"],
+                  as_index=False)["rev"].sum()
+    top = g.sort_values(["rev", "o_orderdate"], ascending=[False, True],
+                        kind="stable").head(11)
+    return top, len(g)
+
+
+def make_fact_dim(F, fact, dim):
+    return (fact.join(dim, on="k").group_by("k")
+            .agg(F.sum(F.col("v")).alias("sv"),
+                 F.sum(F.col("w")).alias("sw")))
+
+
+def fact_dim_oracle(fact, dim):
+    hit = np.isin(fact["k"], dim["k"])
+    k, inv = np.unique(fact["k"][hit], return_inverse=True)
+    sv = np.bincount(inv, weights=fact["v"][hit])
+    n = np.bincount(inv)
+    sw = dim["w"][np.searchsorted(dim["k"], k)] * n
+    return k, sv, sw
 
 
 # ------------------------------------------------------------- main path --
@@ -388,6 +524,36 @@ def main() -> int:
           f"({hash_bytes} B)", flush=True)
     del lo, hi, live, code_t, live_codes
 
+    # hash_probe at the fact-dim join's shapes: a 2^22-row probe batch
+    # against the 2^20-slot table of the 2^19-row dim side
+    n_probe, T_probe = BATCH_ROWS, 1 << 20
+    (plo, phi, plive, table, ptable, pcode, stored), probe_err = \
+        check_probe(torch, K, device, DIM_ROWS, T_probe, n_probe, rng)
+    probe_ms = timer.ms(lambda: K.hash_probe(plo, phi, plive, *table[1:4]))
+    probe_plain_ms = timer.ms(
+        lambda: K.hash_probe_plain(plo, phi, plive, *ptable[1:4]))
+
+    def lookup():
+        # membership and position up to layout: binary search over the
+        # sorted stored codes plus an equality check
+        pos = torch.searchsorted(stored, pcode).clamp(max=len(stored) - 1)
+        return torch.where(plive & (stored[pos] == pcode), pos, T_probe)
+    probe_lib_ms = timer.ms(lookup)
+    # what the kernel needs of these inputs: every row's live byte and a
+    # live row's lo and hi in, every row's slot out; the table's occupied
+    # bytes, and the lanes of its occupied slots only
+    probe_live = int(plive.sum())
+    probe_occ = int(table[3].sum())
+    probe_bytes = (n_probe + 8 * probe_live + 4 * n_probe + T_probe
+                   + 8 * probe_occ)
+    # fmix32's 11 integer operations and a 2-lane compare per live row
+    probe_bound, probe_by = roofline(probe_bytes, 13 * probe_live, hbm)
+    print(f"hash_probe n={n_probe} T={T_probe}: kernel {probe_ms:.4f} ms, "
+          f"plain {probe_plain_ms:.4f} ms, library (searchsorted) "
+          f"{probe_lib_ms:.4f} ms, bound {probe_bound:.4f} ms by "
+          f"{probe_by} ({probe_bytes} B)", flush=True)
+    del plo, phi, plive, table, ptable, pcode, stored
+
     # 3. the main path through TpuSession on CUDA
     total = {k: 0 for k in K.launches.NAMES}
     s = TpuSession({})
@@ -451,6 +617,108 @@ def main() -> int:
         s.stop()
     check(results[False].equals(results[True]),
           "hash group-by identical with hash on and off")
+    del sparse
+
+    # TPC-H q3 at SF10: customer 1.5M, orders 15M, lineitem 60M rows
+    from spark_rapids_tpu_torch.interop import batch_from_arrays
+    from spark_rapids_tpu_torch.models import tpch
+    t0 = time.perf_counter()
+    q3_cols = tpch.gen_q3_columns(Q3_SF)
+    q3_rows = sum(len(next(iter(c.values()))[1]) for c in q3_cols.values())
+    want3, n_groups3 = q3_oracle(q3_cols)
+    print(f"q3 SF{Q3_SF}: {q3_rows} input rows, {n_groups3} groups; data "
+          f"and pandas oracle {time.perf_counter() - t0:.3f} s", flush=True)
+    rev = want3["rev"].to_numpy()
+    if abs(rev[9] - rev[10]) > QUERY_RTOL * abs(rev[9]):
+        print(f"q3 oracle: 10th and 11th revenues {float(rev[9])!r} and "
+              f"{float(rev[10])!r} differ by more than rel {QUERY_RTOL}",
+              flush=True)
+    else:
+        print(f"q3 oracle: 10th and 11th revenues {float(rev[9])!r} and "
+              f"{float(rev[10])!r} are within rel {QUERY_RTOL}: the cut at "
+              "10 is not decided by the tolerance", flush=True)
+    want3 = want3.head(10)
+    q3_out = {}
+    for enabled in (False, True):
+        s = TpuSession({"spark.rapids.sql.tpu.maxBatchRows": BATCH_ROWS,
+                        "spark.rapids.tpu.pallas.hash.enabled": enabled,
+                        "spark.rapids.tpu.pallas.hash.tableSlots":
+                            str(HASH_SLOTS)})
+        tables = {name: s.create_dataframe(batch_from_arrays(c, s.device))
+                  for name, c in q3_cols.items()}
+        label = f"q3 SF{Q3_SF} ({'hash on' if enabled else 'hash off'})"
+        got, l3, fus, _ = drive(torch, K, fm, tpch.q3(tables), q3_rows,
+                                card_line, label)
+        q3_out[enabled] = got
+        days = [d.toordinal() - 719163 for d in got["o_orderdate"]]
+        check(got["l_orderkey"].tolist() == want3["l_orderkey"].tolist()
+              and days == want3["o_orderdate"].tolist()
+              and got["o_shippriority"].tolist()
+              == want3["o_shippriority"].tolist(),
+              f"{label}: top-10 keys and order equal pandas")
+        check(np.allclose(got["revenue"].to_numpy(), want3["rev"].to_numpy(),
+                          rtol=QUERY_RTOL, atol=0),
+              f"{label}: revenue within rel {QUERY_RTOL} of pandas")
+        print(f"{label}: {n_groups3} groups, hashKernelLaunches "
+              f"{fus['hashKernelLaunches']}, launches {l3}", flush=True)
+        if enabled:
+            check(fus["hashKernelLaunches"] >= 1
+                  and fus["hashOverflowFallbacks"] == 0
+                  and l3["hash_insert"] >= 1,
+                  f"{label}: the group-by took the hash table "
+                  f"(hash_insert {l3['hash_insert']}x), no overflow")
+            for k in total:
+                total[k] += l3[k]
+        else:
+            check(l3["hash_insert"] == 0 and l3["hash_probe"] == 0,
+                  f"{label}: no hash kernel launch")
+        s.stop()
+        del tables
+    a, b = q3_out[False], q3_out[True]
+    check(a.drop(columns="revenue").equals(b.drop(columns="revenue"))
+          and np.allclose(a["revenue"], b["revenue"], rtol=PATH_RTOL,
+                          atol=0),
+          f"q3 identical with hash on and off (revenue within rel "
+          f"{PATH_RTOL})")
+    del q3_cols
+
+    # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
+    fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)
+    want_k, want_sv, want_sw = fact_dim_oracle(fact, dim)
+    fd_out = {}
+    for enabled in (False, True):
+        s = TpuSession({"spark.rapids.sql.tpu.maxBatchRows": BATCH_ROWS,
+                        "spark.rapids.tpu.pallas.hash.enabled": enabled,
+                        "spark.rapids.tpu.pallas.hash.tableSlots":
+                            str(HASH_SLOTS)})
+        q = make_fact_dim(F, s.create_dataframe(fact),
+                          s.create_dataframe(dim))
+        label = f"fact-dim join ({'hash on' if enabled else 'hash off'})"
+        got, lf, fus, _ = drive(torch, K, fm, q, FACT_ROWS + DIM_ROWS,
+                                card_line, label)
+        fd_out[enabled] = got
+        check(np.array_equal(got["k"].to_numpy(), want_k)
+              and np.array_equal(got["sv"].to_numpy(), want_sv)
+              and np.array_equal(got["sw"].to_numpy(), want_sw),
+              f"{label}: {len(got)} groups equal numpy exactly")
+        batches = FACT_ROWS // BATCH_ROWS
+        if enabled:
+            check(lf["hash_probe"] == batches
+                  and lf["hash_insert"] >= batches
+                  and fus["hashOverflowFallbacks"] == 0,
+                  f"{label}: hash_probe {lf['hash_probe']}x (one per probe "
+                  f"batch), hash_insert {lf['hash_insert']}x, "
+                  f"hashKernelLaunches {fus['hashKernelLaunches']}, "
+                  f"hashOverflowFallbacks {fus['hashOverflowFallbacks']}")
+            for k in total:
+                total[k] += lf[k]
+        else:
+            check(lf["hash_insert"] == 0 and lf["hash_probe"] == 0,
+                  f"{label}: no hash kernel launch")
+        s.stop()
+    check(fd_out[False].equals(fd_out[True]),
+          "fact-dim join identical with hash on and off")
+    del fact, dim
     check(all(v >= 1 for v in total.values()),
           f"every kernel ran on the main path: {total}")
 
@@ -468,6 +736,13 @@ def main() -> int:
          "launches": total["hash_insert"], "max_abs_err": 0.0,
          "ms": hash_ms, "plain_ms": hash_plain_ms, "bound_ms": hash_bound,
          "bound_by": hash_by, "library_ms": hash_lib_ms},
+        {"name": "hash_probe", "route": "cuda",
+         "source": "spark_rapids_tpu_torch/csrc/hash_probe.cu",
+         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:532",
+         "launches": total["hash_probe"], "max_abs_err": float(probe_err),
+         "ms": probe_ms, "plain_ms": probe_plain_ms,
+         "bound_ms": probe_bound, "bound_by": probe_by,
+         "library_ms": probe_lib_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

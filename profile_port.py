@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's join paths, on one NVIDIA GPU.
+
+Run from the root of a checkout on a machine with a CUDA card:
+
+    python3 profile_port.py
+
+It builds the same inputs as ``chip_smoke.py`` (TPC-H q3 at SF10 and the
+fact-dim join at 2^26 x 2^19), warms each query once, then traces one run
+per query with ``torch.profiler`` (hash path on and off) and prints, per
+run: the host wall time, the device's busy time (the union of the
+intervals in which any CUDA kernel or copy ran) and its idle share of the
+wall time, the counted host syncs, and the device ops that took the most
+device time.  It checks nothing; ``chip_smoke.py`` holds the answers
+against their oracles.  Without a CUDA device it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import chip_smoke as cs
+
+TOP = 10
+
+
+def busy_ms(events) -> float:
+    """Union of the device intervals of ``events`` (kernels, copies and
+    sets on the card), in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3  # profiler times are in us
+
+
+def profile(torch, query, label, card_line):
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    query.to_pandas()  # warm
+    torch.cuda.synchronize()
+    host_sync_metrics.reset()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        query.to_pandas()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    syncs = host_sync_metrics.snapshot()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_ms(device)
+    print(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"share {1 - busy / wall:.4f}, {len(device)} device ops, "
+          f"{syncs} host syncs on {card_line}", flush=True)
+    by_name = {}
+    for e in device:
+        t = by_name.setdefault(e.name, [0.0, 0])
+        t[0] += (e.time_range.end - e.time_range.start) / 1e3
+        t[1] += 1
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:TOP]:
+        print(f"  {ms:10.3f} ms {n:6d}x  {name[:110]}", flush=True)
+
+
+def main() -> int:
+    import subprocess
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 1
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.interop import batch_from_arrays
+    from spark_rapids_tpu_torch.models import tpch
+    card_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card_line, flush=True)
+
+    def session(enabled):
+        return TpuSession({
+            "spark.rapids.sql.tpu.maxBatchRows": cs.BATCH_ROWS,
+            "spark.rapids.tpu.pallas.hash.enabled": enabled,
+            "spark.rapids.tpu.pallas.hash.tableSlots": str(cs.HASH_SLOTS)})
+
+    cols = tpch.gen_q3_columns(cs.Q3_SF)
+    for enabled in (False, True):
+        s = session(enabled)
+        t = {name: s.create_dataframe(batch_from_arrays(c, s.device))
+             for name, c in cols.items()}
+        profile(torch, tpch.q3(t), f"q3 SF{cs.Q3_SF} hash "
+                f"{'on' if enabled else 'off'}", card_line)
+        s.stop()
+        del t
+    del cols
+    fact, dim = cs.gen_fact_dim(cs.FACT_ROWS, cs.DIM_ROWS)
+    for enabled in (False, True):
+        s = session(enabled)
+        q = cs.make_fact_dim(F, s.create_dataframe(fact),
+                             s.create_dataframe(dim))
+        profile(torch, q, f"fact-dim join hash "
+                f"{'on' if enabled else 'off'}", card_line)
+        s.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,9 @@
 """DataFrame and GroupedData.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py``, cut to select,
-filter, groupBy/agg, keyless agg, collect and to_pandas.  A DataFrame is a
+filter, withColumnRenamed, groupBy/agg, keyless agg, equi-joins on
+column names, crossJoin, orderBy/sort, limit, collect and to_pandas.
+Expression-form join conditions are not ported yet.  A DataFrame is a
 logical plan; collecting it plans the query on the session's device, runs
 the operators and fetches the result in one counted sync.
 """
@@ -10,9 +12,10 @@ from __future__ import annotations
 
 from typing import List, Union
 
-from spark_rapids_tpu_torch.api.functions import Col, _expr
+from spark_rapids_tpu_torch.api.functions import Col, SortKey, _expr
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
-from spark_rapids_tpu_torch.ops.expressions import Expression
+from spark_rapids_tpu_torch.ops.expressions import (
+    Alias, Expression, UnresolvedColumn)
 from spark_rapids_tpu_torch.plan import logical as L
 
 
@@ -29,11 +32,55 @@ class DataFrame:
     def filter(self, condition: Col) -> "DataFrame":
         return DataFrame(self.session, L.Filter(_expr(condition), self.plan))
 
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        exprs = [Alias(UnresolvedColumn(n), new) if n == old
+                 else UnresolvedColumn(n) for n, _ in self.plan.schema]
+        return DataFrame(self.session, L.Project(exprs, self.plan))
+
     def groupBy(self, *cols: Union[Col, str]) -> "GroupedData":
         return GroupedData(self, [_expr(c) for c in cols])
 
+    group_by = groupBy
+
     def agg(self, *aggs: Col) -> "DataFrame":
         return GroupedData(self, []).agg(*aggs)
+
+    def join(self, other: "DataFrame", on, how: str = "inner"
+             ) -> "DataFrame":
+        """Equi-join on column names present on both sides (USING
+        semantics: one output column per key)."""
+        how = {"left_outer": "left", "right_outer": "right",
+               "outer": "full", "full_outer": "full", "leftsemi": "semi",
+               "left_semi": "semi", "leftanti": "anti",
+               "left_anti": "anti"}.get(how, how)
+        if how not in ("inner", "left", "right", "full", "semi", "anti"):
+            raise ValueError(f"unknown join type {how!r}")
+        keys = [on] if isinstance(on, str) else list(on)
+        if not keys or not all(isinstance(k, str) for k in keys):
+            raise NotImplementedError(
+                "join conditions other than column names are not ported")
+        lk = [UnresolvedColumn(k) for k in keys]
+        rk = [UnresolvedColumn(k) for k in keys]
+        return DataFrame(self.session, L.Join(
+            self.plan, other.plan, lk, rk, how, using=keys))
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        return DataFrame(self.session, L.Join(
+            self.plan, other.plan, [], [], "cross"))
+
+    def orderBy(self, *keys: Union[Col, str, SortKey]) -> "DataFrame":
+        orders = []
+        for k in keys:
+            if isinstance(k, SortKey):
+                orders.append((k.expr, k.descending, k.nulls_first))
+            else:
+                orders.append((_expr(k), False, True))
+        return DataFrame(self.session, L.Sort(orders, self.plan))
+
+    sort = orderBy
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(self.session, L.Limit(n, self.plan))
 
     def _execute_batches(self) -> List[ColumnarBatch]:
         exec_plan = self.session.plan(self.plan)

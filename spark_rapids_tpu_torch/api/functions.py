@@ -1,8 +1,9 @@
 """PySpark-flavoured column DSL.
 
-Counterpart of ``spark_rapids_tpu/api/functions.py``, cut to what this
-slice runs: column references, literals, arithmetic, comparisons, logic,
-null tests, and the sum / avg / count / min / max aggregates.
+Counterpart of ``spark_rapids_tpu/api/functions.py``, cut to what the
+ported slices run: column references, literals (numbers, bools, strings,
+dates), arithmetic, comparisons, logic, null tests, sort keys, and the
+sum / avg / count / min / max aggregates.
 """
 
 from __future__ import annotations
@@ -110,8 +111,43 @@ class Col:
             preds.GreaterThanOrEqual(self.expr, _lit_expr(lo)),
             preds.LessThanOrEqual(self.expr, _lit_expr(hi))))
 
+    def asc(self) -> "SortKey":
+        return SortKey(self.expr, descending=False, nulls_first=True)
+
+    def desc(self) -> "SortKey":
+        return SortKey(self.expr, descending=True, nulls_first=False)
+
+    def asc_nulls_first(self) -> "SortKey":
+        return SortKey(self.expr, descending=False, nulls_first=True)
+
+    def asc_nulls_last(self) -> "SortKey":
+        return SortKey(self.expr, descending=False, nulls_first=False)
+
+    def desc_nulls_first(self) -> "SortKey":
+        return SortKey(self.expr, descending=True, nulls_first=True)
+
+    def desc_nulls_last(self) -> "SortKey":
+        return SortKey(self.expr, descending=True, nulls_first=False)
+
     def __repr__(self):
         return f"Col({self.expr})"
+
+
+class SortKey:
+    """One ``orderBy`` key: an expression, its direction and where its
+    nulls go (Spark's defaults: first ascending, last descending)."""
+
+    def __init__(self, expr: Expression, descending: bool,
+                 nulls_first: bool):
+        self.expr = expr
+        self.descending = descending
+        self.nulls_first = nulls_first
+
+    def nullsFirst(self) -> "SortKey":
+        return SortKey(self.expr, self.descending, True)
+
+    def nullsLast(self) -> "SortKey":
+        return SortKey(self.expr, self.descending, False)
 
 
 def col(name: str) -> Col:

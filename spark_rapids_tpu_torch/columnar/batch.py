@@ -7,6 +7,7 @@ at collect (``to_arrow``), in one counted fetch.
 
 from __future__ import annotations
 
+import datetime as _dt
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -75,12 +76,18 @@ class ColumnarBatch:
     @classmethod
     def from_pydict(cls, data: Dict[str, Sequence],
                     device="cpu") -> "ColumnarBatch":
-        """Columns from a dict of numpy arrays (no nulls; nulls come in
-        through ``from_pandas`` or ``interop.batch_from_arrays``)."""
+        """Columns from a dict of numpy arrays or lists.  As in the JAX
+        package, a list holding ``None`` makes a nullable column (``None``
+        is null), a list of str a string column, ``datetime.date`` values
+        a date column and a datetime64 array a timestamp column."""
         nrows = len(next(iter(data.values()))) if data else 0
         cols = {}
         for name, values in data.items():
-            cols[name] = Column.from_numpy(np.asarray(values), device=device)
+            if isinstance(values, (list, tuple)):
+                cols[name] = _column_from_list(list(values), device)
+            else:
+                cols[name] = Column.from_numpy(np.asarray(values),
+                                               device=device)
             if cols[name].nrows != nrows:
                 raise ValueError(f"column {name!r} has {cols[name].nrows} "
                                  f"rows, expected {nrows}")
@@ -94,13 +101,26 @@ class ColumnarBatch:
         cols = {}
         for name in table.column_names:
             arr = table.column(name).combine_chunks()
-            dt = _from_arrow_type(arr.type)
+            if pa.types.is_dictionary(arr.type):
+                arr = arr.dictionary_decode()
+            dt = dts.from_arrow_type(arr.type)
+            if dt.is_string:
+                cols[name] = Column.from_strings(arr.to_pylist(),
+                                                 device=device)
+                continue
             validity = None
             if arr.null_count:
                 validity = np.asarray(pc.is_valid(arr))
-                arr = pc.fill_null(arr, pa.scalar(False if dt.is_boolean
-                                                  else 0, arr.type))
-            values = arr.to_numpy(zero_copy_only=False)
+            if dt.is_date:
+                values = np.asarray(arr.cast(pa.int32()).fill_null(0))
+            elif dt.is_timestamp:
+                values = np.asarray(arr.cast(pa.timestamp("us"))
+                                    .cast(pa.int64()).fill_null(0))
+            else:
+                if arr.null_count:
+                    arr = pc.fill_null(arr, pa.scalar(
+                        False if dt.is_boolean else 0, arr.type))
+                values = arr.to_numpy(zero_copy_only=False)
             cols[name] = Column.from_numpy(values, dtype=dt,
                                            validity=validity, device=device)
         return cls(cols, table.num_rows)
@@ -120,38 +140,54 @@ class ColumnarBatch:
         n = self.nrows
         bufs = []
         for c in self.columns.values():
-            bufs.append(c.data[:n])
+            if c.offsets is not None:
+                bufs.extend([c.data, c.offsets[: n + 1]])
+            else:
+                bufs.append(c.data[:n])
             if c.validity is not None:
                 bufs.append(c.validity[:n])
         host = iter(hostsync.fetch_all(bufs))
         arrays = {}
         for name, c in self.columns.items():
             data = next(host)
+            offsets = next(host) if c.offsets is not None else None
             validity = next(host) if c.validity is not None else None
-            arrays[name] = Column.to_arrow(data, validity, n)
+            arrays[name] = Column.to_arrow(c.dtype, data, validity, n,
+                                           offsets)
         return pa.table(arrays)
 
     def to_pandas(self):
         return self.to_arrow().to_pandas()
 
 
-def _from_arrow_type(at) -> DataType:
-    import pyarrow as pa
-    for check, dt in ((pa.types.is_boolean, dts.BOOL),
-                      (pa.types.is_int8, dts.INT8),
-                      (pa.types.is_int16, dts.INT16),
-                      (pa.types.is_int32, dts.INT32),
-                      (pa.types.is_int64, dts.INT64),
-                      (pa.types.is_float32, dts.FLOAT32),
-                      (pa.types.is_float64, dts.FLOAT64)):
-        if check(at):
-            return dt
-    raise TypeError(f"arrow type {at}: only numeric and boolean columns "
-                    "are ported")
+def _column_from_list(values: list, device) -> Column:
+    """The JAX package's ``from_pydict`` rule for a Python list."""
+    if any(isinstance(v, str) for v in values):
+        return Column.from_strings(values, device=device)
+    present = [v for v in values if v is not None]
+    if present and all(isinstance(v, _dt.date) for v in present):
+        return Column.from_numpy(np.array(values, dtype=object),
+                                 device=device)
+    validity = np.array([v is not None for v in values], dtype=np.bool_)
+    filled = [0 if v is None else v for v in values]
+    if present and all(isinstance(v, bool) for v in present):
+        filled = np.array([bool(v) for v in filled], dtype=np.bool_)
+    return Column.from_numpy(np.asarray(filled), validity=validity,
+                             device=device)
 
 
-def empty_batch(schema: Schema, device="cpu") -> ColumnarBatch:
-    cols = {name: Column(dt, torch.empty(0, dtype=dts.torch_dtype(dt),
-                                         device=device), 0)
-            for name, dt in schema}
+def empty_batch(schema: Schema, device="cpu",
+                capacity: int = 0) -> ColumnarBatch:
+    """A batch of no rows whose columns hold ``capacity`` padding rows
+    (zero values, and for strings zero-length rows)."""
+    cols = {}
+    for name, dt in schema:
+        if dt.is_string:
+            cols[name] = Column(
+                dt, torch.zeros(0, dtype=torch.uint8, device=device), 0,
+                offsets=torch.zeros(capacity + 1, dtype=torch.int32,
+                                    device=device))
+        else:
+            cols[name] = Column(dt, torch.zeros(
+                capacity, dtype=dts.torch_dtype(dt), device=device), 0)
     return ColumnarBatch(cols, 0)

@@ -2,7 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/columnar/column.py``.  A Column is a torch
 tensor of values plus an optional bool validity tensor (True = valid, None =
-no nulls) on one device, with a logical row count.  XLA needed every buffer
+no nulls) on one device, with a logical row count.  A string column keeps
+the JAX layout: uint8 chars plus int32 row offsets.  XLA needed every buffer
 padded to a power-of-two capacity; PyTorch does not, so columns built from
 host data are exact-length.  Operators that produce a data-dependent number
 of rows (a group-by's groups) may still return buffers longer than the row
@@ -12,7 +13,8 @@ padding that every consumer masks.
 
 from __future__ import annotations
 
-from typing import Optional
+import datetime as _dt
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,20 +95,29 @@ class RowCount:
 
 
 class Column:
-    """One device column: ``data`` (capacity rows), optional ``validity``
-    and a logical row count no larger than the capacity."""
+    """One device column: ``data`` (capacity rows; for strings the uint8
+    chars), optional ``validity``, for strings int32 ``offsets`` of
+    capacity + 1 entries starting at 0, and a logical row count no larger
+    than the capacity.  A string's chars may run past ``offsets[nrows]``
+    (padding every consumer ignores)."""
 
-    __slots__ = ("dtype", "data", "validity", "_row_count")
+    __slots__ = ("dtype", "data", "validity", "offsets", "_row_count")
 
     def __init__(self, dtype: DataType, data: torch.Tensor, nrows,
-                 validity: Optional[torch.Tensor] = None):
+                 validity: Optional[torch.Tensor] = None,
+                 offsets: Optional[torch.Tensor] = None):
         if data.dim() != 1:
             raise ValueError("column data must be 1-D")
-        if validity is not None and validity.shape != data.shape:
-            raise ValueError("validity must match the data's shape")
+        if dtype.has_offsets != (offsets is not None):
+            raise ValueError(f"{dtype} column: offsets must be given "
+                             "exactly for string columns")
+        rows = data.shape[0] if offsets is None else offsets.shape[0] - 1
+        if validity is not None and validity.shape != (rows,):
+            raise ValueError("validity must have one entry per row")
         self.dtype = dtype
         self.data = data
         self.validity = validity
+        self.offsets = offsets
         self._row_count = RowCount.wrap(nrows)
 
     @property
@@ -120,6 +131,8 @@ class Column:
 
     @property
     def capacity(self) -> int:
+        if self.offsets is not None:
+            return int(self.offsets.shape[0]) - 1
         return int(self.data.shape[0])
 
     @property
@@ -130,35 +143,126 @@ class Column:
     def from_numpy(cls, values: np.ndarray, dtype: Optional[DataType] = None,
                    validity: Optional[np.ndarray] = None,
                    device="cpu") -> "Column":
-        """Exact-length device column from host values (numeric only).
-        An all-True validity is dropped: no nulls."""
+        """Exact-length device column from host values, typed as the JAX
+        package types them: datetime64 of any unit becomes a timestamp,
+        ``datetime.date`` objects a date, str/object values a string
+        (``None`` is null).  An all-True validity is dropped: no nulls."""
         values = np.asarray(values)
-        if values.dtype.kind in ("U", "S", "O", "M"):
-            raise TypeError(f"column of numpy dtype {values.dtype}: only "
-                            "numeric and boolean columns are ported")
+        if values.dtype.kind == "O":
+            sample = next((v for v in values if v is not None), None)
+            if isinstance(sample, _dt.datetime):
+                validity = _none_validity(values, validity)
+                values = np.array([sample if v is None else v
+                                   for v in values], dtype="datetime64[us]")
+            elif isinstance(sample, _dt.date):
+                validity = _none_validity(values, validity)
+                values = np.array([sample if v is None else v
+                                   for v in values],
+                                  dtype="datetime64[D]").astype(np.int32)
+                dtype = dtype or dts.DATE32
+        if values.dtype.kind in ("U", "S", "O"):
+            return cls.from_strings(values.tolist(), validity=validity,
+                                    device=device)
+        if values.dtype.kind == "M":
+            values = values.astype("datetime64[us]").astype(np.int64)
+            dtype = dtype or dts.TIMESTAMP_US
         dtype = dtype or dts.from_numpy_dtype(values.dtype)
         host = np.ascontiguousarray(values.astype(dtype.storage, copy=False))
         if not host.flags.writeable:  # torch tensors need writable memory
             host = host.copy()
         data = torch.from_numpy(host).to(device)
-        dev_validity = None
+        return cls(dtype, data, len(values),
+                   validity=_device_validity(validity, len(values), device))
+
+    @classmethod
+    def from_strings(cls, values: Sequence[Optional[str]],
+                     validity: Optional[np.ndarray] = None,
+                     device="cpu") -> "Column":
+        """String column in the JAX layout: UTF-8 chars plus int32
+        offsets; a null row (``None`` or a False validity) has length 0."""
+        nrows = len(values)
+        valid = np.ones(nrows, dtype=np.bool_)
         if validity is not None:
-            validity = np.asarray(validity, dtype=np.bool_)
-            if validity.shape != values.shape:
-                raise ValueError("validity must match the values' shape")
-            if not validity.all():
-                dev_validity = torch.from_numpy(
-                    np.ascontiguousarray(validity)).to(device)
-        return cls(dtype, data, len(values), validity=dev_validity)
+            valid &= np.asarray(validity, dtype=np.bool_)
+        encoded = []
+        for i, s in enumerate(values):
+            if s is None or not valid[i]:
+                valid[i] = False
+                encoded.append(b"")
+            else:
+                encoded.append(str(s).encode("utf-8"))
+        offsets = np.zeros(nrows + 1, dtype=np.int64)
+        np.cumsum([len(b) for b in encoded], out=offsets[1:])
+        chars = np.frombuffer(b"".join(encoded), dtype=np.uint8)
+        return cls.from_string_buffers(offsets, chars, valid, device)
+
+    @classmethod
+    def from_string_buffers(cls, offsets: np.ndarray, chars: np.ndarray,
+                            validity: Optional[np.ndarray] = None,
+                            device="cpu") -> "Column":
+        """String column from host (offsets[n+1], chars) buffers."""
+        offsets = np.asarray(offsets, dtype=np.int64)
+        if offsets.ndim != 1 or offsets.shape[0] < 1 or offsets[0] != 0 \
+                or (np.diff(offsets) < 0).any():
+            raise ValueError("string offsets must start at 0 and never "
+                             "decrease")
+        if offsets[-1] >= (1 << 31):
+            raise ValueError("string offsets are int32: a column holds "
+                             "less than 2 GiB of chars")
+        chars = np.ascontiguousarray(chars, dtype=np.uint8)
+        if chars.shape[0] < offsets[-1]:
+            raise ValueError("chars buffer shorter than the last offset")
+        nrows = offsets.shape[0] - 1
+        return cls(dts.STRING, torch.from_numpy(chars.copy()).to(device),
+                   nrows, validity=_device_validity(validity, nrows, device),
+                   offsets=torch.from_numpy(
+                       offsets.astype(np.int32)).to(device))
 
     @staticmethod
-    def to_arrow(host_data: np.ndarray, host_validity, n: int):
+    def to_arrow(dtype: DataType, host_data: np.ndarray, host_validity,
+                 n: int, host_offsets=None):
         """pyarrow array of the first ``n`` rows of host buffers fetched
-        by ``ColumnarBatch.to_arrow``."""
+        by ``ColumnarBatch.to_arrow``, typed as the JAX package types it
+        (dates as ``date32``, timestamps as UTC microseconds)."""
         import pyarrow as pa
-        mask = None if host_validity is None else ~host_validity[:n]
-        return pa.array(host_data[:n], mask=mask)
+        at = dts.to_arrow_type(dtype)
+        valid = None if host_validity is None else host_validity[:n]
+        if dtype.is_string:
+            offs = host_offsets[: n + 1].astype(np.int32)
+            offs = offs - offs[0] if n else np.zeros(1, dtype=np.int32)
+            chars = host_data[int(host_offsets[0]): int(host_offsets[n])] \
+                if n else host_data[:0]
+            bitmap = None if valid is None or valid.all() else \
+                pa.py_buffer(np.packbits(valid, bitorder="little"))
+            return pa.Array.from_buffers(
+                at, n, [bitmap, pa.py_buffer(offs), pa.py_buffer(chars)],
+                null_count=-1 if bitmap is not None else 0)
+        vals = host_data[:n]
+        if dtype.is_date:
+            vals = vals.astype("datetime64[D]")
+        elif dtype.is_timestamp:
+            vals = vals.astype("datetime64[us]")
+        mask = None if valid is None or valid.all() else ~valid
+        return pa.array(vals, type=at, mask=mask)
 
     def __repr__(self) -> str:
         return (f"Column({self.dtype}, {self._row_count}, "
                 f"cap={self.capacity}, {self.device})")
+
+
+def _none_validity(values: np.ndarray, validity):
+    present = np.array([v is not None for v in values], dtype=np.bool_)
+    return present if validity is None else \
+        present & np.asarray(validity, dtype=np.bool_)
+
+
+def _device_validity(validity, nrows: int, device):
+    """Device copy of a host validity, or None when every row is valid."""
+    if validity is None:
+        return None
+    validity = np.asarray(validity, dtype=np.bool_)
+    if validity.shape != (nrows,):
+        raise ValueError("validity must match the values' shape")
+    if validity.all():
+        return None
+    return torch.from_numpy(np.ascontiguousarray(validity)).to(device)

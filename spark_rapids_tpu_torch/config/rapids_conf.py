@@ -96,6 +96,12 @@ PALLAS_HASH_TABLE_SLOTS = conf(
     lambda v: None if v >= 64 and (v & (v - 1)) == 0
     else "must be a power of two >= 64")
 
+JOIN_OUTPUT_BATCH_ROWS = conf(
+    "spark.rapids.sql.join.outputBatchRows", 1 << 22,
+    "Join output chunk size in rows: bounds the device memory of each "
+    "emitted batch (exec/join.py emits the joined rows in chunks of at "
+    "most this many).", _to_int, _positive)
+
 
 class RapidsConf:
     """Immutable view over a settings dict."""

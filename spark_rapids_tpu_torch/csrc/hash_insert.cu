@@ -30,17 +30,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define HI_THREADS 256
+#include "hash_common.cuh"
 
-__device__ __forceinline__ uint32_t fmix_slot(int lo, int hi, uint32_t mask) {
-    uint32_t h = (uint32_t)lo ^ ((uint32_t)hi * 0x85EBCA6Bu);
-    h ^= h >> 16;
-    h *= 0x85EBCA6Bu;
-    h ^= h >> 13;
-    h *= 0xC2B2AE35u;
-    h ^= h >> 16;
-    return h & mask;
-}
+#define HI_THREADS 256
 
 __global__ void hi_init_kernel(int* __restrict__ tlo, int* __restrict__ thi,
                                int* __restrict__ state, int T,

@@ -50,6 +50,10 @@ class TpuHashAggregateExec(TpuExec):
         self.pre_filters = list(pre_filter or [])
         self.hash_table_slots = hash_table_slots
         self.funcs = [ae.func for _, ae in agg_exprs]
+        for e in self.group_exprs:
+            if e.dtype.is_string:
+                raise NotImplementedError(
+                    f"string group key {e.name!r} is not ported")
         for name in (NUM_INPUT_ROWS, NUM_INPUT_BATCHES, AGG_TIME,
                      CONCAT_TIME):
             self._register_metric(name)

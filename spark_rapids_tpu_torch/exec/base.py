@@ -22,6 +22,8 @@ NUM_INPUT_ROWS = "numInputRows"
 NUM_INPUT_BATCHES = "numInputBatches"
 AGG_TIME = "computeAggTime"
 CONCAT_TIME = "concatTime"
+SORT_TIME = "sortTime"
+JOIN_TIME = "joinTime"
 
 
 class TpuMetric:

@@ -1,4 +1,4 @@
-"""Basic physical operators: scan, project, filter, coalesce.
+"""Basic physical operators: scan, project, filter, coalesce, limit.
 
 Counterpart of ``spark_rapids_tpu/exec/basic.py``.  Project and filter
 each own a stage function (``ops/compiler.py``) that evaluates their whole
@@ -8,6 +8,8 @@ expression forest per batch.
 from __future__ import annotations
 
 from typing import Iterator, Sequence
+
+import torch
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import Column
@@ -70,18 +72,74 @@ class TpuScanExec(TpuExec):
             if n <= self.max_rows:
                 yield b
                 continue
-            for off in range(0, n, self.max_rows):
+            starts = list(range(0, n, self.max_rows))
+            bounds = _string_bounds(b, starts + [n])
+            for i, off in enumerate(starts):
                 m = min(self.max_rows, n - off)
-                cols = {name: Column(
-                    c.dtype, c.data[off:off + m], m,
-                    None if c.validity is None
-                    else c.validity[off:off + m])
-                    for name, c in b.columns.items()}
+                cols = {name: _slice(c, off, m, bounds.get(name), i)
+                        for name, c in b.columns.items()}
                 yield ColumnarBatch(cols, m)
 
     def describe(self):
         rows = sum(b.nrows for b in self.batches)
         return f"TpuScanExec[{rows} rows, {self.max_rows} per batch]"
+
+
+def _string_bounds(batch: ColumnarBatch, row_bounds):
+    """Per string column, its char offsets at ``row_bounds`` (host ints,
+    one counted fetch for all columns), so slices rebase to 0."""
+    names = [n for n, c in batch.columns.items() if c.offsets is not None]
+    if not names:
+        return {}
+    from spark_rapids_tpu_torch.utils import hostsync
+    idx = torch.tensor(row_bounds, device=batch.device)
+    got = hostsync.fetch_all([batch.column(n).offsets[idx] for n in names])
+    return {n: [int(x) for x in g] for n, g in zip(names, got)}
+
+
+def _slice(c: Column, off: int, m: int, char_bounds, i: int) -> Column:
+    """Rows [off, off + m) of a column (views, no copy, except a string
+    slice's rebased offsets)."""
+    validity = None if c.validity is None else c.validity[off:off + m]
+    if c.offsets is None:
+        return Column(c.dtype, c.data[off:off + m], m, validity)
+    c0, c1 = char_bounds[i], char_bounds[i + 1]
+    return Column(c.dtype, c.data[c0:c1], m, validity,
+                  offsets=c.offsets[off:off + m + 1] - c0)
+
+
+class TpuLocalLimitExec(TpuExec):
+    """The first ``n`` rows of the child's output, in order."""
+
+    def __init__(self, n: int, child: TpuExec):
+        super().__init__(child)
+        self.n = n
+
+    @property
+    def child(self) -> TpuExec:
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        remaining = self.n
+        for batch in self.child.execute():
+            if remaining <= 0:
+                return
+            if batch.nrows <= remaining:
+                remaining -= batch.nrows
+                yield batch
+                continue
+            cols = {name: Column(c.dtype, c.data, remaining, c.validity,
+                                 c.offsets)
+                    for name, c in batch.columns.items()}
+            yield ColumnarBatch(cols, remaining)
+            return
+
+    def describe(self):
+        return f"TpuLocalLimitExec[{self.n}]"
 
 
 class TpuProjectExec(TpuExec):

@@ -2,7 +2,10 @@
 
 ``batch_from_arrays`` builds the port's ColumnarBatch from what
 ``np.asarray`` on a JAX ``Column``'s buffers gives: per column a type
-name, a values array and a validity array (or None).  Tests feed one
+name, a values array and a validity array (or None).  A ``date`` column's
+values are int32 days since the epoch, a ``timestamp`` column's int64
+microseconds, and a ``string`` column's values are the pair
+``(offsets, chars)`` (int offsets[n+1] from 0, uint8 chars).  Tests feed one
 numpy-seeded table to both engines this way; a table is the database's
 counterpart of a model's weights.
 """
@@ -26,9 +29,14 @@ def batch_from_arrays(
     cols = {}
     nrows = None
     for name, (type_name, values, validity) in columns.items():
-        col = Column.from_numpy(np.asarray(values),
-                                dtype=dtype_from_name(type_name),
-                                validity=validity, device=device)
+        dtype = dtype_from_name(type_name)
+        if dtype.is_string:
+            offsets, chars = values
+            col = Column.from_string_buffers(offsets, chars, validity,
+                                             device=device)
+        else:
+            col = Column.from_numpy(np.asarray(values), dtype=dtype,
+                                    validity=validity, device=device)
         if nrows is None:
             nrows = col.nrows
         elif col.nrows != nrows:

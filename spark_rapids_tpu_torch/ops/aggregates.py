@@ -214,40 +214,58 @@ def _sentinel(kind: str, dtype: torch.dtype):
 
 # ---------------------------------------------------------------- sort path --
 
-def _order_keys(v: torch.Tensor) -> List[torch.Tensor]:
-    """Sort-key pieces (least-significant first) for Spark's ascending
-    order of one column: floats sort as a normalized value plus a more
-    significant NaN flag (NaN largest, -0.0 == 0.0)."""
+def _order_keys(v: torch.Tensor, desc: bool = False) -> List[torch.Tensor]:
+    """Sort-key pieces (least-significant first) for Spark's order of one
+    column: floats sort as a normalized value plus a more significant NaN
+    flag (NaN largest, -0.0 == 0.0), negated for descending; integers,
+    dates and bools descend through bitwise-not, which reverses
+    two's-complement order."""
     if v.dtype.is_floating_point:
         nan = torch.isnan(v)
         zero = torch.zeros((), dtype=v.dtype, device=v.device)
         f = torch.where((v == 0) | nan, zero, v)
-        return [f, nan.to(torch.int8)]
+        flag = nan.to(torch.int8)
+        return [-f, -flag] if desc else [f, flag]
     if v.dtype == torch.bool:
-        return [v.to(torch.int8)]
-    return [v]
+        v = v.to(torch.int8)
+    return [~v] if desc else [v]
 
 
-def _sortable_keys(keys: Sequence[ColVal], valid_rows) -> List[torch.Tensor]:
-    """Sort keys, least-significant first; dead rows sort last and nulls
-    first.  Null rows' values canonicalize to 0 before the order keys are
-    built, so all nulls of a column form one group."""
+def _sortable_keys(keys: Sequence[ColVal], valid_rows,
+                   descending: Optional[Sequence[bool]] = None,
+                   nulls_first: Optional[Sequence[bool]] = None
+                   ) -> List[torch.Tensor]:
+    """Sort keys, least-significant first; dead rows sort last.  Nulls
+    go first ascending and last descending unless ``nulls_first`` says
+    otherwise (Spark's defaults).  Null rows' values canonicalize to 0
+    before the order keys are built, so all nulls of a column form one
+    group."""
+    n = len(keys)
+    descending = list(descending or [False] * n)
+    nulls_first = list(nulls_first or [not d for d in descending])
     lex: List[torch.Tensor] = []
-    for c in reversed(list(keys)):
+    for c, desc, nf in zip(reversed(list(keys)), reversed(descending),
+                           reversed(nulls_first)):
         v = c.values
         if c.validity is not None:
             v = torch.where(c.validity, v, torch.zeros_like(v))
-        lex.extend(_order_keys(v))
+        lex.extend(_order_keys(v, desc))
         if c.validity is not None:
-            lex.append(-(~c.validity).to(torch.int8))
+            null_key = (~c.validity).to(torch.int8)
+            lex.append(-null_key if nf else null_key)
     lex.append((~valid_rows).to(torch.int8))
     return lex
 
 
-def sort_permutation(keys: Sequence[ColVal], valid_rows) -> torch.Tensor:
-    """Stable lexicographic sort permutation (int64)."""
+def sort_permutation(keys: Sequence[ColVal], valid_rows,
+                     descending: Optional[Sequence[bool]] = None,
+                     nulls_first: Optional[Sequence[bool]] = None
+                     ) -> torch.Tensor:
+    """Stable lexicographic sort permutation (int64): one stable argsort
+    pass per key piece, least significant first.  Defaults sort every
+    key ascending with nulls first (the group-by's order)."""
     perm = torch.arange(valid_rows.shape[0], device=valid_rows.device)
-    for k in _sortable_keys(keys, valid_rows):
+    for k in _sortable_keys(keys, valid_rows, descending, nulls_first):
         perm = perm[torch.argsort(k[perm], stable=True)]
     return perm
 
@@ -342,8 +360,9 @@ MAX_CODED_GROUPS = 1 << 21
 
 
 def coded_key_eligible(dtypes) -> bool:
-    """Keys a radix code can address: fixed-width, non-float."""
-    return all(not dt.is_floating for dt in dtypes)
+    """Keys a radix code can address: fixed-width, non-float (integers,
+    bools, dates and timestamps)."""
+    return all(not dt.is_floating and not dt.has_offsets for dt in dtypes)
 
 
 def key_range_probe(keys: Sequence[ColVal], live):

@@ -21,7 +21,7 @@ from spark_rapids_tpu_torch.ops.expressions import (
 
 def batch_to_colvals(batch: ColumnarBatch,
                      dtypes: Sequence[DataType]) -> List[ColVal]:
-    return [ColVal(dt, c.data, c.validity)
+    return [ColVal(dt, c.data, c.validity, c.offsets)
             for c, dt in zip(batch.columns.values(), dtypes)]
 
 
@@ -37,15 +37,21 @@ def batch_context(batch: ColumnarBatch,
 
 
 def widen(c: ColVal, capacity: int) -> ColVal:
-    """Scalar values/validity (literal operands) widen to full columns."""
+    """Scalar values/validity (literal operands) widen to full columns.
+    A string column's chars are not rows and stay as they are; a string
+    literal does not widen into a column in this port."""
     v, val = c.values, c.validity
-    if v.dim() == 0:
+    if c.offsets is not None:
+        if c.offsets.shape[0] != capacity + 1:
+            raise NotImplementedError(
+                "a string literal as a column is not ported")
+    elif v.dim() == 0:
         v = v.expand(capacity)
     if val is not None and val.dim() == 0:
         val = val.expand(capacity)
     if v is c.values and val is c.validity:
         return c
-    return ColVal(c.dtype, v, val)
+    return ColVal(c.dtype, v, val, c.offsets)
 
 
 def colvals_to_columns(outs: Sequence[ColVal], nrows,
@@ -58,7 +64,8 @@ def colvals_to_columns(outs: Sequence[ColVal], nrows,
         o = widen(o, capacity)
         values = o.values.contiguous()
         validity = None if o.validity is None else o.validity.contiguous()
-        cols.append(Column(o.dtype, values, nrows, validity=validity))
+        cols.append(Column(o.dtype, values, nrows, validity=validity,
+                           offsets=o.offsets))
     return cols
 
 

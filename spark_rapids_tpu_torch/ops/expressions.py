@@ -9,15 +9,18 @@ Null semantics follow Spark SQL: null-propagating binary ops, Kleene logic
 for AND/OR, null on division by zero.  Validity is a bool tensor (or None =
 all valid) carried beside the values.  Literals carry their Spark type: a
 Python float is a DOUBLE literal and becomes a float64 tensor, never
-torch's default float32, and an int is a BIGINT that an int column meets
-through :func:`promote_types`.
+torch's default float32, an int is a BIGINT that an int column meets
+through :func:`promote_types`, a ``datetime.date`` is a DATE (int32 days)
+and a str is a STRING (its UTF-8 bytes with offsets ``[0, len]``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dts
@@ -29,10 +32,13 @@ class ColVal:
     """A column value during evaluation: values + optional validity.
 
     ``values`` is a (capacity,) tensor, or a 0-dim tensor for scalar
-    literals; torch broadcasting does the rest."""
+    literals; torch broadcasting does the rest.  For strings ``values``
+    holds the uint8 chars and ``offsets`` the int32 row offsets (a string
+    literal's offsets are ``[0, len]``)."""
     dtype: DataType
     values: Any
     validity: Optional[Any] = None   # bool tensor, None = all valid
+    offsets: Optional[Any] = None    # strings only
 
 
 def combine_validity(*vs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -208,7 +214,6 @@ class BoundReference(Expression):
 
 
 def _infer_literal_type(value) -> DataType:
-    import numpy as np
     if value is None:
         raise ValueError("null literal needs an explicit dtype")
     if isinstance(value, (bool, np.bool_)):
@@ -217,7 +222,24 @@ def _infer_literal_type(value) -> DataType:
         return dts.INT32 if isinstance(value, np.int32) else dts.INT64
     if isinstance(value, (float, np.floating)):
         return dts.FLOAT64
-    raise ValueError(f"cannot infer a numeric literal type for {value!r}")
+    if isinstance(value, str):
+        return dts.STRING
+    if isinstance(value, (np.datetime64, datetime.datetime)):
+        return dts.TIMESTAMP_US
+    if isinstance(value, datetime.date):
+        return dts.DATE32
+    raise ValueError(f"cannot infer a literal type for {value!r}")
+
+
+def literal_storage_value(value, dtype: DataType):
+    """Host value -> its storage value: dates as int32 days since the
+    epoch, timestamps as int64 microseconds (the JAX package's
+    conversion)."""
+    if dtype.is_timestamp and not isinstance(value, (int, np.integer)):
+        return int(np.datetime64(value, "us").astype(np.int64))
+    if dtype.is_date and not isinstance(value, (int, np.integer)):
+        return int(np.datetime64(value, "D").astype(np.int32))
+    return value
 
 
 class Literal(Expression):
@@ -241,8 +263,17 @@ class Literal(Expression):
                           torch.zeros((), dtype=tdt, device=ctx.device),
                           torch.zeros((), dtype=torch.bool,
                                       device=ctx.device))
-        return ColVal(self._dtype,
-                      torch.tensor(self.value, dtype=tdt, device=ctx.device))
+        if self._dtype.is_string:
+            data = np.frombuffer(str(self.value).encode("utf-8"),
+                                 dtype=np.uint8).copy()
+            return ColVal(self._dtype,
+                          torch.from_numpy(data).to(ctx.device),
+                          offsets=torch.tensor([0, len(data)],
+                                               dtype=torch.int32,
+                                               device=ctx.device))
+        return ColVal(self._dtype, torch.tensor(
+            literal_storage_value(self.value, self._dtype), dtype=tdt,
+            device=ctx.device))
 
     @property
     def name(self) -> str:
@@ -369,21 +400,32 @@ _NUMERIC_ORDER = ["tinyint", "smallint", "int", "bigint", "float", "double"]
 
 
 def promote_types(a: DataType, b: DataType) -> DataType:
-    """Spark's numeric widening for binary arithmetic and comparison."""
+    """Spark's widening for binary arithmetic and comparison: numeric
+    widening; a date meets a timestamp as a timestamp; a date meets a
+    date, and a string a string, unchanged."""
     if a.name == b.name:
         return a
     if a.name in _NUMERIC_ORDER and b.name in _NUMERIC_ORDER:
         return dts.dtype_from_name(
             _NUMERIC_ORDER[max(_NUMERIC_ORDER.index(a.name),
                                _NUMERIC_ORDER.index(b.name))])
+    if a.is_datetime and b.is_datetime:
+        return dts.TIMESTAMP_US
     raise TypeError(f"cannot promote {a} and {b}")
 
 
+_MICROS_PER_DAY = 86_400_000_000
+
+
 def cast_value(v: ColVal, target: DataType) -> ColVal:
-    """Implicit numeric promotion: a widening cast of the storage.
-    Narrowing and non-numeric casts arrive with the cast module."""
+    """Implicit promotion: a widening cast of the storage, or a date to
+    a timestamp (days to microseconds at midnight UTC).  Narrowing and
+    other casts arrive with the cast module."""
     if v.dtype.name == target.name:
         return v
     if promote_types(v.dtype, target).name != target.name:
         raise TypeError(f"implicit cast {v.dtype} -> {target} narrows")
+    if v.dtype.is_date and target.is_timestamp:
+        return ColVal(target, v.values.to(torch.int64) * _MICROS_PER_DAY,
+                      v.validity)
     return ColVal(target, v.values.to(dts.torch_dtype(target)), v.validity)

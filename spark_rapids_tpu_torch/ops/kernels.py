@@ -1,4 +1,4 @@
-"""The engine's two hand-written GPU kernels and their plain versions.
+"""The engine's hand-written GPU kernels and their plain versions.
 
 Counterpart of ``spark_rapids_tpu/ops/pallas_kernels.py``.  Each kernel is
 CUDA C++ under ``spark_rapids_tpu_torch/csrc/``, compiled for ``sm_90a``
@@ -26,6 +26,13 @@ kernel or raises; nothing falls back.
   codes is contractual; the kernel (parallel linear probing) and the plain
   version (the JAX package's salted sub-table cascade) lay tables out
   differently.
+- ``hash_probe``: for each live row, the slot of a ``hash_insert`` table
+  holding its code, or ``T`` on a miss; the probe half of the single-key
+  equi-join's hash phase A (``ops/joins.hash_join_match``).  A table is
+  valid only against the probe of its own pair: the CUDA probe walks the
+  CUDA insert's linear-probing layout, the plain probe the plain insert's
+  cascade.  Both wrappers follow the tensors' device, so a table and its
+  probe always come from the same pair.
 
 Each wrapper adds one to ``launches`` where it calls into the library,
 and nowhere else.
@@ -59,7 +66,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class KernelLaunches:
     """Process-wide launch counts, one plain integer per kernel."""
 
-    NAMES = ("masked_multi_reduce", "hash_insert")
+    NAMES = ("masked_multi_reduce", "hash_insert", "hash_probe")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -111,7 +118,7 @@ class _KernelLibrary:
 
     def _digest(self, sources) -> str:
         h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-        for src in sources:
+        for src in sorted(sources + list(_CSRC.glob("*.cuh"))):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return h.hexdigest()[:16]
@@ -166,6 +173,10 @@ class _KernelLibrary:
                     vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, vp, vp, vp, vp, vp, vp, vp]
                 lib.srt_hash_insert.restype = ctypes.c_int
+                lib.srt_hash_probe.argtypes = [
+                    vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, vp, vp, vp, vp, ctypes.c_int, vp]
+                lib.srt_hash_probe.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
 
@@ -434,3 +445,73 @@ def _hash_insert_cuda(code_lo, code_hi, live, num_slots: int,
     launches.bump("hash_insert")
     _check_launch(err, "hash_insert")
     return slot, tlo, thi, occ, ovf[0]
+
+
+# -------------------------------------------------------------- hash probe --
+
+_HP_THREADS = 256
+
+
+def hash_probe(code_lo: torch.Tensor, code_hi: torch.Tensor,
+               live: torch.Tensor, table_lo: torch.Tensor,
+               table_hi: torch.Tensor, occupied: torch.Tensor,
+               max_probe: int = MAX_PROBE) -> torch.Tensor:
+    """Slot (int32[n]) of a ``hash_insert`` table holding each live row's
+    code ``(hi << 32) | (lo & 0xFFFFFFFF)``, or ``T`` on a miss and for
+    dead rows.  The table must come from :func:`hash_insert` on the same
+    device (the pairs lay tables out differently)."""
+    if live.device.type == "cpu":
+        return hash_probe_plain(code_lo, code_hi, live, table_lo, table_hi,
+                                occupied)
+    return _hash_probe_cuda(code_lo, code_hi, live, table_lo, table_hi,
+                            occupied, max_probe)
+
+
+def hash_probe_plain(code_lo, code_hi, live, table_lo, table_hi, occupied):
+    """Plain PyTorch version: the JAX package's ``hash_probe_xla``.  One
+    salted-hash lookup per level of the plain insert's cascade; a stored
+    code sits at exactly the level that stored it, so the levels OR
+    together.  Valid only against a table from :func:`hash_insert_plain`."""
+    T = occupied.shape[0]
+    code64 = (code_hi.to(torch.int64) << 32) | (code_lo.to(torch.int64)
+                                                & _U32)
+    t64 = (table_hi.to(torch.int64) << 32) | (table_lo.to(torch.int64)
+                                              & _U32)
+    slot = torch.full((code_lo.shape[0],), T, dtype=torch.int64,
+                      device=code_lo.device)
+    for lvl, (off, size) in enumerate(_plain_level_plan(T)):
+        idx = off + hash_index_plain(code_lo, code_hi, size,
+                                     salt=lvl * 0x9E3779B9).to(torch.int64)
+        hit = live & occupied[idx] & (t64[idx] == code64)
+        slot = torch.where(hit, idx, slot)
+    return slot.to(torch.int32)
+
+
+def _hash_probe_cuda(code_lo, code_hi, live, table_lo, table_hi, occupied,
+                     max_probe: int):
+    lib = library()
+    device = live.device
+    if device.type != "cuda":
+        raise ValueError(f"hash_probe: unsupported device {device}")
+    n = live.shape[0]
+    T = occupied.shape[0]
+    _require(code_lo, "code_lo", torch.int32, device, n)
+    _require(code_hi, "code_hi", torch.int32, device, n)
+    _require(live, "live", torch.bool, device, n)
+    _require(table_lo, "table_lo", torch.int32, device, T)
+    _require(table_hi, "table_hi", torch.int32, device, T)
+    _require(occupied, "occupied", torch.bool, device, T)
+    if T < 1 or T & (T - 1) or T >= (1 << 31):
+        raise ValueError(f"hash_probe: table of {T} slots is not a power "
+                         "of two below 2^31")
+    slot = torch.empty(n, dtype=torch.int32, device=device)
+    if n == 0:
+        return slot
+    blocks = max(1, min(-(-n // _HP_THREADS), 32 * _sm_count(device)))
+    err = lib.srt_hash_probe(
+        code_lo.data_ptr(), code_hi.data_ptr(), live.data_ptr(), n, T,
+        max_probe, table_lo.data_ptr(), table_hi.data_ptr(),
+        occupied.data_ptr(), slot.data_ptr(), blocks, _stream(device))
+    launches.bump("hash_probe")
+    _check_launch(err, "hash_probe")
+    return slot

@@ -1,9 +1,12 @@
 """Comparison, logic and null-test expressions.
 
-Counterpart of ``spark_rapids_tpu/ops/predicates.py``, numeric operands
-only.  Spark semantics kept: AND/OR use Kleene three-valued logic (null AND
-false = false); float comparisons treat NaN = NaN as true and NaN as the
-largest value; -0.0 compares equal to 0.0.
+Counterpart of ``spark_rapids_tpu/ops/predicates.py``.  Numeric, date and
+timestamp operands compare through their storage (a date meets a
+timestamp as a timestamp); strings support equality (``==`` and ``!=``)
+through ``stringops.string_equal``, and their ordering comparisons are
+not ported yet.  Spark semantics kept: AND/OR use Kleene three-valued
+logic (null AND false = false); float comparisons treat NaN = NaN as true
+and NaN as the largest value; -0.0 compares equal to 0.0.
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.ops.expressions import (
-    BinaryExpression, ColVal, EmitContext, UnaryExpression)
+    BinaryExpression, ColVal, EmitContext, UnaryExpression,
+    combine_validity)
 
 
 def _is_float(v) -> bool:
@@ -20,12 +24,29 @@ def _is_float(v) -> bool:
 
 
 class _Comparison(BinaryExpression):
+    # strings: only equality is ported (stringops.string_equal)
+    _string_equality = False
+
     @property
     def dtype(self):
         return dts.BOOL
 
+    def emit(self, ctx: EmitContext) -> ColVal:
+        if self.left.dtype.is_string and self.right.dtype.is_string:
+            if not self._string_equality:
+                raise NotImplementedError(
+                    f"{type(self).__name__} on strings is not ported")
+            from spark_rapids_tpu_torch.ops import stringops
+            l = self.left.emit(ctx)
+            r = self.right.emit(ctx)
+            return ColVal(dts.BOOL, stringops.string_equal(l, r, ctx),
+                          combine_validity(l.validity, r.validity))
+        return super().emit(ctx)
+
 
 class EqualTo(_Comparison):
+    _string_equality = True
+
     def eval_values(self, l, r):
         eq = l == r
         if _is_float(l):
@@ -118,6 +139,12 @@ class Not(UnaryExpression):
         return torch.logical_not(v)
 
 
+def _row_shape(c: ColVal, ctx: EmitContext):
+    """Shape of one value per row of ``c``: a string column's values are
+    its chars, so its rows come from the context."""
+    return (ctx.capacity,) if c.offsets is not None else c.values.shape
+
+
 class IsNull(UnaryExpression):
     @property
     def dtype(self):
@@ -131,7 +158,7 @@ class IsNull(UnaryExpression):
         c = self.child.emit(ctx)
         if c.validity is None:
             return ColVal(dts.BOOL, torch.zeros(
-                c.values.shape, dtype=torch.bool, device=ctx.device))
+                _row_shape(c, ctx), dtype=torch.bool, device=ctx.device))
         return ColVal(dts.BOOL, torch.logical_not(c.validity))
 
 
@@ -148,5 +175,5 @@ class IsNotNull(UnaryExpression):
         c = self.child.emit(ctx)
         if c.validity is None:
             return ColVal(dts.BOOL, torch.ones(
-                c.values.shape, dtype=torch.bool, device=ctx.device))
+                _row_shape(c, ctx), dtype=torch.bool, device=ctx.device))
         return ColVal(dts.BOOL, c.validity)

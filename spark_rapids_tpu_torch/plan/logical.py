@@ -1,7 +1,9 @@
 """Logical plan nodes.
 
-Counterpart of ``spark_rapids_tpu/plan/logical.py``, cut to the nodes this
-slice plans: an in-memory relation, Project, Filter and Aggregate.  The
+Counterpart of ``spark_rapids_tpu/plan/logical.py``, cut to the nodes the
+ported slices plan: an in-memory relation, Project (also the plan node of
+``withColumnRenamed``), Filter, Aggregate, Join (equi-join keys, no
+residual condition), Sort and Limit.  The
 DataFrame API builds them and ``plan/overrides.py`` lowers them to
 physical operators.
 """
@@ -9,7 +11,7 @@ physical operators.
 from __future__ import annotations
 
 import copy
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
@@ -121,3 +123,67 @@ class Aggregate(LogicalPlan):
         out = [(e.name, e.dtype) for e in self.group_exprs]
         out += [(e.name, e.dtype) for e in self.agg_exprs]
         return out
+
+
+class Join(LogicalPlan):
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], join_type: str,
+                 using: Optional[Sequence[str]] = None):
+        self.left_keys = [e.bind(left.schema) for e in left_keys]
+        self.right_keys = [e.bind(right.schema) for e in right_keys]
+        self.join_type = join_type
+        self.using = list(using) if using else None
+        self.children = (left, right)
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    @property
+    def schema(self) -> Schema:
+        left = self.left.schema
+        right = self.right.schema
+        if self.join_type in ("semi", "anti"):
+            return list(left)
+        if self.using:
+            keyset = set(self.using)
+            out = [(n, dt) for n, dt in left if n in keyset]
+            out += [(n, dt) for n, dt in left if n not in keyset]
+            out += [(n, dt) for n, dt in right if n not in keyset]
+            return out
+        return list(left) + list(right)
+
+
+class Sort(LogicalPlan):
+    def __init__(self, orders: Sequence[Tuple[Expression, bool, bool]],
+                 child: LogicalPlan):
+        """orders: (expr, descending, nulls_first)"""
+        self.orders = [(e.bind(child.schema), d, nf) for e, d, nf in orders]
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        self.n = int(n)
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        return self.child.schema

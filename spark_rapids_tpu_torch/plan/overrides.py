@@ -1,8 +1,9 @@
 """The planner: logical plan -> physical operators.
 
 Counterpart of ``spark_rapids_tpu/plan/overrides.py``, cut to the
-converters of this slice (in-memory relation, Project, Filter, Aggregate),
-``_plan_aggregate`` and the fusion pass the JAX planner applies to them: a
+converters of the ported slices (in-memory relation, Project, Filter,
+Aggregate, Join, Sort, Limit), ``_plan_aggregate``, the ``Limit(Sort) ->
+TopN`` rewrite and the fusion pass the JAX planner applies: a
 Project/Filter chain under an Aggregate folds into the aggregate (its
 predicates become the row mask), and any other chain of two or more
 members collapses into one FusedStageExec.  There is no CPU fallback: a
@@ -16,7 +17,9 @@ from typing import List, Optional
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.basic import (
-    TpuFilterExec, TpuProjectExec, TpuScanExec)
+    TpuFilterExec, TpuLocalLimitExec, TpuProjectExec, TpuScanExec)
+from spark_rapids_tpu_torch.exec.join import TpuHashJoinExec
+from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
 from spark_rapids_tpu_torch.exec.fusion import (
     FusedStageExec, compose_chain, fusion_metrics)
 from spark_rapids_tpu_torch.ops.expressions import (
@@ -85,8 +88,9 @@ class TpuOverrides:
         self.conf = conf
         self.device = device
         self.fusion_enabled = conf.get(rc.FUSION_ENABLED)
+        self.hash_enabled = conf.get(rc.PALLAS_HASH_ENABLED)
         self.hash_table_slots = conf.get(rc.PALLAS_HASH_TABLE_SLOTS) \
-            if conf.get(rc.PALLAS_HASH_ENABLED) else None
+            if self.hash_enabled else None
         self._chain_nodes: set = set()
 
     def apply(self, plan: L.LogicalPlan):
@@ -105,6 +109,10 @@ class TpuOverrides:
             fused = self._try_fuse_aggregate(node)
             if fused is not None:
                 return fused
+        # Limit(Sort) -> TopN (the TakeOrderedAndProject rewrite)
+        if isinstance(node, L.Limit) and isinstance(node.child, L.Sort):
+            return TpuTopNExec(node.n, node.child.orders,
+                               self._convert(node.child.child))
         if isinstance(node, (L.Project, L.Filter)):
             fused = self._try_fuse_chain(node)
             if fused is not None:
@@ -121,6 +129,16 @@ class TpuOverrides:
             return _plan_aggregate(node.group_exprs, node.agg_exprs,
                                    children[0], self.device,
                                    hash_table_slots=self.hash_table_slots)
+        if isinstance(node, L.Join):
+            return TpuHashJoinExec(
+                node.left_keys, node.right_keys, node.join_type,
+                children[0], children[1], self.device, using=node.using,
+                max_output_rows=self.conf.get(rc.JOIN_OUTPUT_BATCH_ROWS),
+                hash_enabled=self.hash_enabled)
+        if isinstance(node, L.Sort):
+            return TpuSortExec(node.orders, children[0])
+        if isinstance(node, L.Limit):
+            return TpuLocalLimitExec(node.n, children[0])
         raise NotImplementedError(
             f"{type(node).__name__} is not ported to the PyTorch engine")
 

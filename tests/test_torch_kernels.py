@@ -168,6 +168,96 @@ def test_hash_index_bit_for_bit(num_slots, salt):
     np.testing.assert_array_equal(got, want)
 
 
+# -------------------------------------------------------------- hash probe --
+
+_EXTREMES = np.array([0, -1, np.iinfo(np.int64).min, np.iinfo(np.int64).max],
+                     dtype=np.int64)
+
+
+def _probe_case(n, T, case, seed):
+    """Build codes (distinct, with the int64 extremes) and probe codes:
+    about half hits, the rest absent keys, 10% dead; or an all-dead
+    batch."""
+    rng = np.random.default_rng(seed)
+    pool = np.unique(np.concatenate([
+        _EXTREMES, rng.integers(-(1 << 62), 1 << 62, 2 * n,
+                                dtype=np.int64)]))
+    rng.shuffle(pool)
+    build = np.concatenate([_EXTREMES, pool[~np.isin(pool, _EXTREMES)]])
+    build = build[: max(min(T // 2, n), len(_EXTREMES))]
+    absent = pool[~np.isin(pool, build)]
+    hits = build[rng.integers(0, len(build), n)]
+    misses = absent[rng.integers(0, len(absent), n)]
+    probe = np.where(rng.random(n) < 0.5, hits, misses)
+    probe[: len(_EXTREMES)] = _EXTREMES[: min(n, len(_EXTREMES))]
+    live = rng.random(n) >= 0.1
+    if case == "all_dead":
+        live[:] = False
+    return build, probe, live
+
+
+def _check_probe_contract(build, probe, live, table, slot, T):
+    """Per row: hit iff live and the code is stored; on a hit the stored
+    code at the slot is the row's; misses and dead rows sit at T."""
+    _, tlo, thi, occ, ovf = [np.asarray(x) for x in table]
+    slot = np.asarray(slot).astype(np.int64)
+    assert not bool(ovf)
+    t64 = (thi.astype(np.int64) << 32) | (tlo.astype(np.int64) & 0xFFFFFFFF)
+    want_hit = live & np.isin(probe, build)
+    np.testing.assert_array_equal(slot < T, want_hit)
+    assert (slot[~want_hit] == T).all()
+    hit_slots = slot[want_hit]
+    assert occ[hit_slots].all()
+    np.testing.assert_array_equal(t64[hit_slots], probe[want_hit])
+    return want_hit
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_dead"])
+@pytest.mark.parametrize("n,T", [(64, 64), (700, 1024), (2048, 4096)])
+def test_hash_probe_matches_jax(n, T, case):
+    build, probe, live = _probe_case(n, T, case, seed=n + T)
+    blo, bhi = _split(build)
+    plo, phi = _split(probe)
+    blive = np.ones(len(build), dtype=bool)
+    t_table = K.hash_insert_plain(torch.from_numpy(blo),
+                                  torch.from_numpy(bhi),
+                                  torch.from_numpy(blive), T)
+    t_args = (torch.from_numpy(plo), torch.from_numpy(phi),
+              torch.from_numpy(live)) + tuple(t_table[1:4])
+    t_plain = K.hash_probe_plain(*t_args)
+    t_wrap = K.hash_probe(*t_args)
+    assert t_plain.dtype == torch.int32
+    j_build = (jnp.asarray(blo), jnp.asarray(bhi), jnp.asarray(blive), T)
+    j_probe = (jnp.asarray(plo), jnp.asarray(phi), jnp.asarray(live))
+    j_xla = pk.hash_insert_xla(*j_build)
+    j_pallas = pk.hash_insert(*j_build, interpret=True)
+    pairs = [(t_table, t_plain), (t_table, t_wrap),
+             (j_xla, pk.hash_probe_xla(*j_probe, *j_xla[1:4])),
+             (j_pallas, pk.hash_probe(*j_probe, *j_pallas[1:4],
+                                      interpret=True))]
+    hits = [_check_probe_contract(build, probe, live,
+                                  [x.numpy() if hasattr(x, "numpy") else x
+                                   for x in table], slot, T)
+            for table, slot in pairs]
+    for h in hits[1:]:
+        np.testing.assert_array_equal(h, hits[0])
+    # the plain pair shares the XLA pair's layout: slots agree exactly
+    np.testing.assert_array_equal(t_plain.numpy(), np.asarray(pairs[2][1]))
+    if case == "all_dead":
+        assert not hits[0].any()
+    else:
+        assert 0 < hits[0].sum() < n
+
+
+def test_hash_probe_empty():
+    e = torch.zeros(0, dtype=torch.int32)
+    table = K.hash_insert(torch.arange(5, dtype=torch.int32),
+                          torch.zeros(5, dtype=torch.int32),
+                          torch.ones(5, dtype=torch.bool), 64)
+    out = K.hash_probe(e, e, torch.zeros(0, dtype=torch.bool), *table[1:4])
+    assert out.shape == (0,) and out.dtype == torch.int32
+
+
 # ------------------------------------------------- no fallback on the card --
 
 def _raise_loader():
@@ -184,14 +274,20 @@ def test_cuda_branch_raises_and_never_runs_plain(monkeypatch):
                         lambda *a: calls.append("mmr"))
     monkeypatch.setattr(K, "hash_insert_plain",
                         lambda *a: calls.append("hash"))
+    monkeypatch.setattr(K, "hash_probe_plain",
+                        lambda *a: calls.append("probe"))
     dev = torch.device("meta")
     v = torch.empty(8, dtype=torch.float64, device=dev)
     m = torch.empty(8, dtype=torch.bool, device=dev)
     i = torch.empty(8, dtype=torch.int32, device=dev)
+    t = torch.empty(64, dtype=torch.int32, device=dev)
+    occ = torch.empty(64, dtype=torch.bool, device=dev)
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         K.masked_multi_reduce([v], [None], m)
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         K.hash_insert(i, i, m, 64)
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        K.hash_probe(i, i, m, t, t, occ)
     assert calls == []
     assert K.launches.snapshot() == {"masked_multi_reduce": 0,
-                                     "hash_insert": 0}
+                                     "hash_insert": 0, "hash_probe": 0}
