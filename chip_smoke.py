@@ -19,7 +19,14 @@ with the kernel launch counts reset just before it and read just after:
   joins, the three-key group-by, TopN;
 - the fact-dim hash join (2^26 fact rows against 2^19 dim rows, then a
   group-by on the key), hash path on (``hash_insert`` + ``hash_probe`` in
-  every probe batch) and off.
+  every probe batch) and off;
+- the sharded query path on 8 logical shards of the card
+  (``spark.rapids.sql.distributed.numShards=8``): q6 and the q1 shape at
+  2^26 rows, the sparse-key group-by, the fact-dim join as a shuffle
+  (2^19 build rows are past the 2^16 broadcast threshold) and
+  ``orderBy`` / TopN of the 2^22-row sparse table, each beside its
+  single-device twin; and the q1 shape at 2^22 rows through a one-rank
+  NCCL process group against one logical shard.
 
 Answers are checked against numpy / pandas oracles on the same host data.
 
@@ -53,6 +60,10 @@ Q3_SF = 10
 FACT_ROWS = 1 << 26
 DIM_ROWS = 1 << 19
 BATCH_ROWS = 1 << 22
+NSHARDS = 8
+HIST_FACT_ROWS = FACT_ROWS // NSHARDS   # the join's stats pass per shard
+HIST_BUCKET_ROWS = 1 << 19              # an aggregate's bucket stats pass
+PG_ROWS = 1 << 22
 
 KERNEL_RTOL = 1e-12   # kernel vs plain float sums (another summation order)
 QUERY_RTOL = 1e-9     # engine vs numpy oracle (bench.py's own q6 check)
@@ -136,6 +147,26 @@ class Timer:
             torch.cuda.synchronize()
             times.append(a.elapsed_time(b))
         return float(np.median(times))
+
+    def device_ms(self, fn, kernel: str, reps: int = 10):
+        """Median device time of the kernels named ``kernel`` in a
+        ``torch.profiler`` trace of ``reps`` calls, the L2 cache flushed
+        before each: the kernel alone, without the host work that the
+        event timing above includes.  None if the trace holds none."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        fn()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        times = [(e.time_range.end - e.time_range.start) / 1e3
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        return float(np.median(times)) if times else None
 
 
 # --------------------------------------------------------- kernel checks --
@@ -347,6 +378,125 @@ def fact_dim_oracle(fact, dim):
     return k, sv, sw
 
 
+def check_hist(torch, K, device, n, parts, rng, live):
+    """partition_histogram against its plain version, bit for bit, on
+    ``n`` pids in [0, parts) with a ``live`` mask, through the vector
+    path (aligned tensors) and the scalar path (views one row in)."""
+    pids = torch.from_numpy(
+        rng.integers(0, parts, n).astype(np.int32)).to(device)
+    mask = live.to(device)
+    tag = f"partition_histogram n={n} parts={parts}"
+    err = 0
+    for what, p, m in (("aligned", pids, mask),
+                       ("offset", pids[1:], mask[1:])):
+        got = K.partition_histogram(p, m, parts)
+        want = K.partition_histogram_plain(p, m, parts)
+        torch.cuda.synchronize()
+        err = max(err, int((got - want).abs().max()))
+        check(torch.equal(got, want) and int(got.sum()) == int(m.sum()),
+              f"{tag} {what}: counts equal plain ({int(got.sum())} live)")
+    return pids, mask, err
+
+
+def check_hist_edges(torch, K, device, rng):
+    n, parts = 1 << 20, 8
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    empty_i = torch.zeros(0, dtype=torch.int32, device=device)
+    empty_b = torch.zeros(0, dtype=torch.bool, device=device)
+    before = K.launches.snapshot()["partition_histogram"]
+    got = K.partition_histogram(empty_i, empty_b, parts)
+    check(got.tolist() == [0] * parts
+          and K.launches.snapshot()["partition_histogram"] == before,
+          "partition_histogram empty input: zeros, no launch")
+    pids = torch.from_numpy(
+        rng.integers(0, parts, n).astype(np.int32)).to(device)
+    got = K.partition_histogram(pids, torch.zeros_like(ones), parts)
+    check(got.tolist() == [0] * parts,
+          "partition_histogram all rows masked: zeros")
+    bad = pids.clone()
+    sel = torch.from_numpy(rng.random(n) < 0.25).to(device)
+    junk = torch.tensor([-1, parts, parts + 3, 1 << 30, -(1 << 31)],
+                        dtype=torch.int32, device=device)
+    bad[sel] = junk[torch.randint(0, 5, (int(sel.sum()),),
+                                  device=device)]
+    got = K.partition_histogram(bad, ones, parts)
+    want = K.partition_histogram_plain(bad, ones, parts)
+    check(torch.equal(got, want) and int(got.sum()) == int((~sel).sum()),
+          f"partition_histogram out-of-range pids counted nowhere "
+          f"({int(sel.sum())} of {n})")
+    wide = 4096  # 128 KB of warp histograms: past the 48 KB default
+    wp = torch.from_numpy(rng.integers(0, wide, n).astype(np.int32)).to(
+        device)
+    check(torch.equal(K.partition_histogram(wp, ones, wide),
+                      K.partition_histogram_plain(wp, ones, wide)),
+          f"partition_histogram parts={wide}: counts equal plain")
+    try:
+        K.partition_histogram(wp, ones, 1 << 16)
+    except ValueError as exc:
+        check(True, f"partition_histogram parts=65536 refused: {exc}")
+    else:
+        check(False, "partition_histogram parts=65536 should be refused")
+
+
+def time_hist(torch, K, timer, pids, mask, parts, hbm, label):
+    """(kernel, plain, library, bound ms, bound_by) at one shape."""
+    n = pids.shape[0]
+    ms = timer.ms(lambda: K.partition_histogram(pids, mask, parts))
+    plain_ms = timer.ms(
+        lambda: K.partition_histogram_plain(pids, mask, parts))
+    lib_ms = timer.ms(lambda: torch.bincount(
+        torch.where(mask, pids, parts), minlength=parts + 1)[:parts])
+    # a pid and a mask byte in per row, the counts out; a compare and an
+    # add per row
+    nbytes = 5 * n + 4 * parts
+    bound, by = roofline(nbytes, 2 * n, hbm)
+    dev = timer.device_ms(lambda: K.partition_histogram(pids, mask, parts),
+                          "ph_kernel")
+    dev_txt = "not measured (no kernel in the trace)" if dev is None \
+        else f"{dev:.6f} ms"
+    print(f"partition_histogram {label} n={n} parts={parts}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (bincount) "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms by {by} ({nbytes} B); "
+          f"kernel device time in a profiler trace {dev_txt}", flush=True)
+    return ms, plain_ms, lib_ms, bound, by
+
+
+def exchanged_rows(stats) -> int:
+    """Rows the planner's stage statistics say the exchanges move."""
+    total = 0
+    for _, st in stats:
+        for key in ("partition_counts", "probe_counts", "build_counts"):
+            if key in st:
+                total += int(np.asarray(st[key]).sum())
+    return total
+
+
+def check_dist(session, label, launches, metrics, want_hist=True):
+    """The sharded phase's own checks: it ran distributed, launched the
+    histogram kernel where the phase runs it, and its exchanges moved
+    exactly the rows the stage statistics counted."""
+    check(session.last_dist_explain == "distributed",
+          f"{label}: ran distributed ({session.last_dist_explain!r})")
+    if want_hist:
+        check(launches["partition_histogram"] >= 1,
+              f"{label}: launched partition_histogram "
+              f"{launches['partition_histogram']}x")
+    moved = metrics["shuffle"]["rowsMoved"]
+    counted = exchanged_rows(session.last_dist_stats)
+    check(moved == counted,
+          f"{label}: rows exchanged {moved} == sum(partition counts) "
+          f"{counted} ({metrics['shuffle']['exchanges']} exchanges, "
+          f"{metrics['host_syncs']} host syncs)")
+
+
+def make_sort(F, df):
+    return df.orderBy("k")
+
+
+def make_topn(F, df):
+    return df.orderBy(F.col("v").desc()).limit(10)
+
+
 # ------------------------------------------------------------- main path --
 
 def q6_oracle(d):
@@ -394,17 +544,24 @@ def make_hash_agg(F, df):
                                F.count("v").alias("n"))
 
 
-def drive(torch, K, fm, query, rows, card_line, label, reps=3):
+def drive(torch, K, fm, query, rows, card_line, label, reps=3,
+          extra=None):
     """Reset the launch counts, run the query once through the engine
-    (its counts are the main path's), then time ``reps`` more runs."""
+    (its counts are the main path's), then time ``reps`` more runs.
+    ``extra``: more metric objects (reset, snapshot) read like ``fm``;
+    ``fm`` then returns their snapshots in a dict beside its own."""
     K.launches.reset()
     fm.reset()
+    for m in (extra or {}).values():
+        m.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = query.to_pandas()
     first_s = time.perf_counter() - t0
     launches = K.launches.snapshot()
     fusion = fm.snapshot()
+    if extra:
+        fusion = dict(fusion, **{k: m.snapshot() for k, m in extra.items()})
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -554,21 +711,42 @@ def main() -> int:
           f"{probe_by} ({probe_bytes} B)", flush=True)
     del plo, phi, plive, table, ptable, pcode, stored
 
+    # partition_histogram at the sharded path's two stats shapes: the
+    # fact side's per-shard pass (every row live, 8 parts) and an
+    # aggregate's bucket pass (the partial's live groups, 32 buckets)
+    fact_live = torch.ones(HIST_FACT_ROWS, dtype=torch.bool)
+    hp, hm, hist_err = check_hist(torch, K, device, HIST_FACT_ROWS, NSHARDS,
+                                  rng, fact_live)
+    bucket_live = torch.arange(HIST_BUCKET_ROWS) < (HIST_BUCKET_ROWS * 3 // 4)
+    bp, bm, err = check_hist(torch, K, device, HIST_BUCKET_ROWS,
+                             4 * NSHARDS, rng, bucket_live)
+    hist_err = max(hist_err, err)
+    check_hist_edges(torch, K, device, rng)
+    hist_ms, hist_plain_ms, hist_lib_ms, hist_bound, hist_by = time_hist(
+        torch, K, timer, hp, hm, NSHARDS, hbm, "fact stats")
+    time_hist(torch, K, timer, bp, bm, 4 * NSHARDS, hbm, "bucket stats")
+    del hp, hm, bp, bm
+
     # 3. the main path through TpuSession on CUDA
+    from spark_rapids_tpu_torch.parallel.shuffle import shuffle_metrics
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    dist_metrics = {"shuffle": shuffle_metrics,
+                    "host_syncs": host_sync_metrics}
+    dist_conf = {"spark.rapids.sql.distributed.numShards": NSHARDS}
     total = {k: 0 for k in K.launches.NAMES}
     s = TpuSession({})
     check(s.device == device, f"session on {s.device}")
     df = s.create_dataframe(data)
-    got6, l6, _, _ = drive(torch, K, fm, make_q6(F, df), Q6_ROWS,
-                           card_line, "q6")
+    got6, l6, _, r6 = drive(torch, K, fm, make_q6(F, df), Q6_ROWS,
+                            card_line, "q6")
     want6 = q6_oracle(data)
     rev = float(got6["revenue"][0])
     check(abs(rev - want6) <= QUERY_RTOL * abs(want6),
           f"q6 revenue {rev!r} within rel {QUERY_RTOL} of numpy {want6!r}")
     check(l6["masked_multi_reduce"] >= 1,
           f"q6 launched masked_multi_reduce {l6['masked_multi_reduce']}x")
-    got1, l1, _, _ = drive(torch, K, fm, make_q1(F, df), Q6_ROWS,
-                           card_line, "q1 shape")
+    got1, l1, _, r1 = drive(torch, K, fm, make_q1(F, df), Q6_ROWS,
+                            card_line, "q1 shape")
     want1 = q1_oracle(data)
     got1 = got1.sort_values(["l_returnflag_code", "l_linestatus_code"],
                             ignore_index=True)
@@ -581,21 +759,63 @@ def main() -> int:
     for k in total:
         total[k] += l6[k] + l1[k]
     s.stop()
+    del df
+    single_rate = {"q6": r6, "q1 shape": r1}
+
+    # the same two queries over 8 logical shards
+    s = TpuSession(dist_conf)
+    df = s.create_dataframe(data)
+    got6, l6, m6, d6 = drive(torch, K, fm, make_q6(F, df), Q6_ROWS,
+                             card_line, "distributed q6", extra=dist_metrics)
+    rev = float(got6["revenue"][0])
+    check(abs(rev - want6) <= QUERY_RTOL * abs(want6),
+          f"distributed q6 revenue {rev!r} within rel {QUERY_RTOL} of "
+          f"numpy {want6!r}")
+    check_dist(s, "distributed q6", l6, m6, want_hist=False)
+    check(l6["masked_multi_reduce"] >= NSHARDS + 1,
+          f"distributed q6 launched masked_multi_reduce "
+          f"{l6['masked_multi_reduce']}x (per shard and the merge)")
+    got1, l1, m1, d1 = drive(torch, K, fm, make_q1(F, df), Q6_ROWS,
+                             card_line, "distributed q1 shape",
+                             extra=dist_metrics)
+    got1 = got1.sort_values(["l_returnflag_code", "l_linestatus_code"],
+                            ignore_index=True)
+    keys = (got1["l_returnflag_code"] * 2 + got1["l_linestatus_code"])
+    check(keys.tolist() == list(range(6)),
+          "distributed q1 groups exact (6 keys)")
+    check(got1["n"].tolist() == want1["n"].tolist(),
+          "distributed q1 counts exact")
+    for c in ("sum_qty", "sum_base", "sum_disc", "avg_disc"):
+        check(np.allclose(got1[c].to_numpy(), want1[c], rtol=QUERY_RTOL,
+                          atol=0), f"distributed q1 {c} within rel "
+              f"{QUERY_RTOL}")
+    check_dist(s, "distributed q1 shape", l1, m1)
+    st = dict(s.last_dist_stats)["aggregate"]
+    check(st["bucket_counts"].shape == (NSHARDS, 4 * NSHARDS)
+          and int(st["bucket_counts"].sum()) == 6 * NSHARDS,
+          f"distributed q1: {4 * NSHARDS} buckets, 6 groups per shard")
+    for label, rate in (("q6", d6), ("q1 shape", d1)):
+        print(f"rows/s {label}: distributed over {NSHARDS} shards "
+              f"{rate:.6e}, single device {single_rate[label]:.6e}",
+              flush=True)
+    for k in total:
+        total[k] += l6[k] + l1[k]
+    s.stop()
     del df, data
 
     sparse = gen_sparse(HASH_ROWS, HASH_CARD)
     uk, inv = np.unique(sparse["k"], return_inverse=True)
     want_s = np.bincount(inv, weights=sparse["v"])
     want_n = np.bincount(inv)
-    results = {}
+    results, rate_hash = {}, {}
     for enabled in (False, True):
         s = TpuSession({"spark.rapids.tpu.pallas.hash.enabled": enabled,
                         "spark.rapids.tpu.pallas.hash.tableSlots":
                             str(HASH_SLOTS)})
         q = make_hash_agg(F, s.create_dataframe(sparse))
         label = f"hash group-by ({'hash on' if enabled else 'hash off'})"
-        got, lh, fus, _ = drive(torch, K, fm, q, HASH_ROWS, card_line,
-                                label)
+        got, lh, fus, rate_hash[enabled] = drive(
+            torch, K, fm, q, HASH_ROWS, card_line, label)
         got = got.sort_values("k", ignore_index=True)
         results[enabled] = got
         check(np.array_equal(got["k"].to_numpy(), uk)
@@ -617,7 +837,62 @@ def main() -> int:
         s.stop()
     check(results[False].equals(results[True]),
           "hash group-by identical with hash on and off")
-    del sparse
+
+    # the sparse group-by over 8 logical shards: every partial group
+    # crosses the exchange
+    s = TpuSession(dist_conf)
+    sdf = s.create_dataframe(sparse)
+    got, ls, ms_, ds = drive(torch, K, fm, make_hash_agg(F, sdf), HASH_ROWS,
+                             card_line, "distributed sparse group-by",
+                             extra=dist_metrics)
+    got = got.sort_values("k", ignore_index=True)
+    check(np.array_equal(got["k"].to_numpy(), uk)
+          and np.array_equal(got["s"].to_numpy(), want_s)
+          and np.array_equal(got["n"].to_numpy(), want_n),
+          f"distributed sparse group-by: {len(got)} groups equal numpy "
+          "exactly")
+    check_dist(s, "distributed sparse group-by", ls, ms_)
+    print(f"rows/s sparse group-by: distributed over {NSHARDS} shards "
+          f"{ds:.6e}, single device {rate_hash[False]:.6e} (hash off), "
+          f"{rate_hash[True]:.6e} (hash on)", flush=True)
+    for k in total:
+        total[k] += ls[k]
+
+    # orderBy and TopN of the same table: the range sort
+    order = np.argsort(sparse["k"], kind="stable")
+    top = np.argsort(-sparse["v"], kind="stable")[:10]
+    single = TpuSession({})
+    one = single.create_dataframe(sparse)
+    _, _, _, r_sort = drive(torch, K, fm, make_sort(F, one), HASH_ROWS,
+                            card_line, "sort (single device)", reps=1)
+    _, _, _, r_top = drive(torch, K, fm, make_topn(F, one), HASH_ROWS,
+                           card_line, "TopN 10 (single device)", reps=1)
+    single.stop()
+    del one
+    got, lo, mo, d_sort = drive(torch, K, fm, make_sort(F, sdf), HASH_ROWS,
+                                card_line, "distributed sort",
+                                extra=dist_metrics)
+    check(np.array_equal(got["k"].to_numpy(), sparse["k"][order])
+          and np.array_equal(got["v"].to_numpy(), sparse["v"][order]),
+          f"distributed orderBy(k): {len(got)} rows equal np.sort "
+          "(stable)")
+    check_dist(s, "distributed sort", lo, mo)
+    for k in total:
+        total[k] += lo[k]
+    got, lt, mt, d_top = drive(torch, K, fm, make_topn(F, sdf), HASH_ROWS,
+                               card_line, "distributed TopN 10",
+                               extra=dist_metrics)
+    check(np.array_equal(got["k"].to_numpy(), sparse["k"][top])
+          and np.array_equal(got["v"].to_numpy(), sparse["v"][top]),
+          "distributed TopN 10 by v desc equals numpy (stable)")
+    check(s.last_dist_explain == "distributed",
+          f"distributed TopN 10: ran distributed "
+          f"({s.last_dist_explain!r})")
+    print(f"rows/s sort: distributed over {NSHARDS} shards {d_sort:.6e}, "
+          f"single device {r_sort:.6e}; TopN 10: distributed "
+          f"{d_top:.6e}, single device {r_top:.6e}", flush=True)
+    s.stop()
+    del sdf, sparse
 
     # TPC-H q3 at SF10: customer 1.5M, orders 15M, lineitem 60M rows
     from spark_rapids_tpu_torch.interop import batch_from_arrays
@@ -685,7 +960,7 @@ def main() -> int:
     # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
     fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)
     want_k, want_sv, want_sw = fact_dim_oracle(fact, dim)
-    fd_out = {}
+    fd_out, rate_fd = {}, {}
     for enabled in (False, True):
         s = TpuSession({"spark.rapids.sql.tpu.maxBatchRows": BATCH_ROWS,
                         "spark.rapids.tpu.pallas.hash.enabled": enabled,
@@ -694,8 +969,8 @@ def main() -> int:
         q = make_fact_dim(F, s.create_dataframe(fact),
                           s.create_dataframe(dim))
         label = f"fact-dim join ({'hash on' if enabled else 'hash off'})"
-        got, lf, fus, _ = drive(torch, K, fm, q, FACT_ROWS + DIM_ROWS,
-                                card_line, label)
+        got, lf, fus, rate_fd[enabled] = drive(
+            torch, K, fm, q, FACT_ROWS + DIM_ROWS, card_line, label)
         fd_out[enabled] = got
         check(np.array_equal(got["k"].to_numpy(), want_k)
               and np.array_equal(got["sv"].to_numpy(), want_sv)
@@ -718,7 +993,80 @@ def main() -> int:
         s.stop()
     check(fd_out[False].equals(fd_out[True]),
           "fact-dim join identical with hash on and off")
-    del fact, dim
+
+    # the same join over 8 logical shards: 2^19 build rows are past the
+    # broadcast threshold, so both sides shuffle by key hash, then the
+    # group-by exchanges its partials
+    s = TpuSession(dist_conf)
+    q = make_fact_dim(F, s.create_dataframe(fact), s.create_dataframe(dim))
+    got, lf, mf, d_fd = drive(torch, K, fm, q, FACT_ROWS + DIM_ROWS,
+                              card_line, "distributed fact-dim join",
+                              extra=dist_metrics)
+    got = got.sort_values("k", ignore_index=True)
+    check(np.array_equal(got["k"].to_numpy(), want_k)
+          and np.array_equal(got["sv"].to_numpy(), want_sv)
+          and np.array_equal(got["sw"].to_numpy(), want_sw),
+          f"distributed fact-dim join: {len(got)} groups equal numpy "
+          "exactly")
+    check_dist(s, "distributed fact-dim join", lf, mf)
+    jst = dict(s.last_dist_stats)["join:inner"]
+    check(jst["strategy"] == "shuffle"
+          and int(jst["probe_counts"].sum()) == FACT_ROWS
+          and int(jst["build_counts"].sum()) == DIM_ROWS,
+          f"distributed fact-dim join: shuffle strategy, stats histograms "
+          f"count {FACT_ROWS} probe and {DIM_ROWS} build rows")
+    print(f"rows/s fact-dim join: distributed over {NSHARDS} shards "
+          f"{d_fd:.6e}, single device {rate_fd[False]:.6e} (hash off), "
+          f"{rate_fd[True]:.6e} (hash on)", flush=True)
+    for k in total:
+        total[k] += lf[k]
+    s.stop()
+    del fact, dim, q
+
+    # one real process group: NCCL with one rank, against one logical
+    # shard on the same data
+    import os
+    import tempfile
+    import torch.distributed as dist
+    pg_data = gen_host(PG_ROWS, seed=SEED + 1)
+    s = TpuSession({"spark.rapids.sql.distributed.numShards": 1})
+    want_pg = make_q1(F, s.create_dataframe(pg_data)).to_pandas()
+    want_pg_stats = dict(s.last_dist_stats)["aggregate"]
+    s.stop()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            s = TpuSession({}, process_group=dist.group.WORLD)
+            label = "q1 shape over a one-rank NCCL group"
+            got, lp, mp_, _ = drive(
+                torch, K, fm, make_q1(F, s.create_dataframe(pg_data)),
+                PG_ROWS, card_line, label, extra=dist_metrics)
+            check_dist(s, label, lp, mp_)
+            pst = dict(s.last_dist_stats)["aggregate"]
+        finally:
+            dist.destroy_process_group()
+    check(all(np.array_equal(pst[k], want_pg_stats[k])
+              for k in ("bucket_counts", "bucket_map", "partition_counts")),
+          f"{label}: stage statistics equal one logical shard's")
+    check(got.drop(columns=["sum_qty", "sum_base", "sum_disc", "avg_disc"])
+          .equals(want_pg.drop(columns=["sum_qty", "sum_base", "sum_disc",
+                                        "avg_disc"]))
+          and all(np.allclose(got[c], want_pg[c], rtol=PATH_RTOL, atol=0)
+                  for c in ("sum_qty", "sum_base", "sum_disc", "avg_disc")),
+          f"{label}: answer equals one logical shard's (float sums within "
+          f"rel {PATH_RTOL})")
+    want_o = q1_oracle(pg_data)
+    got = got.sort_values(["l_returnflag_code", "l_linestatus_code"],
+                          ignore_index=True)
+    check(got["n"].tolist() == want_o["n"].tolist()
+          and np.allclose(got["sum_disc"].to_numpy(), want_o["sum_disc"],
+                          rtol=QUERY_RTOL, atol=0),
+          f"{label}: counts exact and sums within rel {QUERY_RTOL} of numpy")
+    for k in total:
+        total[k] += lp[k]
+    del pg_data
     check(all(v >= 1 for v in total.values()),
           f"every kernel ran on the main path: {total}")
 
@@ -743,6 +1091,13 @@ def main() -> int:
          "ms": probe_ms, "plain_ms": probe_plain_ms,
          "bound_ms": probe_bound, "bound_by": probe_by,
          "library_ms": probe_lib_ms},
+        {"name": "partition_histogram", "route": "cuda",
+         "source": "spark_rapids_tpu_torch/csrc/partition_histogram.cu",
+         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:122",
+         "launches": total["partition_histogram"],
+         "max_abs_err": float(hist_err),
+         "ms": hist_ms, "plain_ms": hist_plain_ms, "bound_ms": hist_bound,
+         "bound_by": hist_by, "library_ms": hist_lib_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 It builds the same inputs as ``chip_smoke.py`` (TPC-H q3 at SF10 and the
 fact-dim join at 2^26 x 2^19), warms each query once, then traces one run
-per query with ``torch.profiler`` (hash path on and off) and prints, per
+per query with ``torch.profiler`` (hash path on and off, and the fact-dim
+join once more over 8 logical shards as a shuffle join), and the q1 shape
+over 2^26 rows on one device and over 8 logical shards, and prints, per
 run: the host wall time, the device's busy time (the union of the
 intervals in which any CUDA kernel or copy ran) and its idle share of the
 wall time, the counted host syncs, and the device ops that took the most
@@ -110,6 +112,25 @@ def main() -> int:
                              s.create_dataframe(dim))
         profile(torch, q, f"fact-dim join hash "
                 f"{'on' if enabled else 'off'}", card_line)
+        s.stop()
+    sharded = {"spark.rapids.sql.distributed.numShards": cs.NSHARDS}
+    s = TpuSession(sharded)
+    q = cs.make_fact_dim(F, s.create_dataframe(fact),
+                         s.create_dataframe(dim))
+    profile(torch, q, f"fact-dim join over {cs.NSHARDS} shards (shuffle)",
+            card_line)
+    if s.last_dist_explain != "distributed":
+        print(f"profile_port: the sharded run fell back: "
+              f"{s.last_dist_explain}", file=sys.stderr)
+        return 1
+    s.stop()
+    del fact, dim, q
+    data = cs.gen_host(cs.Q6_ROWS)
+    for conf, label in (({}, "q1 shape, one device"),
+                        (sharded, f"q1 shape over {cs.NSHARDS} shards")):
+        s = TpuSession(conf)
+        profile(torch, cs.make_q1(F, s.create_dataframe(data)), label,
+                card_line)
         s.stop()
     return 0
 

@@ -4,8 +4,10 @@ Counterpart of ``spark_rapids_tpu/api/dataframe.py``, cut to select,
 filter, withColumnRenamed, groupBy/agg, keyless agg, equi-joins on
 column names, crossJoin, orderBy/sort, limit, collect and to_pandas.
 Expression-form join conditions are not ported yet.  A DataFrame is a
-logical plan; collecting it plans the query on the session's device, runs
-the operators and fetches the result in one counted sync.
+logical plan; collecting it offers the plan to the distributed planner
+when the session holds a shard group, else (or when the planner declines)
+plans the query on the session's device, runs the operators and fetches
+the result in one counted sync.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from spark_rapids_tpu_torch.api.functions import Col, SortKey, _expr
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.ops.expressions import (
     Alias, Expression, UnresolvedColumn)
+from spark_rapids_tpu_torch.parallel.dist_planner import try_distributed
 from spark_rapids_tpu_torch.plan import logical as L
 
 
@@ -83,6 +86,9 @@ class DataFrame:
         return DataFrame(self.session, L.Limit(n, self.plan))
 
     def _execute_batches(self) -> List[ColumnarBatch]:
+        got = try_distributed(self.session, self.plan)
+        if got is not None:
+            return got
         exec_plan = self.session.plan(self.plan)
         self._last_exec = exec_plan
         return list(exec_plan.execute())

@@ -5,6 +5,14 @@ configuration and one device.  ``TpuSession(conf)`` runs on ``cuda:0``
 and raises when no CUDA device is present: it never carries on quietly on
 the CPU.  Pass ``device="cpu"`` to run on the CPU on purpose (the tests
 do); the hand-written kernels' plain versions then run instead.
+
+A session may hold a shard group, and then offers every collected plan to
+the distributed planner first (``parallel/dist_planner.py``):
+``spark.rapids.sql.distributed.numShards = n > 0`` makes ``n`` logical
+shards on the session's device (``LocalShards``); ``process_group=g``
+makes one shard per rank of an initialised ``torch.distributed`` group
+(``ProcessGroupShards``), where every rank builds the same DataFrame,
+scans its own block of rows and collects the whole result.
 """
 
 from __future__ import annotations
@@ -15,7 +23,10 @@ import torch
 
 from spark_rapids_tpu_torch.api.dataframe import DataFrame
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.config.rapids_conf import RapidsConf
+from spark_rapids_tpu_torch.parallel.mesh import (
+    LocalShards, ProcessGroupShards)
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
 
@@ -34,12 +45,22 @@ def resolve_device(device=None) -> torch.device:
 
 class TpuSession:
     def __init__(self, conf: Optional[Union[RapidsConf, Dict]] = None,
-                 device=None):
+                 device=None, process_group=None):
         self.conf = conf if isinstance(conf, RapidsConf) else \
             RapidsConf(conf)
         self.device = resolve_device(device)
         self.overrides = TpuOverrides(self.conf, self.device)
         self.stopped = False
+        # distributed execution: the shard group, the planner's verdict
+        # on the last query and its operators' stage statistics
+        self.shards = None
+        if process_group is not None:
+            self.shards = ProcessGroupShards(process_group, self.device)
+        elif self.conf.get(rc.DISTRIBUTED_NUM_SHARDS):
+            self.shards = LocalShards(
+                self.conf.get(rc.DISTRIBUTED_NUM_SHARDS), self.device)
+        self.last_dist_explain = ""
+        self.last_dist_stats = None
 
     def create_dataframe(self, data) -> DataFrame:
         """A DataFrame over a dict of numpy arrays (or lists with None

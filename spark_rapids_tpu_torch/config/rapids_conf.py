@@ -102,6 +102,26 @@ JOIN_OUTPUT_BATCH_ROWS = conf(
     "emitted batch (exec/join.py emits the joined rows in chunks of at "
     "most this many).", _to_int, _positive)
 
+DISTRIBUTED_ENABLED = conf(
+    "spark.rapids.sql.distributed.enabled", True,
+    "When the session holds a shard group, offer every query plan to the "
+    "distributed planner (parallel/dist_planner.py) before the "
+    "single-device engine; unsupported plans fall back with the reason on "
+    "session.last_dist_explain.", _to_bool)
+
+DISTRIBUTED_NUM_SHARDS = conf(
+    "spark.rapids.sql.distributed.numShards", 0,
+    "Build a group of N logical shards on the session's device at session "
+    "start and run supported queries distributed over it (0 = only when "
+    "a process_group is passed to TpuSession).", _to_int,
+    lambda v: None if v >= 0 else "must be >= 0")
+
+BROADCAST_JOIN_THRESHOLD_ROWS = conf(
+    "spark.rapids.sql.join.broadcastThresholdRows", 1 << 16,
+    "Build sides at or below this many rows broadcast instead of "
+    "shuffling (autoBroadcastJoinThreshold analog, in rows).",
+    _to_int, _positive)
+
 
 class RapidsConf:
     """Immutable view over a settings dict."""

@@ -33,6 +33,11 @@ kernel or raises; nothing falls back.
   CUDA insert's linear-probing layout, the plain probe the plain insert's
   cascade.  Both wrappers follow the tensors' device, so a table and its
   probe always come from the same pair.
+- ``partition_histogram``: per destination, the number of live rows whose
+  partition id is that destination; it sizes every exchange of the
+  sharded query path (``parallel/partitioning.layout_by_partition`` and
+  the stats passes of ``parallel/distributed.py`` and
+  ``parallel/distsort.py``), through the dispatcher :func:`histogram`.
 
 Each wrapper adds one to ``launches`` where it calls into the library,
 and nowhere else.
@@ -66,7 +71,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class KernelLaunches:
     """Process-wide launch counts, one plain integer per kernel."""
 
-    NAMES = ("masked_multi_reduce", "hash_insert", "hash_probe")
+    NAMES = ("masked_multi_reduce", "hash_insert", "hash_probe",
+             "partition_histogram")
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -177,6 +183,12 @@ class _KernelLibrary:
                     vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, vp, vp, vp, vp, ctypes.c_int, vp]
                 lib.srt_hash_probe.restype = ctypes.c_int
+                lib.srt_partition_histogram.argtypes = [
+                    vp, vp, ctypes.c_longlong, ctypes.c_int, vp,
+                    ctypes.c_int, vp]
+                lib.srt_partition_histogram.restype = ctypes.c_int
+                lib.srt_partition_histogram_max_parts.argtypes = []
+                lib.srt_partition_histogram_max_parts.restype = ctypes.c_int
                 self._lib = lib
             return self._lib
 
@@ -515,3 +527,79 @@ def _hash_probe_cuda(code_lo, code_hi, live, table_lo, table_hi, occupied,
     launches.bump("hash_probe")
     _check_launch(err, "hash_probe")
     return slot
+
+
+# ----------------------------------------------------- partition histogram --
+
+_PH_THREADS = 256
+
+
+def partition_histogram(pids: torch.Tensor, mask: torch.Tensor,
+                        num_parts: int) -> torch.Tensor:
+    """counts[p] (int32[num_parts]) = number of rows with ``pids[i] == p``
+    and ``mask[i]``.  ``pids`` int32, ``mask`` bool, of one length; a pid
+    outside ``[0, num_parts)`` is counted nowhere."""
+    if num_parts < 1:
+        raise ValueError(f"num_parts must be positive, got {num_parts}")
+    if mask.device.type == "cpu":
+        return partition_histogram_plain(pids, mask, num_parts)
+    return _partition_histogram_cuda(pids, mask, num_parts)
+
+
+def partition_histogram_plain(pids, mask, num_parts: int):
+    """Plain PyTorch version, the contract of the JAX package's non-TPU
+    ``histogram`` branch: ``index_add_`` of ones onto
+    ``where(mask & (0 <= pid < num_parts), pid, num_parts)``, then the
+    last (trash) bin dropped."""
+    p = pids.to(torch.int64)
+    ok = mask & (p >= 0) & (p < num_parts)
+    key = torch.where(ok, p, num_parts)
+    counts = torch.zeros(num_parts + 1, dtype=torch.int32,
+                         device=pids.device)
+    counts.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    return counts[:num_parts]
+
+
+_PH_MAX_PARTS = {}
+
+
+def _partition_histogram_cuda(pids, mask, num_parts: int):
+    lib = library()
+    device = mask.device
+    if device.type != "cuda":
+        raise ValueError(f"partition_histogram: unsupported device {device}")
+    n = mask.shape[0]
+    _require(pids, "pids", torch.int32, device, n)
+    _require(mask, "mask", torch.bool, device, n)
+    if n >= (1 << 31):
+        raise ValueError("partition_histogram counts are int32: "
+                         f"{n} rows is too many for one call")
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _PH_MAX_PARTS:
+        with torch.cuda.device(idx):
+            _PH_MAX_PARTS[idx] = lib.srt_partition_histogram_max_parts()
+    if num_parts > _PH_MAX_PARTS[idx]:
+        raise ValueError(
+            f"partition_histogram: {num_parts} bins do not fit one block's "
+            f"shared memory (at most {_PH_MAX_PARTS[idx]} on {device})")
+    out = torch.zeros(num_parts, dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    blocks = max(1, min(-(-n // (4 * _PH_THREADS)), 8 * _sm_count(device)))
+    err = lib.srt_partition_histogram(
+        pids.data_ptr(), mask.data_ptr(), n, num_parts, out.data_ptr(),
+        blocks, _stream(device))
+    launches.bump("partition_histogram")
+    _check_launch(err, "partition_histogram")
+    return out
+
+
+def histogram(pids: torch.Tensor, mask: torch.Tensor,
+              num_parts: int) -> torch.Tensor:
+    """Partition counts for the sharded path's callers (the JAX package's
+    dispatcher of the same name): :func:`partition_histogram`, the
+    hand-written kernel for CUDA tensors and its plain version for CPU
+    tensors."""
+    return partition_histogram(pids.to(torch.int32).contiguous(),
+                               mask.contiguous(), num_parts)

@@ -76,6 +76,18 @@ def gather(cols: Sequence[ColVal], indices: torch.Tensor,
     return outs
 
 
+def compact_plan(keep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(permutation whose first ``count`` entries are the rows where
+    ``keep`` is True, in order; count as a 0-dim device tensor), with no
+    host sync, so a caller can fetch several counts at once."""
+    capacity = keep.shape[0]
+    pos = torch.cumsum(keep, 0) - 1
+    tgt = torch.where(keep, pos, capacity)  # dropped rows scatter to trash
+    perm = torch.zeros(capacity + 1, dtype=torch.int64, device=keep.device)
+    perm.scatter_(0, tgt, torch.arange(capacity, device=keep.device))
+    return perm, keep.sum()
+
+
 def compact(cols: Sequence[ColVal], keep: torch.Tensor
             ) -> Tuple[List[ColVal], int]:
     """Move rows where ``keep`` is True to the front, preserving order,
@@ -84,12 +96,7 @@ def compact(cols: Sequence[ColVal], keep: torch.Tensor
     the chars that kept string rows hold come back in one counted
     fetch."""
     from spark_rapids_tpu_torch.utils import hostsync
-    capacity = keep.shape[0]
-    pos = torch.cumsum(keep, 0) - 1
-    new_nrows = keep.sum()
-    tgt = torch.where(keep, pos, capacity)  # dropped rows scatter to trash
-    perm = torch.zeros(capacity + 1, dtype=torch.int64, device=keep.device)
-    perm.scatter_(0, tgt, torch.arange(capacity, device=keep.device))
+    perm, new_nrows = compact_plan(keep)
     chars = [(row_lengths(c) * keep).sum() for c in cols
              if c.offsets is not None]
     n, *totals = hostsync.fetch_all([new_nrows] + chars)

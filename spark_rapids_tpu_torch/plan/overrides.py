@@ -28,10 +28,12 @@ from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
 
 
-def _plan_aggregate(group_exprs, agg_out_exprs, child_exec, device,
-                    pre_filter=None, hash_table_slots=None):
-    """The aggregate exec, plus a result projection when outputs combine
-    aggregates in larger expressions (sum(a) / sum(b), ...)."""
+def aggregate_outputs(group_exprs, agg_out_exprs):
+    """Split an Aggregate's outputs into bare aggregate calls and result
+    expressions over the aggregate's (keys, aggregates) frame.  Returns
+    ``(agg_list, out_named, trivial)``: the AggregateExpressions in
+    order, ``(name, expression over the frame)`` per output, and whether
+    every output is a bare aggregate (no result projection needed)."""
     nkeys = len(group_exprs)
     agg_list: List[AggregateExpression] = []
     group_keys = [ge.cache_key() for ge in group_exprs]
@@ -64,7 +66,16 @@ def _plan_aggregate(group_exprs, agg_out_exprs, child_exec, device,
         if not isinstance(inner, AggregateExpression):
             trivial = False
         out_named.append((e.name, extract(inner)))
+    return agg_list, out_named, trivial
 
+
+def _plan_aggregate(group_exprs, agg_out_exprs, child_exec, device,
+                    pre_filter=None, hash_table_slots=None):
+    """The aggregate exec, plus a result projection when outputs combine
+    aggregates in larger expressions (sum(a) / sum(b), ...)."""
+    nkeys = len(group_exprs)
+    agg_list, out_named, trivial = aggregate_outputs(group_exprs,
+                                                     agg_out_exprs)
     if trivial:
         return TpuHashAggregateExec(
             group_exprs,

@@ -276,6 +276,8 @@ def test_cuda_branch_raises_and_never_runs_plain(monkeypatch):
                         lambda *a: calls.append("hash"))
     monkeypatch.setattr(K, "hash_probe_plain",
                         lambda *a: calls.append("probe"))
+    monkeypatch.setattr(K, "partition_histogram_plain",
+                        lambda *a: calls.append("hist"))
     dev = torch.device("meta")
     v = torch.empty(8, dtype=torch.float64, device=dev)
     m = torch.empty(8, dtype=torch.bool, device=dev)
@@ -288,6 +290,9 @@ def test_cuda_branch_raises_and_never_runs_plain(monkeypatch):
         K.hash_insert(i, i, m, 64)
     with pytest.raises(RuntimeError, match="kernel library unavailable"):
         K.hash_probe(i, i, m, t, t, occ)
+    with pytest.raises(RuntimeError, match="kernel library unavailable"):
+        K.partition_histogram(i, m, 8)
     assert calls == []
     assert K.launches.snapshot() == {"masked_multi_reduce": 0,
-                                     "hash_insert": 0, "hash_probe": 0}
+                                     "hash_insert": 0, "hash_probe": 0,
+                                     "partition_histogram": 0}
