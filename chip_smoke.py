@@ -6,9 +6,15 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``spark_rapids_tpu_torch/csrc``
-for sm_90a, holds each kernel against its plain PyTorch version on the
-card, then drives the engine's paths through ``TpuSession`` on CUDA, each
-with the kernel launch counts reset just before it and read just after:
+for sm_90a and holds each kernel against its plain PyTorch version on the
+card; ``hash_insert`` and ``hash_probe`` also at the contract's edges (0,
+-1, the int64 extremes and the table's empty word among the codes, every
+row on one key, 2^16 keys x 64 duplicates, tables at load 0.7 and 0.9, no
+rows, every row dead), each case run twice.  It times each kernel at the
+main path's shapes (CUDA events, and the device time in a profiler
+trace), then drives the engine's paths
+through ``TpuSession`` on CUDA, each with the kernel launch counts reset
+just before it and read just after:
 
 - TPC-H q6 and the q1-shaped group-by over 2^26 lineitem rows (the
   columns ``bench.py``'s ``gen_host`` makes);
@@ -32,7 +38,10 @@ Answers are checked against numpy / pandas oracles on the same host data.
 
 Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
-``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` line (per kernel: the first shape's times at the
+top level, other shapes under ``other_shapes``, the main path's launches
+in total and by shape), and last
+``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
 """
@@ -60,6 +69,7 @@ Q3_SF = 10
 FACT_ROWS = 1 << 26
 DIM_ROWS = 1 << 19
 BATCH_ROWS = 1 << 22
+JOIN_SLOTS = 1 << 20                    # the join build's table
 NSHARDS = 8
 HIST_FACT_ROWS = FACT_ROWS // NSHARDS   # the join's stats pass per shard
 HIST_BUCKET_ROWS = 1 << 19              # an aggregate's bucket stats pass
@@ -114,6 +124,35 @@ def gen_sparse(n: int, card: int, seed: int = SEED):
     return {"k": keys, "v": vals}
 
 
+def group_by_codes(n: int = HASH_ROWS, card: int = HASH_CARD):
+    """The hash group-by's update-stage codes: the sparse table's keys as
+    the radix codes the group-by hands ``hash_insert`` (key - min + 1)."""
+    k = gen_sparse(n, card)["k"]
+    return k - k.min() + 1
+
+
+def q6_batch(torch, device, data, n: int = BATCH_ROWS):
+    """q6's first batch as the main path hands it to
+    ``masked_multi_reduce``: the fused filter's mask and rev = price *
+    discount over the first ``n`` rows of ``gen_host``'s columns."""
+    first = {k: torch.from_numpy(data[k][:n]).to(device)
+             for k in ("l_shipdate", "l_discount", "l_quantity",
+                       "l_extendedprice")}
+    m = ((first["l_shipdate"] >= 9131) & (first["l_shipdate"] < 9496)
+         & (first["l_discount"] >= 0.05) & (first["l_discount"] <= 0.07)
+         & (first["l_quantity"] < 24.0))
+    return first["l_extendedprice"] * first["l_discount"], m
+
+
+def join_lanes(torch, device):
+    """The fact-dim join's hash phase at the main path's shapes, as
+    lanes: the build (the 2^19 dim keys) and one probe batch (2^22 fact
+    keys, about half of them in dim)."""
+    fact, dim = gen_fact_dim(BATCH_ROWS, DIM_ROWS)
+    return (split_lanes(torch, dim["k"], device),
+            split_lanes(torch, fact["k"], device))
+
+
 # ------------------------------------------------------------------ timing --
 
 def roofline(nbytes: int, ops: int, hbm: float):
@@ -148,25 +187,45 @@ class Timer:
             times.append(a.elapsed_time(b))
         return float(np.median(times))
 
-    def device_ms(self, fn, kernel: str, reps: int = 10):
-        """Median device time of the kernels named ``kernel`` in a
-        ``torch.profiler`` trace of ``reps`` calls, the L2 cache flushed
-        before each: the kernel alone, without the host work that the
-        event timing above includes.  None if the trace holds none."""
+    def device_ms(self, fn, names, reps: int = 10, tries: int = 5):
+        """``(ms, ops)``: the median over ``reps`` calls of the summed
+        device time of the ops whose names contain one of ``names``
+        (kernels, and "Memset" for a wrapper's memsets), and how many such
+        ops one call ran, from a ``torch.profiler`` trace with the L2
+        cache flushed before each call: the kernels alone, without the
+        host work that the event timing above includes.  The flush here is
+        an elementwise kernel, so it is never counted as a memset.  The
+        profiler now and then drops ops from a trace; a trace whose count
+        is not a multiple of ``reps`` is taken again, up to ``tries``
+        times.  ``(None, 0)`` if no trace came whole."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile as tprofile
         fn()
         torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        times = [(e.time_range.end - e.time_range.start) / 1e3
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kernel in e.name]
-        return float(np.median(times)) if times else None
+        for _ in range(tries):
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.add_(1)
+                    fn()
+                torch.cuda.synchronize()
+            spans = sorted((e.time_range.start, e.time_range.end)
+                           for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and any(n in e.name for n in names))
+            if spans and len(spans) % reps == 0:
+                break
+        else:
+            return None, 0
+        per = len(spans) // reps
+        calls = [sum(b - a for a, b in spans[i * per:(i + 1) * per])
+                 for i in range(reps)]
+        return float(np.median(calls)) / 1e3, per
+
+
+def dev_text(dev, ops=None) -> str:
+    if dev is None:
+        return "not measured (no kernel in the trace)"
+    return f"{dev:.6f} ms" + ("" if ops is None else f" ({ops} ops a call)")
 
 
 # --------------------------------------------------------- kernel checks --
@@ -213,39 +272,130 @@ def check_mmr(torch, K, vals, valids, mask, tag):
     return float(np.nanmax(diff)) if not np.isnan(diff).all() else 0.0
 
 
+def table_codes(torch, tlo, thi):
+    """The int64 codes ``(hi << 32) | (lo & 0xFFFFFFFF)`` of two lanes."""
+    return (thi.to(torch.int64) << 32) | (tlo.to(torch.int64) & 0xFFFFFFFF)
+
+
 def stored_codes(torch, tlo, thi, occ):
-    t64 = (thi.to(torch.int64) << 32) | (tlo.to(torch.int64) & 0xFFFFFFFF)
-    return torch.sort(t64[occ]).values
+    return torch.sort(table_codes(torch, tlo, thi)[occ]).values
+
+
+def split_lanes(torch, codes, device):
+    lo = (codes & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    hi = (codes >> 32).astype(np.int32)
+    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
+
+
+def extreme_codes(K):
+    """0, -1, the int64 extremes and the CUDA table's empty word."""
+    return np.array([0, -1, np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                     K.HASH_EMPTY], dtype=np.int64)
+
+
+def insert_contract(torch, K, lo, hi, live, T, tag, plain_T=None,
+                    expect_overflow=False):
+    """The CUDA insert twice and its plain version once on the same rows
+    (the plain version at ``plain_T`` slots where its cascade cannot hold
+    the keys in ``T``), held to the contract, never to slots: a placed
+    row's slot holds its code, dead rows sit at T, stored codes are
+    distinct live codes; without overflow every live row is placed, the
+    stored set is the set of live codes, the same on both runs and in the
+    plain version's table.  Returns the first CUDA table and the plain
+    one."""
+    plain_T = plain_T or T
+    code = table_codes(torch, lo, hi)
+    want = torch.unique(code[live])
+    runs = [K.hash_insert(lo, hi, live, T) for _ in range(2)]
+    plain = K.hash_insert_plain(lo, hi, live, plain_T)
+    torch.cuda.synchronize()
+    sets = []
+    for r, (slot, tlo, thi, occ, ovf) in enumerate(runs, 1):
+        t64 = table_codes(torch, tlo, thi)
+        sl = slot.to(torch.int64)
+        placed = live & (sl < T)
+        stored = torch.sort(t64[occ]).values
+        check(bool((t64[sl[placed]] == code[placed]).all())
+              and bool(occ[sl[placed]].all())
+              and bool((sl[~live] == T).all()),
+              f"{tag} run {r}: every placed row's slot holds its code, "
+              "dead rows at T")
+        check(stored.unique().numel() == stored.numel()
+              and bool(torch.isin(stored, want).all()),
+              f"{tag} run {r}: stored codes are distinct live codes "
+              f"({stored.numel()})")
+        unplaced = int((live & (sl == T)).sum())
+        if expect_overflow:
+            check(bool(ovf), f"{tag} run {r}: overflow flagged "
+                  f"({unplaced} live rows past the cap at T)")
+        else:
+            check(not bool(ovf) and unplaced == 0
+                  and torch.equal(stored, want),
+                  f"{tag} run {r}: no overflow, every live row placed, "
+                  f"stored set = the {want.numel()} live codes")
+        sets.append(stored)
+    if expect_overflow:
+        check(bool(plain[4]), f"{tag}: the plain version overflows too")
+    else:
+        at = "" if plain_T == T else f" at T={plain_T}"
+        check(torch.equal(sets[0], sets[1]),
+              f"{tag}: stored code sets identical on two runs")
+        check(not bool(plain[4]) and torch.equal(
+            stored_codes(torch, *plain[1:4]), sets[0]),
+              f"{tag}: stored set equals the plain version's{at}")
+    return runs[0], plain
+
+
+def probe_contract(torch, K, plo, phi, live, table, ptable, tag):
+    """hash_probe twice on the CUDA table and its plain version once on
+    the plain table: a hit's slot holds the row's code, no miss's code is
+    stored, dead rows at T; both runs give the same slots, and hit/miss
+    per row equals the plain pair's.  Returns the rows that disagree with
+    the plain pair (0)."""
+    code = table_codes(torch, plo, phi)
+    slots = [K.hash_probe(plo, phi, live, *table[1:4]) for _ in range(2)]
+    pslot = K.hash_probe_plain(plo, phi, live, *ptable[1:4])
+    torch.cuda.synchronize()
+    hits = []
+    for name, tb, sl in (("cuda run 1", table, slots[0]),
+                         ("cuda run 2", table, slots[1]),
+                         ("plain", ptable, pslot)):
+        T = tb[3].shape[0]
+        t64 = table_codes(torch, tb[1], tb[2])
+        sl = sl.to(torch.int64)
+        hit = sl < T
+        check(bool((t64[sl[hit]] == code[hit]).all())
+              and bool(tb[3][sl[hit]].all())
+              and not bool(torch.isin(code[~hit & live], t64[tb[3]]).any())
+              and bool((sl[~live] == T).all()),
+              f"{tag} {name}: every hit's slot holds the row's code, no "
+              "miss's code is stored, dead rows at T")
+        hits.append(hit)
+    check(torch.equal(slots[0], slots[1]),
+          f"{tag}: two runs give identical slots")
+    disagree = int((hits[0] != hits[2]).sum())
+    check(disagree == 0, f"{tag}: hit/miss identical per row with the "
+          f"plain pair ({int(hits[0].sum())} hits)")
+    return disagree
 
 
 def check_hash(torch, K, device, n, card, T, rng):
-    data = gen_sparse(n, card)
-    code = data["k"] - data["k"].min() + 1   # the group-by's radix code
-    lo_h = (code & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-    hi_h = (code >> 32).astype(np.int32)
-    lo = torch.from_numpy(lo_h).to(device)
-    hi = torch.from_numpy(hi_h).to(device)
-    live = torch.from_numpy(rng.random(n) < 0.97).to(device)
-    slot, tlo, thi, occ, ovf = K.hash_insert(lo, hi, live, T)
-    pslot, ptlo, pthi, pocc, povf = K.hash_insert_plain(lo, hi, live, T)
-    torch.cuda.synchronize()
+    """hash_insert at the hash group-by's shape: the group-by's radix
+    codes, 97% of rows live, and the same with the extreme codes in the
+    first rows."""
+    code = group_by_codes(n, card)
+    lo, hi = split_lanes(torch, code, device)
+    live_h = rng.random(n) < 0.97
+    live = torch.from_numpy(live_h).to(device)
     tag = f"hash_insert n={n} card={card} T={T}"
-    check(not bool(ovf) and not bool(povf), f"{tag}: no overflow on both")
-    a = stored_codes(torch, tlo, thi, occ)
-    b = stored_codes(torch, ptlo, pthi, pocc)
-    code_t = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
-    want = torch.unique(code_t[live])
-    check(a.numel() == b.numel() == want.numel()
-          and bool((a == b).all()) and bool((a == want).all()),
-          f"{tag}: stored code sets equal ({a.numel()} codes)")
-    t64 = (thi.to(torch.int64) << 32) | (tlo.to(torch.int64) & 0xFFFFFFFF)
-    sl = slot.to(torch.int64)
-    check(bool((sl[live] < T).all())
-          and bool((t64[sl[live]] == code_t[live]).all())
-          and bool(occ[sl[live]].all()),
-          f"{tag}: every live row's slot holds its code")
-    check(bool((sl[~live] == T).all()), f"{tag}: dead rows at T")
-    return lo, hi, live, code_t
+    insert_contract(torch, K, lo, hi, live, T, tag)
+    ext = extreme_codes(K)
+    code_x = code.copy()
+    code_x[: len(ext)] = ext
+    live_h[: len(ext)] = True
+    xlo, xhi = split_lanes(torch, code_x, device)
+    insert_contract(torch, K, xlo, xhi, torch.from_numpy(live_h).to(device),
+                    T, f"{tag} with 0, -1, int64 min/max, HASH_EMPTY")
 
 
 def check_hash_overflow(torch, K, device):
@@ -257,6 +407,89 @@ def check_hash_overflow(torch, K, device):
     povf = K.hash_insert_plain(lo, hi, live, T)[4]
     check(bool(ovf) and bool(povf),
           f"hash_insert forced overflow ({n} keys, T={T}): flagged on both")
+
+
+def probe_rows(rng, keys, n, ext):
+    """``n`` probe codes, about half drawn from ``keys`` and half absent
+    from them, with ``ext`` in the first rows; and a live mask, 10% dead
+    (the first rows live)."""
+    pool = rng.integers(np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                        n // 2 + 16, dtype=np.int64)
+    absent = pool[~np.isin(pool, keys)]
+    probe = np.where(rng.random(n) < 0.5,
+                     keys[rng.integers(0, len(keys), n)],
+                     absent[rng.integers(0, len(absent), n)])
+    probe[: len(ext)] = ext
+    live = rng.random(n) >= 0.1
+    live[: len(ext)] = True
+    return probe, live
+
+
+def check_hash_edges(torch, K, device, rng):
+    """The hash contract at its edges, each insert case run twice and
+    probed by 2^22 rows (half hits, the extreme codes among them), against
+    the plain pair: every live row on one key (an ordinary one, and the
+    key equal to the table's empty word); 2^16 keys x 64 duplicates (the
+    claim race); a table at load 0.7 (chains of 100+ slots, still under
+    the cap); a table at load 0.9 (chains past the 256-slot cap: overflow
+    must be flagged); no rows, and all rows dead."""
+    ext = extreme_codes(K)
+    n = 1 << 22
+    I64 = np.iinfo(np.int64)
+
+    def distinct(k):
+        pool = np.unique(rng.integers(I64.min, I64.max, k + k // 8 + 64,
+                                      dtype=np.int64))
+        pool = pool[~np.isin(pool, ext)]
+        rng.shuffle(pool)
+        return np.concatenate([ext, pool[: k - len(ext)]])
+
+    cases = [("one key", np.full(n, 12345, dtype=np.int64), 1 << 20, None,
+              False),
+             ("one key = HASH_EMPTY", np.full(n, K.HASH_EMPTY,
+                                               dtype=np.int64), 1 << 20,
+              None, False)]
+    keys = distinct(1 << 16)
+    cases.append(("2^16 keys x 64 duplicates",
+                  rng.permutation(np.repeat(keys, 64)), 1 << 17, None,
+                  False))
+    keys = distinct(int(0.7 * (1 << 20)))
+    cases.append(("load 0.7", rng.permutation(np.repeat(keys, 4)), 1 << 20,
+                  1 << 22, False))
+    keys = distinct(int(0.9 * (1 << 20)))
+    cases.append(("load 0.9", rng.permutation(keys), 1 << 20, None, True))
+    for name, codes, T, plain_T, overflow in cases:
+        lo, hi = split_lanes(torch, codes, device)
+        live = torch.ones(len(codes), dtype=torch.bool, device=device)
+        tag = f"hash edge {name} (n={len(codes)}, T={T})"
+        table, ptable = insert_contract(torch, K, lo, hi, live, T, tag,
+                                        plain_T, overflow)
+        if overflow:
+            continue
+        probe, plive = probe_rows(rng, np.unique(codes), n, ext)
+        plo, phi = split_lanes(torch, probe, device)
+        probe_contract(torch, K, plo, phi,
+                       torch.from_numpy(plive).to(device), table, ptable,
+                       f"hash_probe on {tag}")
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    nolive = torch.zeros(0, dtype=torch.bool, device=device)
+    lo, hi = split_lanes(torch, ext, device)
+    plive = torch.ones(len(ext), dtype=torch.bool, device=device)
+    for name, args in (("no rows", (empty, empty, nolive)),
+                       ("all rows dead", (lo, hi, torch.zeros_like(plive)))):
+        slot, tlo, thi, occ, ovf = K.hash_insert(*args, 64)
+        got = K.hash_probe(lo, hi, plive, tlo, thi, occ)
+        check(not bool(ovf) and not bool(occ.any())
+              and bool((slot == 64).all()) and bool((got == 64).all()),
+              f"hash edge {name}: empty table, every probe of 0, -1, "
+              "int64 min/max, HASH_EMPTY misses")
+    table = K.hash_insert(lo, hi, plive, 64)
+    on_views = K.hash_probe(lo, hi, plive, *table[1:4])
+    separate = K.hash_probe(lo, hi, plive, table[1].contiguous(),
+                            table[2].contiguous(), table[3])
+    check(torch.equal(on_views, separate) and bool((on_views < 64).all()),
+          "hash_probe on the table's lanes as two separate contiguous "
+          "arrays (packed first) equals the probe on the insert's views")
 
 
 def gen_fact_dim(n_fact: int, n_dim: int, seed: int = SEED):
@@ -274,64 +507,29 @@ def gen_fact_dim(n_fact: int, n_dim: int, seed: int = SEED):
     return fact, dim
 
 
-def split_lanes(torch, codes, device):
-    lo = (codes & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-    hi = (codes >> 32).astype(np.int32)
-    return torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device)
-
-
 def check_probe(torch, K, device, n_build, T, n_probe, rng):
-    """hash_probe against its plain version: each pair (CUDA insert +
-    CUDA probe, plain insert + plain probe) builds its own table of
-    ``n_build`` distinct codes (0, -1 and the int64 extremes among them)
-    and probes ``n_probe`` rows, about half hits and 10% dead.  The pairs
-    lay tables out differently, so the contract is compared, not slots."""
-    ext = np.array([0, -1, np.iinfo(np.int64).min, np.iinfo(np.int64).max],
-                   dtype=np.int64)
+    """hash_probe against its plain version at the fact-dim join's probe
+    shape: each pair (CUDA insert + CUDA probe, plain insert + plain
+    probe) builds its own table of ``n_build`` distinct codes (0, -1, the
+    int64 extremes and the CUDA table's empty word among them) and probes
+    ``n_probe`` rows, about half hits and 10% dead.  The pairs lay tables
+    out differently, so the contract is compared, not slots."""
+    ext = extreme_codes(K)
     pool = np.unique(rng.integers(np.iinfo(np.int64).min,
                                   np.iinfo(np.int64).max, 3 * n_build,
                                   dtype=np.int64))
     pool = pool[~np.isin(pool, ext)]
     rng.shuffle(pool)
     build = np.concatenate([ext, pool[: n_build - len(ext)]])
-    absent = pool[n_build - len(ext):]
-    probe = np.where(rng.random(n_probe) < 0.5,
-                     build[rng.integers(0, n_build, n_probe)],
-                     absent[rng.integers(0, len(absent), n_probe)])
-    probe[: len(ext)] = ext
+    probe, live_h = probe_rows(rng, build, n_probe, ext)
     blo, bhi = split_lanes(torch, build, device)
     plo, phi = split_lanes(torch, probe, device)
     blive = torch.ones(n_build, dtype=torch.bool, device=device)
-    live = torch.from_numpy(rng.random(n_probe) >= 0.1).to(device)
-    table = K.hash_insert(blo, bhi, blive, T)
-    ptable = K.hash_insert_plain(blo, bhi, blive, T)
-    slot = K.hash_probe(plo, phi, live, *table[1:4])
-    pslot = K.hash_probe_plain(plo, phi, live, *ptable[1:4])
-    torch.cuda.synchronize()
+    live = torch.from_numpy(live_h).to(device)
     tag = f"hash_probe n={n_probe} build={n_build} T={T}"
-    check(not bool(table[4]) and not bool(ptable[4]),
-          f"{tag}: both tables built without overflow")
-    code = (phi.to(torch.int64) << 32) | (plo.to(torch.int64) & 0xFFFFFFFF)
-    hits = []
-    for name, tb, sl in (("cuda", table, slot), ("plain", ptable, pslot)):
-        t64 = (tb[2].to(torch.int64) << 32) | \
-            (tb[1].to(torch.int64) & 0xFFFFFFFF)
-        sl = sl.to(torch.int64)
-        hit = sl < T
-        check(bool((t64[sl[hit]] == code[hit]).all())
-              and bool(tb[3][sl[hit]].all()),
-              f"{tag} {name}: every hit's slot holds the row's code")
-        check(not bool(torch.isin(code[~hit & live], t64[tb[3]]).any()),
-              f"{tag} {name}: no miss's code is stored")
-        check(bool((sl[~live] == T).all()), f"{tag} {name}: dead rows at T")
-        hits.append(hit)
-    disagree = int((hits[0] != hits[1]).sum())
-    check(disagree == 0, f"{tag}: hit/miss identical per row "
-          f"({int(hits[0].sum())} hits)")
-    t64 = (table[2].to(torch.int64) << 32) | \
-        (table[1].to(torch.int64) & 0xFFFFFFFF)
-    stored = torch.sort(t64[table[3]]).values
-    return (plo, phi, live, table, ptable, code, stored), disagree
+    table, ptable = insert_contract(torch, K, blo, bhi, blive, T,
+                                    f"{tag} build")
+    return probe_contract(torch, K, plo, phi, live, table, ptable, tag)
 
 
 def q3_oracle(cols):
@@ -438,27 +636,130 @@ def check_hist_edges(torch, K, device, rng):
         check(False, "partition_histogram parts=65536 should be refused")
 
 
+def timing(shape, ms, dev, plain_ms, lib_ms, nbytes, ops, hbm):
+    """One shape's numbers for the kernels line: event-timed ms, device
+    ms from a profiler trace, the plain version's and the library call's
+    ms, and the bound from ``nbytes`` and ``ops``."""
+    bound, by = roofline(nbytes, ops, hbm)
+    return {"shape": shape, "ms": ms, "device_ms": dev,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def report(name, t, library, nbytes, ops=None):
+    print(f"{name} {t['shape']}: kernel {t['ms']:.4f} ms (device time in "
+          f"a profiler trace {dev_text(t['device_ms'], ops)}), plain "
+          f"{t['plain_ms']:.4f} ms, library ({library}) "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+          f"{t['bound_by']} ({nbytes} B)", flush=True)
+
+
 def time_hist(torch, K, timer, pids, mask, parts, hbm, label):
-    """(kernel, plain, library, bound ms, bound_by) at one shape."""
     n = pids.shape[0]
     ms = timer.ms(lambda: K.partition_histogram(pids, mask, parts))
     plain_ms = timer.ms(
         lambda: K.partition_histogram_plain(pids, mask, parts))
     lib_ms = timer.ms(lambda: torch.bincount(
         torch.where(mask, pids, parts), minlength=parts + 1)[:parts])
+    dev, ops = timer.device_ms(
+        lambda: K.partition_histogram(pids, mask, parts), ("ph_kernel",))
     # a pid and a mask byte in per row, the counts out; a compare and an
     # add per row
     nbytes = 5 * n + 4 * parts
-    bound, by = roofline(nbytes, 2 * n, hbm)
-    dev = timer.device_ms(lambda: K.partition_histogram(pids, mask, parts),
-                          "ph_kernel")
-    dev_txt = "not measured (no kernel in the trace)" if dev is None \
-        else f"{dev:.6f} ms"
-    print(f"partition_histogram {label} n={n} parts={parts}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (bincount) "
-          f"{lib_ms:.4f} ms, bound {bound:.4f} ms by {by} ({nbytes} B); "
-          f"kernel device time in a profiler trace {dev_txt}", flush=True)
-    return ms, plain_ms, lib_ms, bound, by
+    t = timing(f"{label} n={n} parts={parts}", ms, dev, plain_ms, lib_ms,
+               nbytes, 2 * n, hbm)
+    report("partition_histogram", t, "bincount", nbytes, ops)
+    return t
+
+
+def time_insert(torch, K, timer, lo, hi, live, T, hbm, label):
+    """hash_insert at one shape; the library call is ``torch.unique`` of
+    the live codes with the inverse (a group id per row)."""
+    n = lo.shape[0]
+    ms = timer.ms(lambda: K.hash_insert(lo, hi, live, T))
+    plain_ms = timer.ms(lambda: K.hash_insert_plain(lo, hi, live, T))
+    codes = table_codes(torch, lo, hi)[live]
+    lib_ms = timer.ms(lambda: torch.unique(codes, return_inverse=True))
+    dev, ops = timer.device_ms(lambda: K.hash_insert(lo, hi, live, T),
+                               ("hi_", "Memset"))
+    # rows: lo, hi, live in, slot out; table: lanes and occupied out
+    nbytes = 13 * n + 9 * T + 1
+    # fmix32's 11 integer operations and a 2-lane compare per row
+    t = timing(f"{label} n={n} T={T}", ms, dev, plain_ms, lib_ms, nbytes,
+               13 * n, hbm)
+    report("hash_insert", t, "torch.unique", nbytes, ops)
+    return t
+
+
+def time_probe(torch, K, timer, blo, bhi, plo, phi, T, hbm, label):
+    """hash_probe at one shape: the probe lanes, every row live, against
+    the table of the build lanes at T slots; the library call is a binary
+    search over the sorted build codes plus an equality check (membership
+    and position up to layout)."""
+    n = plo.shape[0]
+    plive = torch.ones(n, dtype=torch.bool, device=plo.device)
+    blive = torch.ones(blo.shape[0], dtype=torch.bool, device=blo.device)
+    table = K.hash_insert(blo, bhi, blive, T)
+    ptable = K.hash_insert_plain(blo, bhi, blive, T)
+    code = table_codes(torch, plo, phi)
+    stored = torch.sort(table_codes(torch, blo, bhi)).values
+    ms = timer.ms(lambda: K.hash_probe(plo, phi, plive, *table[1:4]))
+    plain_ms = timer.ms(
+        lambda: K.hash_probe_plain(plo, phi, plive, *ptable[1:4]))
+
+    def lookup():
+        pos = torch.searchsorted(stored, code).clamp(max=len(stored) - 1)
+        return torch.where(plive & (stored[pos] == code), pos, T)
+    lib_ms = timer.ms(lookup)
+    dev, ops = timer.device_ms(
+        lambda: K.hash_probe(plo, phi, plive, *table[1:4]), ("hp_",))
+    # what the kernel needs of these inputs: every row's live byte, lo and
+    # hi in, its slot out; the table's occupied bytes, and the lanes of
+    # its occupied slots only
+    nbytes = 13 * n + T + 8 * int(table[3].sum())
+    # fmix32's 11 integer operations and a 2-lane compare per row
+    t = timing(f"{label} n={n} T={T}", ms, dev, plain_ms, lib_ms, nbytes,
+               13 * n, hbm)
+    report("hash_probe", t, "searchsorted", nbytes, ops)
+    return t
+
+
+def time_mmr(torch, K, timer, v, m, hbm, label):
+    """masked_multi_reduce of one column under a mask; the library call
+    is ``torch.where`` + ``sum`` and the mask's ``sum``."""
+    n = m.shape[0]
+    ms = timer.ms(lambda: K.masked_multi_reduce([v], [None], m))
+    plain_ms = timer.ms(lambda: K.masked_multi_reduce_plain([v], [None], m))
+    lib_ms = timer.ms(lambda: (torch.where(m, v, 0.0).sum(), m.sum()))
+    dev, ops = timer.device_ms(
+        lambda: K.masked_multi_reduce([v], [None], m), ("mmr_",))
+    selected = int(m.sum())
+    nbytes = n + 8 * selected + 8 + 4   # mask, needed values, outputs
+    t = timing(f"{label} n={n} ({selected} rows pass)", ms, dev, plain_ms,
+               lib_ms, nbytes, n + 2 * selected, hbm)
+    report("masked_multi_reduce", t, "where + sum", nbytes, ops)
+    return t
+
+
+def hbm_rate(name: str) -> float:
+    """The card's device-memory rate in bytes/s, for the bound."""
+    return next((v for k, v in HBM_BYTES_PER_S.items() if k in name),
+                3.35e12)
+
+
+class PathLaunches:
+    """Kernel launches of the main path's runs: per kernel, in total and
+    by the shape of the call."""
+
+    def __init__(self, names):
+        self.counts = {k: 0 for k in names}
+        self.shapes = {k: {} for k in names}
+
+    def add(self, launches):
+        for k in self.counts:
+            self.counts[k] += launches[k]
+            for shape, c in launches["by_shape"][k].items():
+                self.shapes[k][shape] = self.shapes[k].get(shape, 0) + c
 
 
 def exchanged_rows(stats) -> int:
@@ -558,7 +859,8 @@ def drive(torch, K, fm, query, rows, card_line, label, reps=3,
     t0 = time.perf_counter()
     result = query.to_pandas()
     first_s = time.perf_counter() - t0
-    launches = K.launches.snapshot()
+    launches = dict(K.launches.snapshot(),
+                    by_shape=K.launches.shape_snapshot())
     fusion = fm.snapshot()
     if extra:
         fusion = dict(fusion, **{k: m.snapshot() for k, m in extra.items()})
@@ -612,8 +914,7 @@ def main() -> int:
     print(f"kernel build {K.build_seconds():.3f} s (load incl. "
           f"{time.perf_counter() - t0:.3f} s) -> {K._LIBRARY.path}",
           flush=True)
-    hbm = next(v for k, v in HBM_BYTES_PER_S.items() if k in name) \
-        if any(k in name for k in HBM_BYTES_PER_S) else 3.35e12
+    hbm = hbm_rate(name)
     print(f"bound uses {hbm / 1e12:.2f} TB/s device memory for {name}",
           flush=True)
     timer = Timer(torch, device)
@@ -635,81 +936,33 @@ def main() -> int:
               f"kernel {t:.4f} ms, bound {bms:.4f} ms by {bby} ({b} B)",
               flush=True)
         del base
-    # q6's first batch as the main path hands it to the kernel: the
-    # fused filter's mask and rev = price * discount, maxBatchRows rows
     data = gen_host(Q6_ROWS)
-    n6 = 1 << 22
-    first = {k: torch.from_numpy(v[:n6]).to(device) for k, v in data.items()}
-    m0 = ((first["l_shipdate"] >= 9131) & (first["l_shipdate"] < 9496)
-          & (first["l_discount"] >= 0.05) & (first["l_discount"] <= 0.07)
-          & (first["l_quantity"] < 24.0))
-    v0 = first["l_extendedprice"] * first["l_discount"]
-    del first
-    mmr_err = check_mmr(torch, K, [v0], [None], m0, f"q6 batch n={n6}")
-    mmr_ms = timer.ms(lambda: K.masked_multi_reduce([v0], [None], m0))
-    mmr_plain_ms = timer.ms(
-        lambda: K.masked_multi_reduce_plain([v0], [None], m0))
-    mmr_lib_ms = timer.ms(lambda: (torch.where(m0, v0, 0.0).sum(),
-                                   m0.sum()))
-    selected = int(m0.sum())
-    mmr_bytes = n6 + 8 * selected + 8 + 4   # mask, needed values, outputs
-    mmr_bound, mmr_by = roofline(mmr_bytes, n6 + 2 * selected, hbm)
-    print(f"masked_multi_reduce q6 batch n={n6} ({selected} rows pass): "
-          f"kernel {mmr_ms:.4f} ms, plain {mmr_plain_ms:.4f} ms, library "
-          f"{mmr_lib_ms:.4f} ms, bound {mmr_bound:.4f} ms by {mmr_by} "
-          f"({mmr_bytes} B)", flush=True)
+    v0, m0 = q6_batch(torch, device, data)
+    mmr_err = check_mmr(torch, K, [v0], [None], m0,
+                        f"q6 batch n={v0.shape[0]}")
+    mmr = time_mmr(torch, K, timer, v0, m0, hbm, "q6 batch")
     del v0, m0
 
-    lo, hi, live, code_t = check_hash(torch, K, device, HASH_ROWS,
-                                      HASH_CARD, HASH_SLOTS, rng)
+    check_hash(torch, K, device, HASH_ROWS, HASH_CARD, HASH_SLOTS, rng)
     check_hash_overflow(torch, K, device)
-    # the main path's update stage: every row live (no filter)
-    live = torch.ones_like(live)
-    hash_ms = timer.ms(lambda: K.hash_insert(lo, hi, live, HASH_SLOTS))
-    hash_plain_ms = timer.ms(
-        lambda: K.hash_insert_plain(lo, hi, live, HASH_SLOTS))
-    live_codes = code_t
-    hash_lib_ms = timer.ms(
-        lambda: torch.unique(live_codes, return_inverse=True))
-    # rows: lo, hi, live in, slot out; table: lanes and occupied out
-    hash_bytes = 13 * HASH_ROWS + 9 * HASH_SLOTS + 1
-    # fmix32's 11 integer operations and a 2-lane compare per live row
-    hash_bound, hash_by = roofline(hash_bytes, 13 * HASH_ROWS, hbm)
-    print(f"hash_insert n={HASH_ROWS} T={HASH_SLOTS}: kernel {hash_ms:.4f} "
-          f"ms, plain {hash_plain_ms:.4f} ms, library (torch.unique) "
-          f"{hash_lib_ms:.4f} ms, bound {hash_bound:.4f} ms by {hash_by} "
-          f"({hash_bytes} B)", flush=True)
-    del lo, hi, live, code_t, live_codes
-
-    # hash_probe at the fact-dim join's shapes: a 2^22-row probe batch
-    # against the 2^20-slot table of the 2^19-row dim side
-    n_probe, T_probe = BATCH_ROWS, 1 << 20
-    (plo, phi, plive, table, ptable, pcode, stored), probe_err = \
-        check_probe(torch, K, device, DIM_ROWS, T_probe, n_probe, rng)
-    probe_ms = timer.ms(lambda: K.hash_probe(plo, phi, plive, *table[1:4]))
-    probe_plain_ms = timer.ms(
-        lambda: K.hash_probe_plain(plo, phi, plive, *ptable[1:4]))
-
-    def lookup():
-        # membership and position up to layout: binary search over the
-        # sorted stored codes plus an equality check
-        pos = torch.searchsorted(stored, pcode).clamp(max=len(stored) - 1)
-        return torch.where(plive & (stored[pos] == pcode), pos, T_probe)
-    probe_lib_ms = timer.ms(lookup)
-    # what the kernel needs of these inputs: every row's live byte and a
-    # live row's lo and hi in, every row's slot out; the table's occupied
-    # bytes, and the lanes of its occupied slots only
-    probe_live = int(plive.sum())
-    probe_occ = int(table[3].sum())
-    probe_bytes = (n_probe + 8 * probe_live + 4 * n_probe + T_probe
-                   + 8 * probe_occ)
-    # fmix32's 11 integer operations and a 2-lane compare per live row
-    probe_bound, probe_by = roofline(probe_bytes, 13 * probe_live, hbm)
-    print(f"hash_probe n={n_probe} T={T_probe}: kernel {probe_ms:.4f} ms, "
-          f"plain {probe_plain_ms:.4f} ms, library (searchsorted) "
-          f"{probe_lib_ms:.4f} ms, bound {probe_bound:.4f} ms by "
-          f"{probe_by} ({probe_bytes} B)", flush=True)
-    del plo, phi, plive, table, ptable, pcode, stored
+    check_hash_edges(torch, K, device, rng)
+    # hash_probe against its plain version at the join's probe shape
+    probe_err = check_probe(torch, K, device, DIM_ROWS, JOIN_SLOTS,
+                            BATCH_ROWS, rng)
+    # the main path's shapes: the group-by's update stage (every row
+    # live, no filter), the join build (the 2^19 dim keys into a 2^20-slot
+    # table) and one 2^22-row probe batch against that table
+    lo, hi = split_lanes(torch, group_by_codes(), device)
+    live = torch.ones(HASH_ROWS, dtype=torch.bool, device=device)
+    insert_times = [time_insert(torch, K, timer, lo, hi, live, HASH_SLOTS,
+                                hbm, "hash group-by")]
+    (blo, bhi), (plo, phi) = join_lanes(torch, device)
+    blive = torch.ones(DIM_ROWS, dtype=torch.bool, device=device)
+    insert_times.append(time_insert(torch, K, timer, blo, bhi, blive,
+                                    JOIN_SLOTS, hbm, "join build"))
+    probe = time_probe(torch, K, timer, blo, bhi, plo, phi, JOIN_SLOTS, hbm,
+                       "fact-dim probe batch")
+    del lo, hi, live, blo, bhi, blive, plo, phi
 
     # partition_histogram at the sharded path's two stats shapes: the
     # fact side's per-shard pass (every row live, 8 parts) and an
@@ -722,9 +975,10 @@ def main() -> int:
                              4 * NSHARDS, rng, bucket_live)
     hist_err = max(hist_err, err)
     check_hist_edges(torch, K, device, rng)
-    hist_ms, hist_plain_ms, hist_lib_ms, hist_bound, hist_by = time_hist(
-        torch, K, timer, hp, hm, NSHARDS, hbm, "fact stats")
-    time_hist(torch, K, timer, bp, bm, 4 * NSHARDS, hbm, "bucket stats")
+    hist_times = [time_hist(torch, K, timer, hp, hm, NSHARDS, hbm,
+                            "fact stats"),
+                  time_hist(torch, K, timer, bp, bm, 4 * NSHARDS, hbm,
+                            "bucket stats")]
     del hp, hm, bp, bm
 
     # 3. the main path through TpuSession on CUDA
@@ -733,7 +987,7 @@ def main() -> int:
     dist_metrics = {"shuffle": shuffle_metrics,
                     "host_syncs": host_sync_metrics}
     dist_conf = {"spark.rapids.sql.distributed.numShards": NSHARDS}
-    total = {k: 0 for k in K.launches.NAMES}
+    total = PathLaunches(K.launches.NAMES)
     s = TpuSession({})
     check(s.device == device, f"session on {s.device}")
     df = s.create_dataframe(data)
@@ -756,8 +1010,8 @@ def main() -> int:
     for c in ("sum_qty", "sum_base", "sum_disc", "avg_disc"):
         check(np.allclose(got1[c].to_numpy(), want1[c], rtol=QUERY_RTOL,
                           atol=0), f"q1 {c} within rel {QUERY_RTOL}")
-    for k in total:
-        total[k] += l6[k] + l1[k]
+    total.add(l6)
+    total.add(l1)
     s.stop()
     del df
     single_rate = {"q6": r6, "q1 shape": r1}
@@ -798,8 +1052,8 @@ def main() -> int:
         print(f"rows/s {label}: distributed over {NSHARDS} shards "
               f"{rate:.6e}, single device {single_rate[label]:.6e}",
               flush=True)
-    for k in total:
-        total[k] += l6[k] + l1[k]
+    total.add(l6)
+    total.add(l1)
     s.stop()
     del df, data
 
@@ -830,8 +1084,7 @@ def main() -> int:
                   f"{fus['hashOverflowFallbacks']}")
             check(lh["hash_insert"] >= 1,
                   f"{label}: launched hash_insert {lh['hash_insert']}x")
-            for k in total:
-                total[k] += lh[k]
+            total.add(lh)
         else:
             check(lh["hash_insert"] == 0, f"{label}: no hash_insert launch")
         s.stop()
@@ -855,8 +1108,7 @@ def main() -> int:
     print(f"rows/s sparse group-by: distributed over {NSHARDS} shards "
           f"{ds:.6e}, single device {rate_hash[False]:.6e} (hash off), "
           f"{rate_hash[True]:.6e} (hash on)", flush=True)
-    for k in total:
-        total[k] += ls[k]
+    total.add(ls)
 
     # orderBy and TopN of the same table: the range sort
     order = np.argsort(sparse["k"], kind="stable")
@@ -877,8 +1129,7 @@ def main() -> int:
           f"distributed orderBy(k): {len(got)} rows equal np.sort "
           "(stable)")
     check_dist(s, "distributed sort", lo, mo)
-    for k in total:
-        total[k] += lo[k]
+    total.add(lo)
     got, lt, mt, d_top = drive(torch, K, fm, make_topn(F, sdf), HASH_ROWS,
                                card_line, "distributed TopN 10",
                                extra=dist_metrics)
@@ -942,8 +1193,7 @@ def main() -> int:
                   and l3["hash_insert"] >= 1,
                   f"{label}: the group-by took the hash table "
                   f"(hash_insert {l3['hash_insert']}x), no overflow")
-            for k in total:
-                total[k] += l3[k]
+            total.add(l3)
         else:
             check(l3["hash_insert"] == 0 and l3["hash_probe"] == 0,
                   f"{label}: no hash kernel launch")
@@ -985,8 +1235,7 @@ def main() -> int:
                   f"batch), hash_insert {lf['hash_insert']}x, "
                   f"hashKernelLaunches {fus['hashKernelLaunches']}, "
                   f"hashOverflowFallbacks {fus['hashOverflowFallbacks']}")
-            for k in total:
-                total[k] += lf[k]
+            total.add(lf)
         else:
             check(lf["hash_insert"] == 0 and lf["hash_probe"] == 0,
                   f"{label}: no hash kernel launch")
@@ -1018,8 +1267,7 @@ def main() -> int:
     print(f"rows/s fact-dim join: distributed over {NSHARDS} shards "
           f"{d_fd:.6e}, single device {rate_fd[False]:.6e} (hash off), "
           f"{rate_fd[True]:.6e} (hash on)", flush=True)
-    for k in total:
-        total[k] += lf[k]
+    total.add(lf)
     s.stop()
     del fact, dim, q
 
@@ -1064,40 +1312,32 @@ def main() -> int:
           and np.allclose(got["sum_disc"].to_numpy(), want_o["sum_disc"],
                           rtol=QUERY_RTOL, atol=0),
           f"{label}: counts exact and sums within rel {QUERY_RTOL} of numpy")
-    for k in total:
-        total[k] += lp[k]
+    total.add(lp)
     del pg_data
-    check(all(v >= 1 for v in total.values()),
-          f"every kernel ran on the main path: {total}")
+    check(all(v >= 1 for v in total.counts.values()),
+          f"every kernel ran on the main path: {total.counts}")
 
     # 4. the kernels line, 5. the result line
+    def entry(name, replaces, err, times):
+        """The first shape's numbers at the top level (the keys every
+        kernel carries), the other shapes' under ``other_shapes``, and
+        the main path's launches in total and by shape."""
+        first = times[0]
+        e = {"name": name, "route": "cuda",
+             "source": f"spark_rapids_tpu_torch/csrc/{name}.cu",
+             "replaces": f"spark_rapids_tpu/ops/pallas_kernels.py:{replaces}",
+             "launches": total.counts[name], "max_abs_err": float(err),
+             **first,
+             "launches_by_shape": total.shapes[name]}
+        if len(times) > 1:
+            e["other_shapes"] = times[1:]
+        return e
+
     kernels = [
-        {"name": "masked_multi_reduce", "route": "cuda",
-         "source": "spark_rapids_tpu_torch/csrc/masked_multi_reduce.cu",
-         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:210",
-         "launches": total["masked_multi_reduce"], "max_abs_err": mmr_err,
-         "ms": mmr_ms, "plain_ms": mmr_plain_ms, "bound_ms": mmr_bound,
-         "bound_by": mmr_by, "library_ms": mmr_lib_ms},
-        {"name": "hash_insert", "route": "cuda",
-         "source": "spark_rapids_tpu_torch/csrc/hash_insert.cu",
-         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:456",
-         "launches": total["hash_insert"], "max_abs_err": 0.0,
-         "ms": hash_ms, "plain_ms": hash_plain_ms, "bound_ms": hash_bound,
-         "bound_by": hash_by, "library_ms": hash_lib_ms},
-        {"name": "hash_probe", "route": "cuda",
-         "source": "spark_rapids_tpu_torch/csrc/hash_probe.cu",
-         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:532",
-         "launches": total["hash_probe"], "max_abs_err": float(probe_err),
-         "ms": probe_ms, "plain_ms": probe_plain_ms,
-         "bound_ms": probe_bound, "bound_by": probe_by,
-         "library_ms": probe_lib_ms},
-        {"name": "partition_histogram", "route": "cuda",
-         "source": "spark_rapids_tpu_torch/csrc/partition_histogram.cu",
-         "replaces": "spark_rapids_tpu/ops/pallas_kernels.py:122",
-         "launches": total["partition_histogram"],
-         "max_abs_err": float(hist_err),
-         "ms": hist_ms, "plain_ms": hist_plain_ms, "bound_ms": hist_bound,
-         "bound_by": hist_by, "library_ms": hist_lib_ms},
+        entry("masked_multi_reduce", 210, mmr_err, [mmr]),
+        entry("hash_insert", 456, 0.0, insert_times),
+        entry("hash_probe", 532, probe_err, [probe]),
+        entry("partition_histogram", 122, hist_err, hist_times),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

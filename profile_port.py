@@ -12,9 +12,12 @@ join once more over 8 logical shards as a shuffle join), and the q1 shape
 over 2^26 rows on one device and over 8 logical shards, and prints, per
 run: the host wall time, the device's busy time (the union of the
 intervals in which any CUDA kernel or copy ran) and its idle share of the
-wall time, the counted host syncs, and the device ops that took the most
-device time.  It checks nothing; ``chip_smoke.py`` holds the answers
-against their oracles.  Without a CUDA device it exits non-zero.
+wall time, the counted host syncs, the device ops that took the most
+device time, and the device time of each hand-written kernel and of all
+memsets (the hash insert clears its table with one; PyTorch issues
+others).  It checks nothing;
+``chip_smoke.py`` holds the answers against their oracles.  Without a
+CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import time
 import chip_smoke as cs
 
 TOP = 10
+# name prefixes of the kernels under spark_rapids_tpu_torch/csrc
+HAND_WRITTEN = ("mmr_", "hi_", "hp_", "ph_")
 
 
 def busy_ms(events) -> float:
@@ -71,6 +76,19 @@ def profile(torch, query, label, card_line):
     for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:TOP]:
         print(f"  {ms:10.3f} ms {n:6d}x  {name[:110]}", flush=True)
+    mine = {}
+    for name, (ms, n) in by_name.items():
+        # a template kernel's name starts with its return type
+        short = name.removeprefix("void ").split("(")[0]
+        if short.startswith(HAND_WRITTEN + ("Memset",)):
+            t = mine.setdefault(short.strip(), [0.0, 0])
+            t[0] += ms
+            t[1] += n
+    if mine:
+        print("  hand-written kernels, and all memsets (PyTorch's too): "
+              + ", ".join(f"{name} {ms:.3f} ms ({n}x)"
+                          for name, (ms, n) in sorted(mine.items())),
+              flush=True)
 
 
 def main() -> int:

@@ -25,14 +25,19 @@ kernel or raises; nothing falls back.
   (``ops/aggregates.groupby_aggregate_hashed``).  Only the set of stored
   codes is contractual; the kernel (parallel linear probing) and the plain
   version (the JAX package's salted sub-table cascade) lay tables out
-  differently.
+  differently.  The kernel's table is one int64 word a slot
+  (``csrc/hash_common.cuh``: empty slots hold :data:`HASH_EMPTY`, the key
+  equal to it sits at a reserved slot), and the ``table_lo`` /
+  ``table_hi`` it returns are strided views of those words.
 - ``hash_probe``: for each live row, the slot of a ``hash_insert`` table
   holding its code, or ``T`` on a miss; the probe half of the single-key
   equi-join's hash phase A (``ops/joins.hash_join_match``).  A table is
   valid only against the probe of its own pair: the CUDA probe walks the
   CUDA insert's linear-probing layout, the plain probe the plain insert's
   cascade.  Both wrappers follow the tensors' device, so a table and its
-  probe always come from the same pair.
+  probe always come from the same pair.  The CUDA probe reads the words
+  under the two lane views; lanes handed as two separate arrays are
+  packed into words first (:func:`packed_table`).
 - ``partition_histogram``: per destination, the number of live rows whose
   partition id is that destination; it sizes every exchange of the
   sharded query path (``parallel/partitioning.layout_by_partition`` and
@@ -40,7 +45,7 @@ kernel or raises; nothing falls back.
   ``parallel/distsort.py``), through the dispatcher :func:`histogram`.
 
 Each wrapper adds one to ``launches`` where it calls into the library,
-and nowhere else.
+and nowhere else, under its kernel's name and the shape of the call.
 """
 
 from __future__ import annotations
@@ -58,6 +63,10 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 MAX_PROBE = 256
+# The word of an empty slot in the CUDA insert's table, 0x8080808080808080
+# as int64 (csrc/hash_common.cuh).  A code equal to it is stored all the
+# same, at a reserved slot.
+HASH_EMPTY = -0x7F7F7F7F7F7F7F80
 _MMR_MAX_COLS = 8
 _MMR_THREADS = 256
 _U32 = 0xFFFFFFFF
@@ -69,7 +78,9 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class KernelLaunches:
-    """Process-wide launch counts, one plain integer per kernel."""
+    """Process-wide launch counts, one plain integer per kernel, and the
+    same launches split by the shape of the call (a short string such as
+    ``"n=4194304 T=2097152"``)."""
 
     NAMES = ("masked_multi_reduce", "hash_insert", "hash_probe",
              "partition_histogram")
@@ -77,19 +88,27 @@ class KernelLaunches:
     def __init__(self):
         self._lock = threading.Lock()
         self.counts = {k: 0 for k in self.NAMES}
+        self.by_shape = {k: {} for k in self.NAMES}
 
-    def bump(self, name: str) -> None:
+    def bump(self, name: str, shape: str) -> None:
         with self._lock:
             self.counts[name] += 1
+            shapes = self.by_shape[name]
+            shapes[shape] = shapes.get(shape, 0) + 1
 
     def snapshot(self) -> dict:
         with self._lock:
             return dict(self.counts)
 
+    def shape_snapshot(self) -> dict:
+        with self._lock:
+            return {k: dict(v) for k, v in self.by_shape.items()}
+
     def reset(self) -> None:
         with self._lock:
             for k in self.counts:
                 self.counts[k] = 0
+                self.by_shape[k] = {}
 
 
 launches = KernelLaunches()
@@ -177,11 +196,11 @@ class _KernelLibrary:
                 lib.srt_masked_multi_reduce.restype = ctypes.c_int
                 lib.srt_hash_insert.argtypes = [
                     vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, vp, vp, vp, vp, vp, vp, vp]
+                    ctypes.c_int, vp, vp, vp, vp, vp]
                 lib.srt_hash_insert.restype = ctypes.c_int
                 lib.srt_hash_probe.argtypes = [
                     vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, vp, vp, vp, vp, ctypes.c_int, vp]
+                    ctypes.c_int, vp, vp, vp, vp]
                 lib.srt_hash_probe.restype = ctypes.c_int
                 lib.srt_partition_histogram.argtypes = [
                     vp, vp, ctypes.c_longlong, ctypes.c_int, vp,
@@ -307,7 +326,7 @@ def _masked_multi_reduce_cuda(values, validities, mask):
             vptrs, okptrs, k, mask.data_ptr(), n, nblocks,
             psum.data_ptr(), pcnt.data_ptr(), out_sum.data_ptr(),
             out_cnt.data_ptr(), stream)
-        launches.bump("masked_multi_reduce")
+        launches.bump("masked_multi_reduce", f"n={n} cols={k}")
         _check_launch(err, "masked_multi_reduce")
         sums.append(out_sum)
         cnts.append(out_cnt)
@@ -379,7 +398,8 @@ def hash_insert(code_lo: torch.Tensor, code_hi: torch.Tensor,
     Returns ``(slot int32[n], table_lo int32[T], table_hi int32[T],
     occupied bool[T], overflow bool[])``.  Dead rows, and every row when
     ``overflow`` is set, may sit at ``slot == T``; on overflow the caller
-    discards the whole output."""
+    discards the whole output.  From the CUDA kernel, ``table_lo`` and
+    ``table_hi`` are strided views of one int64 word a slot."""
     if num_slots < 1 or num_slots & (num_slots - 1):
         raise ValueError(f"num_slots must be a power of two, "
                          f"got {num_slots}")
@@ -442,27 +462,50 @@ def _hash_insert_cuda(code_lo, code_hi, live, num_slots: int,
     T = num_slots
     if T >= (1 << 31):
         raise ValueError(f"hash_insert: {T} slots do not fit int32 slots")
-    if n == 0:
-        return _empty_table(0, T, device)
+    if max_probe < 1:
+        raise ValueError(f"hash_insert: max_probe must be positive, "
+                         f"got {max_probe}")
     slot = torch.empty(n, dtype=torch.int32, device=device)
-    tlo = torch.empty(T, dtype=torch.int32, device=device)
-    thi = torch.empty(T, dtype=torch.int32, device=device)
-    state = torch.empty(T, dtype=torch.int32, device=device)
+    words = torch.empty(T, dtype=torch.int64, device=device)
     occ = torch.empty(T, dtype=torch.bool, device=device)
-    ovf = torch.empty(1, dtype=torch.bool, device=device)
+    flags = torch.empty(2, dtype=torch.bool, device=device)
+    # n == 0 still launches: the probe needs a cleared table
     err = lib.srt_hash_insert(
         code_lo.data_ptr(), code_hi.data_ptr(), live.data_ptr(), n, T,
-        max_probe, slot.data_ptr(), tlo.data_ptr(), thi.data_ptr(),
-        state.data_ptr(), occ.data_ptr(), ovf.data_ptr(), _stream(device))
-    launches.bump("hash_insert")
+        max_probe, slot.data_ptr(), words.data_ptr(), occ.data_ptr(),
+        flags.data_ptr(), _stream(device))
+    launches.bump("hash_insert", f"n={n} T={T}")
     _check_launch(err, "hash_insert")
-    return slot, tlo, thi, occ, ovf[0]
+    tlo, thi = lane_views(words)
+    return slot, tlo, thi, occ, flags[0]
+
+
+def lane_views(words: torch.Tensor):
+    """``(lo, hi)``: int32 views of int64 table words (little-endian, so
+    lo is the first int32 of each word), strided by two."""
+    lanes = words.view(torch.int32).view(words.shape[0], 2)
+    return lanes[:, 0], lanes[:, 1]
+
+
+def packed_table(table_lo: torch.Tensor,
+                 table_hi: torch.Tensor) -> torch.Tensor:
+    """The int64 words (``(hi << 32) | (lo & 0xFFFFFFFF)``) under a
+    table's two lanes: the words themselves, without a copy, when the
+    lanes are the views that the CUDA insert returns (:func:`lane_views`);
+    otherwise a packed copy (one ``torch.stack``)."""
+    T = table_lo.shape[0]
+    if (table_lo.dim() == 1 and table_hi.shape == table_lo.shape
+            and table_lo.stride() == (2,) and table_hi.stride() == (2,)
+            and table_lo.storage_offset() % 2 == 0
+            and table_hi.storage_offset() == table_lo.storage_offset() + 1
+            and table_lo.untyped_storage().data_ptr()
+            == table_hi.untyped_storage().data_ptr()):
+        return torch.as_strided(table_lo, (T, 2), (2, 1)).view(
+            torch.int64).view(T)
+    return torch.stack([table_lo, table_hi], dim=1).view(torch.int64).view(T)
 
 
 # -------------------------------------------------------------- hash probe --
-
-_HP_THREADS = 256
-
 
 def hash_probe(code_lo: torch.Tensor, code_hi: torch.Tensor,
                live: torch.Tensor, table_lo: torch.Tensor,
@@ -471,7 +514,9 @@ def hash_probe(code_lo: torch.Tensor, code_hi: torch.Tensor,
     """Slot (int32[n]) of a ``hash_insert`` table holding each live row's
     code ``(hi << 32) | (lo & 0xFFFFFFFF)``, or ``T`` on a miss and for
     dead rows.  The table must come from :func:`hash_insert` on the same
-    device (the pairs lay tables out differently)."""
+    device (the pairs lay tables out differently).  On CUDA the kernel
+    reads the int64 words under the lanes (:func:`packed_table`): the
+    insert's own lane views cost nothing, separate lane arrays one pack."""
     if live.device.type == "cpu":
         return hash_probe_plain(code_lo, code_hi, live, table_lo, table_hi,
                                 occupied)
@@ -510,21 +555,27 @@ def _hash_probe_cuda(code_lo, code_hi, live, table_lo, table_hi, occupied,
     _require(code_lo, "code_lo", torch.int32, device, n)
     _require(code_hi, "code_hi", torch.int32, device, n)
     _require(live, "live", torch.bool, device, n)
-    _require(table_lo, "table_lo", torch.int32, device, T)
-    _require(table_hi, "table_hi", torch.int32, device, T)
     _require(occupied, "occupied", torch.bool, device, T)
+    for what, t in (("table_lo", table_lo), ("table_hi", table_hi)):
+        if t.device != device or t.dtype != torch.int32 \
+                or t.shape != (T,):
+            raise ValueError(f"hash_probe: {what} must be int32[{T}] on "
+                             f"{device}")
     if T < 1 or T & (T - 1) or T >= (1 << 31):
         raise ValueError(f"hash_probe: table of {T} slots is not a power "
                          "of two below 2^31")
+    if max_probe < 1:
+        raise ValueError(f"hash_probe: max_probe must be positive, "
+                         f"got {max_probe}")
     slot = torch.empty(n, dtype=torch.int32, device=device)
     if n == 0:
         return slot
-    blocks = max(1, min(-(-n // _HP_THREADS), 32 * _sm_count(device)))
+    words = packed_table(table_lo, table_hi)
     err = lib.srt_hash_probe(
         code_lo.data_ptr(), code_hi.data_ptr(), live.data_ptr(), n, T,
-        max_probe, table_lo.data_ptr(), table_hi.data_ptr(),
-        occupied.data_ptr(), slot.data_ptr(), blocks, _stream(device))
-    launches.bump("hash_probe")
+        max_probe, words.data_ptr(), occupied.data_ptr(), slot.data_ptr(),
+        _stream(device))
+    launches.bump("hash_probe", f"n={n} T={T}")
     _check_launch(err, "hash_probe")
     return slot
 
@@ -590,7 +641,7 @@ def _partition_histogram_cuda(pids, mask, num_parts: int):
     err = lib.srt_partition_histogram(
         pids.data_ptr(), mask.data_ptr(), n, num_parts, out.data_ptr(),
         blocks, _stream(device))
-    launches.bump("partition_histogram")
+    launches.bump("partition_histogram", f"n={n} parts={num_parts}")
     _check_launch(err, "partition_histogram")
     return out
 

@@ -258,6 +258,165 @@ def test_hash_probe_empty():
     assert out.shape == (0,) and out.dtype == torch.int32
 
 
+# ------------------------------------------------ hash contract edge cases --
+
+_EDGE = np.array([0, -1, np.iinfo(np.int64).min, np.iinfo(np.int64).max,
+                  K.HASH_EMPTY], dtype=np.int64)
+
+
+def _edge_case(case, seed):
+    """(codes, live, T, expect_overflow) of one edge case of the hash
+    contract: the extreme codes and the CUDA table's empty word among
+    random keys; every row on one key (an ordinary one and the empty
+    word); no rows; every row dead; more distinct keys than slots."""
+    rng = np.random.default_rng(seed)
+    n, T = 300, 256
+    if case == "extremes":
+        keys = np.concatenate([_EDGE, rng.integers(-(1 << 62), 1 << 62, 60,
+                                                   dtype=np.int64)])
+        codes = keys[rng.integers(0, len(keys), n)]
+        codes[: len(_EDGE)] = _EDGE
+        live = rng.random(n) < 0.85
+        live[: len(_EDGE)] = True
+        return codes, live, T, False
+    if case in ("one key", "one key = HASH_EMPTY"):
+        key = 12345 if case == "one key" else K.HASH_EMPTY
+        return np.full(n, key, dtype=np.int64), np.ones(n, bool), T, False
+    if case == "no rows":
+        return np.zeros(0, dtype=np.int64), np.zeros(0, bool), T, False
+    if case == "all dead":
+        return _EDGE.copy(), np.zeros(len(_EDGE), bool), T, False
+    assert case == "overflow"
+    codes = np.unique(rng.integers(-(1 << 40), 1 << 40, 2 * T,
+                                   dtype=np.int64))[: T + T // 2]
+    return np.concatenate([_EDGE, codes]), \
+        np.ones(len(codes) + len(_EDGE), bool), T, True
+
+
+@pytest.mark.parametrize("case", ["extremes", "one key",
+                                  "one key = HASH_EMPTY", "no rows",
+                                  "all dead", "overflow"])
+def test_hash_edge_cases_match_jax(case):
+    """The plain insert and probe against the JAX package's Pallas kernels
+    (interpret mode) and XLA formulations at the contract's edges: the
+    same stored code set (or overflow on all), every placed row's slot
+    holding its code, and the same hit/miss for every probe row, the
+    extreme codes and the empty word among them."""
+    codes, live, T, overflow = _edge_case(case, seed=len(case))
+    lo, hi = _split(codes)
+    t_in = (torch.from_numpy(lo), torch.from_numpy(hi),
+            torch.from_numpy(live))
+    j_in = (jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(live))
+    tables = {"plain": [x.numpy() for x in K.hash_insert_plain(*t_in, T)],
+              "wrapper": [x.numpy() for x in K.hash_insert(*t_in, T)],
+              "pallas": [np.asarray(x) for x in
+                         pk.hash_insert(*j_in, T, interpret=True)],
+              "xla": [np.asarray(x) for x in pk.hash_insert_xla(*j_in, T)]}
+    want = np.unique(codes[live])
+    for name, out in tables.items():
+        if overflow:
+            assert bool(out[4]), name
+            continue
+        _check_contract(codes, live, out, T)
+        np.testing.assert_array_equal(_stored_codes(*out[1:4]), want,
+                                      err_msg=name)
+    if overflow:
+        return
+    rng = np.random.default_rng(7)
+    absent = rng.integers(-(1 << 62), 1 << 62, 40, dtype=np.int64)
+    probe = np.concatenate([_EDGE, want, absent[~np.isin(absent, want)]])
+    plive = np.ones(len(probe), bool)
+    plive[-3:] = False
+    plo, phi = _split(probe)
+    t_probe = (torch.from_numpy(plo), torch.from_numpy(phi),
+               torch.from_numpy(plive))
+    j_probe = (jnp.asarray(plo), jnp.asarray(phi), jnp.asarray(plive))
+    slots = {
+        "plain": K.hash_probe_plain(
+            *t_probe, *[torch.from_numpy(x) for x in tables["plain"][1:4]]),
+        "pallas": pk.hash_probe(*j_probe, *tables["pallas"][1:4],
+                                interpret=True),
+        "xla": pk.hash_probe_xla(*j_probe, *tables["xla"][1:4])}
+    want_hit = plive & np.isin(probe, want)
+    for name, slot in slots.items():
+        got_hit = _check_probe_contract(want, probe, plive,
+                                        tables[name], slot, T)
+        np.testing.assert_array_equal(got_hit, want_hit, err_msg=name)
+
+
+def test_lane_views_are_the_packed_words():
+    """The CUDA insert's table is one int64 word a slot and its lanes are
+    strided views: lo is the word's first int32, hi its second, for every
+    extreme code and the empty word."""
+    codes = np.concatenate([_EDGE, np.arange(-3, 4, dtype=np.int64)])
+    words = torch.from_numpy(codes.copy())
+    lo_v, hi_v = K.lane_views(words)
+    lo, hi = _split(codes)
+    np.testing.assert_array_equal(lo_v.numpy(), lo)
+    np.testing.assert_array_equal(hi_v.numpy(), hi)
+    assert lo_v.stride() == (2,) and hi_v.stride() == (2,)
+    assert lo_v.dtype == torch.int32 and hi_v.dtype == torch.int32
+    words[3] = 99  # views, not copies
+    assert int(lo_v[3]) == 99 and int(hi_v[3]) == 0
+
+
+def test_packed_table_reads_views_and_packs_separate_lanes():
+    """``packed_table``: the insert's lane views give back their words
+    without a copy; two separate contiguous arrays, or lanes that are not
+    one word's halves, give a packed copy with the same codes."""
+    codes = np.concatenate([_EDGE, np.arange(-5, 6, dtype=np.int64) << 31])
+    words = torch.from_numpy(codes.copy())
+    lo_v, hi_v = K.lane_views(words)
+    same = K.packed_table(lo_v, hi_v)
+    assert same.data_ptr() == words.data_ptr()
+    np.testing.assert_array_equal(same.numpy(), codes)
+    lo, hi = _split(codes)
+    packed = K.packed_table(torch.from_numpy(lo), torch.from_numpy(hi))
+    assert packed.data_ptr() != words.data_ptr()
+    np.testing.assert_array_equal(packed.numpy(), codes)
+    # lanes of two different words' halves: hi of word p is not beside lo
+    shifted = K.packed_table(lo_v[1:], hi_v[:-1])
+    want = (codes[:-1] >> 32 << 32) | (codes[1:] & 0xFFFFFFFF)
+    np.testing.assert_array_equal(shifted.numpy(), want)
+    # lanes swapped: hi's storage sits before lo's
+    swapped = K.packed_table(hi_v, lo_v)
+    np.testing.assert_array_equal(
+        swapped.numpy(), (codes << 32) | ((codes >> 32) & 0xFFFFFFFF))
+
+
+def test_hash_empty_matches_the_cuda_header():
+    """The Python side's empty word is the one the kernels clear tables
+    to (``csrc/hash_common.cuh``): one repeated byte, so one memset."""
+    import re
+    from pathlib import Path
+    src = (Path(K.__file__).resolve().parent.parent / "csrc" /
+           "hash_common.cuh").read_text()
+    word = int(re.search(r"#define HASH_EMPTY (0x[0-9A-Fa-f]+)ull",
+                         src).group(1), 16)
+    byte = int(re.search(r"#define HASH_EMPTY_BYTE (0x[0-9A-Fa-f]+)",
+                         src).group(1), 16)
+    assert K.HASH_EMPTY % (1 << 64) == word
+    assert word == int.from_bytes(bytes([byte]) * 8, "little")
+
+
+def test_launch_counts_by_shape():
+    counter = K.KernelLaunches()
+    counter.bump("hash_insert", "n=8 T=64")
+    counter.bump("hash_insert", "n=8 T=64")
+    counter.bump("hash_probe", "n=3 T=64")
+    assert counter.snapshot() == {"masked_multi_reduce": 0,
+                                  "hash_insert": 2, "hash_probe": 1,
+                                  "partition_histogram": 0}
+    shapes = counter.shape_snapshot()
+    assert shapes["hash_insert"] == {"n=8 T=64": 2}
+    assert shapes["hash_probe"] == {"n=3 T=64": 1}
+    shapes["hash_insert"]["n=8 T=64"] = 5  # a copy
+    assert counter.shape_snapshot()["hash_insert"] == {"n=8 T=64": 2}
+    counter.reset()
+    assert counter.snapshot()["hash_insert"] == 0
+    assert counter.shape_snapshot()["hash_insert"] == {}
+
+
 # ------------------------------------------------- no fallback on the card --
 
 def _raise_loader():
