@@ -10,9 +10,14 @@ for sm_90a and holds each kernel against its plain PyTorch version on the
 card; ``hash_insert`` and ``hash_probe`` also at the contract's edges (0,
 -1, the int64 extremes and the table's empty word among the codes, every
 row on one key, 2^16 keys x 64 duplicates, tables at load 0.7 and 0.9, no
-rows, every row dead), each case run twice.  It times each kernel at the
-main path's shapes (CUDA events, and the device time in a profiler
-trace), then drives the engine's paths
+rows, every row dead), ``masked_multi_reduce`` at its own (views 1, 3 and
+15 rows in, n of 1 to 2^22 + 7 around its 16-row words and 512-row tiles,
+all-pass and last-row-only masks, 8 and 9 columns, NaN and -0.0, a
+validity off the mask's alignment), each case run twice.  It times each
+kernel at the main path's shapes (CUDA events, and the device time in a
+profiler trace; ``masked_multi_reduce`` also at the dense 2^26-row,
+3-column check shape, with the sector floor beside its bound), then
+drives the engine's paths
 through ``TpuSession`` on CUDA, each with the kernel launch counts reset
 just before it and read just after:
 
@@ -75,6 +80,7 @@ HIST_FACT_ROWS = FACT_ROWS // NSHARDS   # the join's stats pass per shard
 HIST_BUCKET_ROWS = 1 << 19              # an aggregate's bucket stats pass
 PG_ROWS = 1 << 22
 
+TRACE_PAD = 16        # device ops around the timed calls in a trace
 KERNEL_RTOL = 1e-12   # kernel vs plain float sums (another summation order)
 QUERY_RTOL = 1e-9     # engine vs numpy oracle (bench.py's own q6 check)
 # q3 hash on vs off: the group-by's float sums add in another order
@@ -170,6 +176,7 @@ class Timer:
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+        self.marker = None  # the flush's kernel names in a trace
 
     def ms(self, fn, reps: int = 10, warmup: int = 2) -> float:
         torch = self.torch
@@ -188,38 +195,63 @@ class Timer:
         return float(np.median(times))
 
     def device_ms(self, fn, names, reps: int = 10, tries: int = 5):
-        """``(ms, ops)``: the median over ``reps`` calls of the summed
-        device time of the ops whose names contain one of ``names``
-        (kernels, and "Memset" for a wrapper's memsets), and how many such
-        ops one call ran, from a ``torch.profiler`` trace with the L2
-        cache flushed before each call: the kernels alone, without the
-        host work that the event timing above includes.  The flush here is
-        an elementwise kernel, so it is never counted as a memset.  The
-        profiler now and then drops ops from a trace; a trace whose count
-        is not a multiple of ``reps`` is taken again, up to ``tries``
-        times.  ``(None, 0)`` if no trace came whole."""
+        """``(ms, ops)``: the median over calls of the summed device time
+        of the ops whose names contain one of ``names`` (kernels, and
+        "Memset" for a wrapper's memsets), and how many such ops one call
+        ran, from a ``torch.profiler`` trace of ``reps`` calls with the L2
+        cache flushed before each: the kernels alone, without the host
+        work that the event timing above includes.  The flush here is an
+        elementwise kernel, so it is never counted as a memset; it also
+        marks where each call begins in the trace.  The profiler loses a
+        device op now and then, mostly at a trace's start or end, so each
+        trace begins and ends with ``TRACE_PAD`` flushes, and a call
+        counts only if it ran the most common number of named ops; a
+        trace with fewer than half its calls whole is taken again (and
+        reported), up to ``tries`` times.  ``(None, 0)`` if none was."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile as tprofile
+        cuda = torch.autograd.DeviceType.CUDA
+        for _ in range(tries):
+            if self.marker:
+                break
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(2 * TRACE_PAD):
+                    self.flush.add_(1)
+                torch.cuda.synchronize()
+            self.marker = {e.name for e in prof.events()
+                           if e.device_type == cuda}
         fn()
         torch.cuda.synchronize()
         for _ in range(tries):
             with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(TRACE_PAD):
+                    self.flush.add_(1)
                 for _ in range(reps):
                     self.flush.add_(1)
                     fn()
+                for _ in range(TRACE_PAD):
+                    self.flush.add_(1)
                 torch.cuda.synchronize()
-            spans = sorted((e.time_range.start, e.time_range.end)
-                           for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA
-                           and any(n in e.name for n in names))
-            if spans and len(spans) % reps == 0:
-                break
-        else:
-            return None, 0
-        per = len(spans) // reps
-        calls = [sum(b - a for a, b in spans[i * per:(i + 1) * per])
-                 for i in range(reps)]
-        return float(np.median(calls)) / 1e3, per
+            calls, cur = [], None  # [ops, us] of each call after a flush
+            for e in sorted((e for e in prof.events()
+                             if e.device_type == cuda),
+                            key=lambda e: e.time_range.start):
+                if e.name in self.marker:
+                    cur = [0, 0.0]
+                    calls.append(cur)
+                elif cur is not None and any(n in e.name for n in names):
+                    cur[0] += 1
+                    cur[1] += e.time_range.end - e.time_range.start
+            counts = [c for c, _ in calls if c]
+            if counts:
+                per = max(set(counts), key=counts.count)
+                whole = [us for c, us in calls if c == per]
+                if 2 * len(whole) >= reps:
+                    return float(np.median(whole)) / 1e3, per
+            print(f"device_ms: {len(whole) if counts else 0} of {reps} "
+                  f"calls whole in the trace (ops named {names} a call: "
+                  f"{sorted(counts)}); taken again", flush=True)
+        return None, 0
 
 
 def dev_text(dev, ops=None) -> str:
@@ -240,6 +272,22 @@ def mmr_inputs(torch, device, n, ncols, rng):
     mask = rng.random(n) < 0.3
     to = lambda a: None if a is None else torch.from_numpy(a).to(device)
     return [to(v) for v in vals], [to(v) for v in valids], to(mask)
+
+
+def mmr_dense(torch, device, ncols=3):
+    """The dense check shape: ``MMR_CHECK_ROWS`` rows of ``mmr_inputs``
+    from a seed of their own, so ``time_kernels.py`` times the same."""
+    return mmr_inputs(torch, device, MMR_CHECK_ROWS, ncols,
+                      np.random.default_rng(SEED + ncols))
+
+
+def q6_merge(torch, device):
+    """q6's merge of its 16 batch partials as the main path hands it to
+    ``masked_multi_reduce``: 16 float64 rows, every one live (one block;
+    the launch and the merge alone)."""
+    v = np.random.default_rng(SEED).uniform(0.0, 1e9, 16)
+    return ([torch.from_numpy(v).to(device)], [None],
+            torch.ones(16, dtype=torch.bool, device=device))
 
 
 def mmr_case(torch, base, case):
@@ -270,6 +318,57 @@ def check_mmr(torch, K, vals, valids, mask, tag):
           f"{tag}: two runs bit-identical")
     diff = np.abs(s1 - ps)
     return float(np.nanmax(diff)) if not np.isnan(diff).all() else 0.0
+
+
+def check_mmr_edges(torch, K, device, rng):
+    """masked_multi_reduce at its edges against the plain version, each
+    case run twice (``check_mmr``): mask, value and validity views that
+    start 1, 3 and 15 bytes or rows in (the kernel's scalar head), n of
+    1, 15, 17, 511, 513 and 2^22 + 7 at offsets 0 and 3 (head, tail and a
+    ragged last tile), an all-pass mask and one that passes only the last
+    row, 8 and 9 columns (9 splits into two launches) with validity on
+    some, NaN and -0.0 among the values (a column of -0.0 only), and a
+    validity that does not share the mask's 16-byte alignment (read row
+    by row).  Returns the largest absolute difference from plain."""
+    err = 0.0
+    big = 1 << 20
+    vals, valids, mask = mmr_inputs(torch, device, big + 64, 3, rng)
+    for off in (1, 3, 15):
+        n = big + 5
+        err = max(err, check_mmr(
+            torch, K, [v[off:off + n] for v in vals],
+            [None if ok is None else ok[off:off + n] for ok in valids],
+            mask[off:off + n], f"views {off} rows in, n={n} cols=3"))
+    for n in (1, 15, 17, 511, 513, (1 << 22) + 7):
+        v, ok, m = mmr_inputs(torch, device, n + 3, 2, rng)
+        for off in (0, 3):
+            err = max(err, check_mmr(
+                torch, K, [x[off:off + n] for x in v],
+                [None if x is None else x[off:off + n] for x in ok],
+                m[off:off + n], f"n={n} offset {off} cols=2"))
+    n = big + 3
+    v, ok, _ = mmr_inputs(torch, device, n, 2, rng)
+    every = torch.ones(n, dtype=torch.bool, device=device)
+    last = torch.zeros(n, dtype=torch.bool, device=device)
+    last[-1] = True
+    err = max(err, check_mmr(torch, K, v, ok, every, f"all pass n={n}"))
+    err = max(err, check_mmr(torch, K, v, ok, last,
+                             f"last row only n={n}"))
+    n = big + 9
+    for ncols in (8, 9):
+        v, ok, m = mmr_inputs(torch, device, n, ncols, rng)
+        v[1] = v[1].clone()
+        v[1][:: 1013] = float("nan")
+        v[2] = torch.full_like(v[2], -0.0)
+        ok = [x if c % 3 else None for c, x in enumerate(ok)]
+        err = max(err, check_mmr(torch, K, v, ok, m,
+                                 f"n={n} cols={ncols}, NaN, -0.0"))
+    v, ok, m = mmr_inputs(torch, device, big + 16, 2, rng)
+    n = big
+    err = max(err, check_mmr(
+        torch, K, [x[1:n + 1] for x in v], [None, ok[1][:n]], m[1:n + 1],
+        f"validity one byte off the mask's alignment, n={n}"))
+    return err
 
 
 def table_codes(torch, tlo, thi):
@@ -724,20 +823,61 @@ def time_probe(torch, K, timer, blo, bhi, plo, phi, T, hbm, label):
     return t
 
 
-def time_mmr(torch, K, timer, v, m, hbm, label):
-    """masked_multi_reduce of one column under a mask; the library call
-    is ``torch.where`` + ``sum`` and the mask's ``sum``."""
+def sector_floor(vals, valids, m):
+    """Bytes of the 32-byte sectors the kernel must read (every sector of
+    the mask, each validity sector holding a row the mask passes, each
+    value sector holding a row that passes both), plus the outputs,
+    counted exactly on the host."""
+    def sectors(t, rows, width):
+        """32 B times the sectors that hold the sorted ``rows``."""
+        s = (t.data_ptr() % 32 + rows * width) // 32
+        return 32 * (int(np.count_nonzero(s[1:] != s[:-1])) + (len(s) > 0))
+    mh = m.cpu().numpy()
+    n = len(mh)
+    # the mask's bytes are contiguous: every sector from first to last
+    nbytes = 32 * ((m.data_ptr() % 32 + n - 1) // 32 + 1) + 12 * len(vals)
+    masked = np.flatnonzero(mh)
+    for v, ok in zip(vals, valids):
+        live = masked
+        if ok is not None:
+            nbytes += sectors(ok, masked, 1)
+            live = masked[ok.cpu().numpy()[masked]]
+        nbytes += sectors(v, live, 8)
+    return nbytes
+
+
+def time_mmr(torch, K, timer, vals, valids, m, hbm, label):
+    """masked_multi_reduce of the columns ``vals`` under ``m``; the
+    library call is ``torch.where`` + ``sum`` and the live rows' ``sum``
+    per column.  The sector floor is printed on a line of its own."""
     n = m.shape[0]
-    ms = timer.ms(lambda: K.masked_multi_reduce([v], [None], m))
-    plain_ms = timer.ms(lambda: K.masked_multi_reduce_plain([v], [None], m))
-    lib_ms = timer.ms(lambda: (torch.where(m, v, 0.0).sum(), m.sum()))
-    dev, ops = timer.device_ms(
-        lambda: K.masked_multi_reduce([v], [None], m), ("mmr_",))
-    selected = int(m.sum())
-    nbytes = n + 8 * selected + 8 + 4   # mask, needed values, outputs
-    t = timing(f"{label} n={n} ({selected} rows pass)", ms, dev, plain_ms,
-               lib_ms, nbytes, n + 2 * selected, hbm)
+    args = (vals, valids, m)
+    ms = timer.ms(lambda: K.masked_multi_reduce(*args))
+    plain_ms = timer.ms(lambda: K.masked_multi_reduce_plain(*args))
+
+    def library():
+        out = []
+        for v, ok in zip(vals, valids):
+            live = m if ok is None else m & ok
+            out.append((torch.where(live, v, 0.0).sum(), live.sum()))
+        return out
+    lib_ms = timer.ms(library)
+    dev, ops = timer.device_ms(lambda: K.masked_multi_reduce(*args),
+                               ("mmr_",))
+    selected = sum(int(c.sum()) for _, c in library())
+    masked = int(m.sum())
+    # every mask byte, a validity byte only where the mask passes, the
+    # values of the rows that count, the outputs; a mask test per row, an
+    # add and a count per row that counts
+    nbytes = n + masked * sum(ok is not None for ok in valids) \
+        + 8 * selected + 12 * len(vals)
+    t = timing(f"{label} n={n} cols={len(vals)} ({selected} rows pass)",
+               ms, dev, plain_ms, lib_ms, nbytes, n + 2 * selected, hbm)
     report("masked_multi_reduce", t, "where + sum", nbytes, ops)
+    floor = sector_floor(vals, valids, m)
+    print(f"masked_multi_reduce {t['shape']}: sector floor "
+          f"{floor / hbm * 1e3:.6f} ms ({floor} B of 32-byte sectors)",
+          flush=True)
     return t
 
 
@@ -917,31 +1057,35 @@ def main() -> int:
     hbm = hbm_rate(name)
     print(f"bound uses {hbm / 1e12:.2f} TB/s device memory for {name}",
           flush=True)
+    print("masked_multi_reduce resident blocks an SM (256 threads each) "
+          "for 1, up to 4, up to 8 columns: "
+          + ", ".join(str(K.library().srt_mmr_blocks_per_sm(c))
+                      for c in (1, 4, 8)), flush=True)
     timer = Timer(torch, device)
     rng = np.random.default_rng(SEED)
 
     # 2. each kernel against its plain version
     for ncols in (1, 3):
-        base = mmr_inputs(torch, device, MMR_CHECK_ROWS, ncols, rng)
+        base = mmr_dense(torch, device, ncols)
         for case in ("mixed", "nan", "all_masked"):
             check_mmr(torch, K, *mmr_case(torch, base, case),
                       f"n={MMR_CHECK_ROWS} cols={ncols} {case}")
-        t = timer.ms(lambda: K.masked_multi_reduce(*base), reps=5)
-        # mask and validity bytes, plus the values of the rows that count
-        needed = int(K.masked_multi_reduce_plain(*base)[1].sum())
-        b = MMR_CHECK_ROWS * ncols + 8 * needed + 12 * ncols
-        # a mask test per row, an add and a count per row that counts
-        bms, bby = roofline(b, MMR_CHECK_ROWS + 2 * needed, hbm)
-        print(f"masked_multi_reduce n={MMR_CHECK_ROWS} cols={ncols}: "
-              f"kernel {t:.4f} ms, bound {bms:.4f} ms by {bby} ({b} B)",
-              flush=True)
+        if ncols == 3:
+            mmr_dense_t = time_mmr(torch, K, timer, *base, hbm, "dense")
         del base
+    mmr_err = check_mmr_edges(torch, K, device, rng)
     data = gen_host(Q6_ROWS)
-    v0, m0 = q6_batch(torch, device, data)
-    mmr_err = check_mmr(torch, K, [v0], [None], m0,
-                        f"q6 batch n={v0.shape[0]}")
-    mmr = time_mmr(torch, K, timer, v0, m0, hbm, "q6 batch")
-    del v0, m0
+    # q6's batch on one device, and a shard's whole input over 8 shards
+    mmr_times = []
+    for n, label in ((BATCH_ROWS, "q6 batch"),
+                     (Q6_ROWS // NSHARDS, "sharded q6 shard")):
+        v0, m0 = q6_batch(torch, device, data, n)
+        mmr_err = max(mmr_err, check_mmr(torch, K, [v0], [None], m0,
+                                         f"{label} n={n}"))
+        mmr_times.append(time_mmr(torch, K, timer, [v0], [None], m0, hbm,
+                                  label))
+        del v0, m0
+    mmr_times.append(mmr_dense_t)
 
     check_hash(torch, K, device, HASH_ROWS, HASH_CARD, HASH_SLOTS, rng)
     check_hash_overflow(torch, K, device)
@@ -1334,7 +1478,7 @@ def main() -> int:
         return e
 
     kernels = [
-        entry("masked_multi_reduce", 210, mmr_err, [mmr]),
+        entry("masked_multi_reduce", 210, mmr_err, mmr_times),
         entry("hash_insert", 456, 0.0, insert_times),
         entry("hash_probe", 532, probe_err, [probe]),
         entry("partition_histogram", 122, hist_err, hist_times),

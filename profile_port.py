@@ -8,16 +8,16 @@ Run from the root of a checkout on a machine with a CUDA card:
 It builds the same inputs as ``chip_smoke.py`` (TPC-H q3 at SF10 and the
 fact-dim join at 2^26 x 2^19), warms each query once, then traces one run
 per query with ``torch.profiler`` (hash path on and off, and the fact-dim
-join once more over 8 logical shards as a shuffle join), and the q1 shape
-over 2^26 rows on one device and over 8 logical shards, and prints, per
-run: the host wall time, the device's busy time (the union of the
-intervals in which any CUDA kernel or copy ran) and its idle share of the
-wall time, the counted host syncs, the device ops that took the most
-device time, and the device time of each hand-written kernel and of all
-memsets (the hash insert clears its table with one; PyTorch issues
-others).  It checks nothing;
-``chip_smoke.py`` holds the answers against their oracles.  Without a
-CUDA device it exits non-zero.
+join once more over 8 logical shards as a shuffle join), and TPC-H q6
+and the q1 shape over 2^26 rows (``bench.py``'s ``gen_host`` columns) on
+one device and over 8 logical shards, and prints, per run: the host wall
+time, the device's busy time (the union of the intervals in which any
+CUDA kernel or copy ran) and its idle share of the wall time, the counted
+host syncs, the device ops that took the most device time, and the device
+time of each hand-written kernel and of all memsets (the hash insert
+clears its table with one; PyTorch issues others), with its share of the
+busy time.  It checks nothing; ``chip_smoke.py`` holds the answers
+against their oracles.  Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -86,8 +86,8 @@ def profile(torch, query, label, card_line):
             t[1] += n
     if mine:
         print("  hand-written kernels, and all memsets (PyTorch's too): "
-              + ", ".join(f"{name} {ms:.3f} ms ({n}x)"
-                          for name, (ms, n) in sorted(mine.items())),
+              + ", ".join(f"{name} {ms:.3f} ms ({n}x, {ms / busy:.4f} of "
+                          "busy)" for name, (ms, n) in sorted(mine.items())),
               flush=True)
 
 
@@ -144,12 +144,13 @@ def main() -> int:
     s.stop()
     del fact, dim, q
     data = cs.gen_host(cs.Q6_ROWS)
-    for conf, label in (({}, "q1 shape, one device"),
-                        (sharded, f"q1 shape over {cs.NSHARDS} shards")):
-        s = TpuSession(conf)
-        profile(torch, cs.make_q1(F, s.create_dataframe(data)), label,
-                card_line)
-        s.stop()
+    for make, name in ((cs.make_q6, "q6"), (cs.make_q1, "q1 shape")):
+        for conf, where in (({}, "one device"),
+                            (sharded, f"over {cs.NSHARDS} shards")):
+            s = TpuSession(conf)
+            profile(torch, make(F, s.create_dataframe(data)),
+                    f"{name}, {where}", card_line)
+            s.stop()
     return 0
 
 

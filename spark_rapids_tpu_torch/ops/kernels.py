@@ -19,7 +19,16 @@ kernel or raises; nothing falls back.
   same condition applies without the environment variable: every buffer
   of a keyless aggregation is a float ``sum`` and the tensors are on
   CUDA.  That puts the kernel on TPC-H q6's path by default
-  (``ops/aggregates.reduce_aggregate``).
+  (``ops/aggregates.reduce_aggregate``).  The kernel reads the mask 16
+  bytes a lane, loads only the passing rows' values, and merges its block
+  partials in the same launch: the last block to take a ticket (an int32
+  word per device and stream, made zero once and left zero by the
+  kernel) adds them in block order.  The wrapper computes the mask's
+  scalar head, 16-byte body and tail (:func:`mmr_split`) and a one-wave
+  grid (:func:`mmr_grid`).  The summation order, and so the last bits of
+  a sum, depends on the mask's address modulo 16 besides ``n``, the
+  column count and the card; the engine's masks are fresh, aligned
+  tensors.
 - ``hash_insert``: open-addressing insert of 64-bit codes carried as two
   int32 lanes, the hashed group-by's directory
   (``ops/aggregates.groupby_aggregate_hashed``).  Only the set of stored
@@ -68,7 +77,8 @@ MAX_PROBE = 256
 # same, at a reserved slot.
 HASH_EMPTY = -0x7F7F7F7F7F7F7F80
 _MMR_MAX_COLS = 8
-_MMR_THREADS = 256
+_MMR_WARPS = 8          # csrc/masked_multi_reduce.cu: 256 threads a block
+_MMR_TILE_WORDS = 32    # 16-byte mask words (512 rows) a warp tile
 _U32 = 0xFFFFFFFF
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -190,10 +200,13 @@ class _KernelLibrary:
                 self.path = self._build()
                 lib = ctypes.CDLL(str(self.path))
                 vp = ctypes.c_void_p
+                ll = ctypes.c_longlong
                 lib.srt_masked_multi_reduce.argtypes = [
                     ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.c_int,
-                    vp, ctypes.c_longlong, ctypes.c_int, vp, vp, vp, vp, vp]
+                    vp, ll, ll, ll, ctypes.c_int, vp, vp, vp, vp, vp, vp]
                 lib.srt_masked_multi_reduce.restype = ctypes.c_int
+                lib.srt_mmr_blocks_per_sm.argtypes = [ctypes.c_int]
+                lib.srt_mmr_blocks_per_sm.restype = ctypes.c_int
                 lib.srt_hash_insert.argtypes = [
                     vp, vp, vp, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_int, vp, vp, vp, vp, vp]
@@ -268,7 +281,16 @@ def masked_multi_reduce(values: Sequence[torch.Tensor],
     """Per column c: (sum of ``values[c]`` where ``mask & validities[c]``,
     count of those rows) as ``(float64[N], int32[N])``.  ``values`` are
     float64, ``mask`` and each validity bool; a validity of None means all
-    rows are valid."""
+    rows are valid.
+
+    On CUDA, repeated calls on the same tensors give bit-identical sums.
+    The kernel's summation order depends on ``n``, the column count, the
+    card and the mask's address modulo 16 (the rows before its first
+    16-byte boundary are the scalar head), so the same data in a view at
+    another alignment may differ in the last bits.  The engine's masks are
+    fresh tensors (a comparison or ``logical_and``), which PyTorch's
+    allocator aligns to 512 bytes: there the order depends on ``n`` alone.
+    """
     if len(values) != len(validities) or not values:
         raise ValueError("masked_multi_reduce needs one validity per value "
                          "column and at least one column")
@@ -290,6 +312,61 @@ def masked_multi_reduce_plain(values, validities, mask):
     return torch.stack(sums), torch.stack(cnts)
 
 
+def mmr_split(mask_addr: int, n: int) -> Tuple[int, int, int]:
+    """``(head, nvec, tail)``: the kernel's scalar head (the rows before
+    the mask's first 16-byte-aligned byte), its body of ``nvec`` 16-byte
+    mask words (16 rows each), and its scalar tail (the rows after the
+    last full word), for a mask of ``n`` bytes at address ``mask_addr``.
+    head + 16 * nvec + tail == n, head and tail below 16."""
+    head = min((-mask_addr) % 16, n)
+    nvec = (n - head) // 16
+    return head, nvec, n - head - 16 * nvec
+
+
+def mmr_grid(nvec: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of the kernel's launch: one 512-row warp tile (32 mask
+    words) a warp, as many warps as the card holds at once at most (one
+    wave; the warps then stride over the tiles), and at least one block
+    (the head and tail rows and the merge)."""
+    tiles = -(-nvec // _MMR_TILE_WORDS)
+    return max(1, min(-(-tiles // _MMR_WARPS), sms * blocks_per_sm))
+
+
+class _MmrState:
+    """Per device: the kernel instances' resident blocks an SM holds; per
+    device and stream: the ticket word the kernel's last block resets
+    (made zero once, so a call launches no fill of its own)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._blocks = {}
+        self._tickets = {}
+
+    def blocks_per_sm(self, lib, device, ncols: int) -> int:
+        # the instance that serves ncols columns (csrc: 1, 4 or 8)
+        key = (device.index, 1 if ncols <= 1 else 4 if ncols <= 4 else 8)
+        with self._lock:
+            if key not in self._blocks:
+                with torch.cuda.device(device.index):
+                    got = lib.srt_mmr_blocks_per_sm(ncols)
+                if got < 1:
+                    raise RuntimeError("masked_multi_reduce: occupancy "
+                                       f"query failed on {device}")
+                self._blocks[key] = got
+            return self._blocks[key]
+
+    def ticket(self, device, stream: int) -> torch.Tensor:
+        key = (device.index, stream)
+        with self._lock:
+            if key not in self._tickets:
+                self._tickets[key] = torch.zeros(1, dtype=torch.int32,
+                                                 device=device)
+            return self._tickets[key]
+
+
+_MMR = _MmrState()
+
+
 def _masked_multi_reduce_cuda(values, validities, mask):
     lib = library()
     device = mask.device
@@ -308,13 +385,16 @@ def _masked_multi_reduce_cuda(values, validities, mask):
     if n >= (1 << 31):
         raise ValueError("masked_multi_reduce counts are int32: "
                          f"{n} rows is too many for one call")
-    nblocks = max(1, min(-(-n // _MMR_THREADS), 8 * _sm_count(device)))
+    head, nvec, _ = mmr_split(mask.data_ptr(), n)
     stream = _stream(device)
+    ticket = _MMR.ticket(device, stream)
     sums, cnts = [], []
     for start in range(0, ncols, _MMR_MAX_COLS):
         vs = values[start:start + _MMR_MAX_COLS]
         oks = validities[start:start + _MMR_MAX_COLS]
         k = len(vs)
+        nblocks = mmr_grid(nvec, _sm_count(device),
+                           _MMR.blocks_per_sm(lib, device, k))
         psum = torch.empty(nblocks * k, dtype=torch.float64, device=device)
         pcnt = torch.empty(nblocks * k, dtype=torch.int32, device=device)
         out_sum = torch.empty(k, dtype=torch.float64, device=device)
@@ -323,9 +403,9 @@ def _masked_multi_reduce_cuda(values, validities, mask):
         okptrs = (ctypes.c_void_p * k)(
             *[None if ok is None else ok.data_ptr() for ok in oks])
         err = lib.srt_masked_multi_reduce(
-            vptrs, okptrs, k, mask.data_ptr(), n, nblocks,
-            psum.data_ptr(), pcnt.data_ptr(), out_sum.data_ptr(),
-            out_cnt.data_ptr(), stream)
+            vptrs, okptrs, k, mask.data_ptr(), n, head, nvec, nblocks,
+            psum.data_ptr(), pcnt.data_ptr(), ticket.data_ptr(),
+            out_sum.data_ptr(), out_cnt.data_ptr(), stream)
         launches.bump("masked_multi_reduce", f"n={n} cols={k}")
         _check_launch(err, "masked_multi_reduce")
         sums.append(out_sum)

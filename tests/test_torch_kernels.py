@@ -67,6 +67,124 @@ def test_masked_multi_reduce_matches_jax(n, ncols, case):
         assert (got[0][0].numpy() == 0.0).all()
 
 
+def _mmr_edge_case(case, seed):
+    """The edge cases ``chip_smoke.py`` runs on the card (``check_mmr_edges``),
+    at CPU sizes: (values, validities or None, mask) as numpy arrays, views
+    where the case starts some rows into its buffers."""
+    rng = np.random.default_rng(seed)
+
+    def columns(n, ncols):
+        vals = [rng.normal(size=n) * 1e3 for _ in range(ncols)]
+        for v in vals:
+            v[:: 97] = -0.0
+        oks = [None] + [rng.random(n) < 0.8 for _ in range(ncols - 1)]
+        return vals, oks, rng.random(n) < 0.3
+
+    kind, _, arg = case.partition(" ")
+    if kind == "view":          # mask, values and validity 1/3/15 rows in
+        off, n = int(arg), 1000 + 5
+        vals, oks, mask = columns(n + 32, 3)
+        cut = slice(off, off + n)
+        return ([v[cut] for v in vals],
+                [None if ok is None else ok[cut] for ok in oks], mask[cut])
+    if kind == "n":             # head, tail and a ragged last tile
+        n, off = (int(x) for x in arg.split("@"))
+        vals, oks, mask = columns(n + 3, 2)
+        cut = slice(off, off + n)
+        return ([v[cut] for v in vals],
+                [None if ok is None else ok[cut] for ok in oks], mask[cut])
+    if kind in ("all_pass", "last_row"):
+        n = 1000 + 3
+        vals, oks, _ = columns(n, 2)
+        mask = np.zeros(n, dtype=bool)
+        mask[-1] = True
+        return vals, oks, np.ones(n, dtype=bool) if kind == "all_pass" \
+            else mask
+    if kind == "cols":          # 9 splits into two launches on the card
+        ncols, n = int(arg), 1000 + 9
+        vals, oks, mask = columns(n, ncols)
+        vals[1][:: 101] = np.nan
+        vals[2][:] = -0.0
+        oks = [ok if c % 3 else None for c, ok in enumerate(oks)]
+        return vals, oks, mask
+    assert kind == "misaligned"  # validity one row off the mask's start
+    n = 1000
+    vals, oks, mask = columns(n + 16, 2)
+    return [v[1:n + 1] for v in vals], [None, oks[1][:n]], mask[1:n + 1]
+
+
+_MMR_EDGES = (["view 1", "view 3", "view 15"]
+              + [f"n {n}@{off}" for n in (1, 15, 17, 511, 513, (1 << 22) + 7)
+                 for off in (0, 3)]
+              + ["all_pass", "last_row", "cols 8", "cols 9", "misaligned"])
+
+
+@pytest.mark.parametrize("case", _MMR_EDGES)
+def test_masked_multi_reduce_edges_match_jax(case):
+    """The port's plain version and its wrapper against the JAX package's
+    Pallas kernel (interpret mode) and XLA formulation on the edge cases
+    of the CUDA kernel.  At 2^22 + 7 rows only the XLA formulation: the
+    interpret mode walks its 4097 grid steps for half a minute."""
+    values, validities, mask = _mmr_edge_case(case,
+                                               seed=sum(map(ord, case)))
+    n = len(mask)
+    j_vals = [jnp.asarray(v) for v in values]
+    j_ok = [jnp.ones(n, dtype=bool) if ok is None else jnp.asarray(ok)
+            for ok in validities]
+    j_mask = jnp.asarray(mask)
+    want = [pk.masked_multi_reduce_xla(j_vals, j_ok, j_mask)]
+    if n < (1 << 20):
+        want.append(pk.masked_multi_reduce(j_vals, j_ok, j_mask,
+                                           interpret=True))
+    t_vals = [torch.from_numpy(v) for v in values]
+    t_ok = [None if ok is None else torch.from_numpy(ok)
+            for ok in validities]
+    t_mask = torch.from_numpy(mask)
+    got = [K.masked_multi_reduce_plain(t_vals, t_ok, t_mask),
+           K.masked_multi_reduce(t_vals, t_ok, t_mask)]
+    for sums, cnts in got:
+        assert sums.shape == (len(values),) and cnts.dtype == torch.int32
+        for w_sums, w_cnts in want:
+            np.testing.assert_array_equal(cnts.numpy(), np.asarray(w_cnts))
+            np.testing.assert_allclose(sums.numpy(), np.asarray(w_sums),
+                                       rtol=RTOL, atol=0, equal_nan=True)
+
+
+def _mmr_rows(mask_addr, n, sms, blocks_per_sm):
+    """The rows the CUDA kernel visits, in the order of its indexing
+    (csrc/masked_multi_reduce.cu): block 0's warp 0 takes the head and
+    the tail, one row a lane; warp ``w`` of the grid takes the 512-row
+    tiles w, w + W, ... (W warps in all), lane ``l`` of a tile its 16-byte
+    mask word 32 t + l if that word is inside the body."""
+    head, nvec, tail = K.mmr_split(mask_addr, n)
+    blocks = K.mmr_grid(nvec, sms, blocks_per_sm)
+    warps = blocks * K._MMR_WARPS
+    tiles = -(-nvec // K._MMR_TILE_WORDS)
+    rows = list(range(head)) + list(range(head + 16 * nvec, n))
+    for w in range(warps):
+        for t in range(w, tiles, warps):
+            for lane in range(K._MMR_TILE_WORDS):
+                word = t * K._MMR_TILE_WORDS + lane
+                if word < nvec:
+                    rows.extend(range(head + 16 * word,
+                                      head + 16 * word + 16))
+    return rows, head, nvec, tail, blocks
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 511, 513, 16 * 32 * 8 + 5,
+                               (1 << 16) + 3])
+@pytest.mark.parametrize("offset", [0, 1, 3, 15])
+@pytest.mark.parametrize("sms,blocks_per_sm", [(1, 1), (2, 8), (132, 8)])
+def test_mmr_split_and_grid_cover_every_row_once(n, offset, sms,
+                                                 blocks_per_sm):
+    addr = 4096 + offset
+    rows, head, nvec, tail, blocks = _mmr_rows(addr, n, sms, blocks_per_sm)
+    assert sorted(rows) == list(range(n))
+    assert 0 <= head < 16 and 0 <= tail < 16
+    assert nvec == 0 or (addr + head) % 16 == 0
+    assert 1 <= blocks <= max(1, sms * blocks_per_sm)
+
+
 # --------------------------------------------------------------- hash insert --
 
 def _split(codes):

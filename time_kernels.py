@@ -12,8 +12,8 @@ kernels can be timed in one call on one card, in turns (for example the
 parent commit unpacked with ``git archive`` into a git-ignored directory:
 parent, change, change, parent).  The inputs, the timing and the bound
 are ``chip_smoke.py``'s own (``group_by_codes``, ``join_lanes``,
-``q6_batch``; ``time_insert``, ``time_probe``, ``time_mmr``), the same
-for every root:
+``q6_batch``, ``mmr_dense``, ``q6_merge``; ``time_insert``, ``time_probe``,
+``time_mmr``), the same for every root:
 
 - ``hash_insert`` at the hash group-by's shape (2^22 radix codes of 2^20
   keys, every row live, 2^21 slots) and at the fact-dim join's build
@@ -21,13 +21,18 @@ for every root:
 - ``hash_probe`` at the join's probe batch (2^22 fact keys, every row
   live, about half of them in the dim table, against its 2^20-slot
   table);
-- ``masked_multi_reduce`` at q6's first batch (2^22 rows).
+- ``masked_multi_reduce`` at q6's first batch (2^22 rows), at a
+  sharded q6 shard's whole input (2^23 rows), at the dense check shape
+  (2^26 rows, 3 columns, a 30% mask, validity on 2 columns) and at the
+  merge of q6's 16 batch partials (16 rows: the launch and the merge
+  alone).
 
 Each prints one JSON line with the root's label, the card and the
 kernels line's numbers for that shape: the event-timed ms (median of 10
 calls, L2 flushed before each), the device ms of the kernel's ops in a
 profiler trace, the plain version's and the library call's ms and the
-bound.  It checks nothing; ``chip_smoke.py`` holds the kernels against
+bound (``masked_multi_reduce`` prints its sector floor on a line of its
+own).  It checks nothing; ``chip_smoke.py`` holds the kernels against
 their plain versions.  Without a CUDA device it exits non-zero.
 """
 
@@ -85,9 +90,20 @@ def main() -> int:
                                      cs.JOIN_SLOTS, hbm,
                                      "fact-dim probe batch"))
     del blo, bhi, blive, plo, phi
-    v, m = cs.q6_batch(torch, device, cs.gen_host(cs.Q6_ROWS))
+    data = cs.gen_host(cs.Q6_ROWS)
+    for n, shape in ((cs.BATCH_ROWS, "q6 batch"),
+                     (cs.Q6_ROWS // cs.NSHARDS, "sharded q6 shard")):
+        v, m = cs.q6_batch(torch, device, data, n)
+        emit("masked_multi_reduce",
+             cs.time_mmr(torch, K, timer, [v], [None], m, hbm, shape))
+        del v, m
+    del data
     emit("masked_multi_reduce",
-         cs.time_mmr(torch, K, timer, v, m, hbm, "q6 batch"))
+         cs.time_mmr(torch, K, timer, *cs.mmr_dense(torch, device), hbm,
+                     "dense"))
+    emit("masked_multi_reduce",
+         cs.time_mmr(torch, K, timer, *cs.q6_merge(torch, device), hbm,
+                     "q6 merge"))
     return 0
 
 
