@@ -25,9 +25,17 @@ just before it and read just after:
   columns ``bench.py``'s ``gen_host`` makes);
 - the sparse-key hash group-by (2^22 rows, 2^20 keys drawn from
   [0, 2^40)), hash path on and off;
-- TPC-H q3 at scale factor 10 (only the columns q3 reads, value for value
-  ``models/tpch.gen_tables``'), hash path on and off: two sort-merge
-  joins, the three-key group-by, TopN;
+- TPC-H q3 at scale factor 10 over all eight tables of
+  ``models/tpch.gen_table_columns`` (value for value
+  ``models/tpch.gen_tables``', put on the card once), hash path on and
+  off: two sort-merge joins, the three-key group-by, TopN;
+- all 22 TPC-H queries over the same SF10 tables, hash path on: per query
+  its rows/s (input rows of the tables it reads over the median wall of
+  3 runs after a warm one), its kernel launches, hash overflow fallbacks
+  and counted host syncs; each answer equals the hash-off run's (keys,
+  counts, strings and order exactly, floats within 1e-9 relative), q1
+  equals a numpy oracle, and all 22 at SF0.1 on the card equal the
+  engine on the CPU;
 - the fact-dim hash join (2^26 fact rows against 2^19 dim rows, then a
   group-by on the key), hash path on (``hash_insert`` + ``hash_probe`` in
   every probe batch) and off;
@@ -70,7 +78,8 @@ HASH_ROWS = 1 << 22
 HASH_CARD = 1 << 20
 HASH_SLOTS = 1 << 21
 MMR_CHECK_ROWS = 1 << 26
-Q3_SF = 10
+TPCH_SF = 10            # TPC-H scale of q3's phase and the 22 queries
+TPCH_CHECK_SF = 0.1     # the card against the engine on the CPU
 FACT_ROWS = 1 << 26
 DIM_ROWS = 1 << 19
 BATCH_ROWS = 1 << 22
@@ -635,7 +644,12 @@ def q3_oracle(cols):
     """pandas q3 on the host arrays: filter, merge, group, sort, top 11
     (the 11th shows the margin at the cut)."""
     import pandas as pd
-    host = {t: {k: v for k, (_, v, _) in c.items()} for t, c in cols.items()}
+    reads = {"customer": ("c_custkey", "c_mktsegment"),
+             "orders": ("o_orderkey", "o_custkey", "o_orderdate",
+                        "o_shippriority"),
+             "lineitem": ("l_orderkey", "l_extendedprice", "l_discount",
+                          "l_shipdate")}
+    host = {t: {k: cols[t][k][1] for k in ks} for t, ks in reads.items()}
     offsets, chars = host["customer"]["c_mktsegment"]
     word = np.frombuffer(b"BUILDING", dtype=np.uint8)
     lens = np.diff(offsets)
@@ -658,6 +672,163 @@ def q3_oracle(cols):
     top = g.sort_values(["rev", "o_orderdate"], ascending=[False, True],
                         kind="stable").head(11)
     return top, len(g)
+
+
+# ---------------------------------------------------------------- tpch22 --
+
+class ReadTables(dict):
+    """The tables a query reads: a dict that notes every key looked up."""
+
+    def __init__(self, tables):
+        super().__init__(tables)
+        self.read = set()
+
+    def __getitem__(self, key):
+        self.read.add(key)
+        return super().__getitem__(key)
+
+
+def device_tables(cols, device):
+    """Every table of ``gen_table_columns`` output as one batch on the
+    card (copied once; sessions share them)."""
+    from spark_rapids_tpu_torch.interop import batch_from_arrays
+    return {name: batch_from_arrays(c, device) for name, c in cols.items()}
+
+
+def frames_match(got, want, rtol):
+    """(equal, what differs): same columns, rows and order; floats within
+    ``rtol`` relative, every other column (keys, counts, strings, dates)
+    exactly."""
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        return False, (f"shape {list(got.columns)} x {len(got)} vs "
+                       f"{list(want.columns)} x {len(want)}")
+    for c in got.columns:
+        g, w = got[c], want[c]
+        if g.dtype.kind == "f" and w.dtype.kind == "f":
+            gv, wv = g.to_numpy(), w.to_numpy()
+            if not np.allclose(gv, wv, rtol=rtol, atol=0, equal_nan=True):
+                bad = np.nonzero(~np.isclose(gv, wv, rtol=rtol, atol=0,
+                                             equal_nan=True))[0][:3]
+                return False, (f"{c} rows {bad.tolist()}: "
+                               f"{gv[bad].tolist()} vs {wv[bad].tolist()}")
+        elif not g.equals(w):
+            bad = np.nonzero((g != w).to_numpy())[0][:3]
+            return False, (f"{c} rows {bad.tolist()}: {g.iloc[bad].tolist()}"
+                           f" vs {w.iloc[bad].tolist()}")
+    return True, ""
+
+
+def tpch_q1_oracle(cols):
+    """q1 at the generated scale from the host columns with numpy: groups
+    (returnflag, linestatus) in order, sums and averages in float64."""
+    li = {k: cols["lineitem"][k][1] for k in cols["lineitem"]}
+    m = li["l_shipdate"] <= int((np.datetime64("1998-09-02")
+                                 - np.datetime64("1970-01-01"))
+                                .astype(np.int64))
+    rf_off, rf_chars = li["l_returnflag"]
+    ls_off, ls_chars = li["l_linestatus"]
+    rf = rf_chars[rf_off[:-1]][m]   # one-byte strings
+    ls = ls_chars[ls_off[:-1]][m]
+    g = rf.astype(np.int64) * 256 + ls
+    keys, inv = np.unique(g, return_inverse=True)
+    n = np.bincount(inv)
+
+    def s(x):
+        return np.bincount(inv, weights=x[m])
+    price, disc, tax = (li["l_extendedprice"], li["l_discount"],
+                        li["l_tax"])
+    disc_price = price * (1 - disc)
+    return {"l_returnflag": [chr(k // 256) for k in keys],
+            "l_linestatus": [chr(k % 256) for k in keys],
+            "sum_qty": s(li["l_quantity"]), "sum_base_price": s(price),
+            "sum_disc_price": s(disc_price),
+            "sum_charge": s(disc_price * (1 + tax)),
+            "avg_qty": s(li["l_quantity"]) / n, "avg_price": s(price) / n,
+            "avg_disc": s(disc) / n, "count_order": n}
+
+
+def tpch_conf(hash_on: bool):
+    return {"spark.rapids.sql.tpu.maxBatchRows": BATCH_ROWS,
+            "spark.rapids.tpu.pallas.hash.enabled": hash_on,
+            "spark.rapids.tpu.pallas.hash.tableSlots": str(HASH_SLOTS)}
+
+
+def table_bytes(batches) -> int:
+    return sum(c.data.nbytes + (0 if c.offsets is None else c.offsets.nbytes)
+               + (0 if c.validity is None else c.validity.nbytes)
+               for b in batches.values() for c in b.columns.values())
+
+
+def run_tpch22(torch, K, fm, tpch, cols, batches, card_line, total, reps=3):
+    """All 22 TPC-H queries through ``TpuSession`` on the card over the
+    device tables ``batches`` (made from the host ``cols``), hash on:
+    launches and host syncs of the first run (the main path's), then
+    rows/s over the median of ``reps``; each answer equals the hash-off
+    run's (check a) and q1 equals numpy (check c)."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    sessions = {on: TpuSession(tpch_conf(on)) for on in (True, False)}
+    tables = {on: {k: s.create_dataframe(b) for k, b in batches.items()}
+              for on, s in sessions.items()}
+    rates, answers = {}, {}
+    for name, query in tpch.QUERIES.items():
+        read = ReadTables(tables[True])
+        q = query(read)
+        rows = sum(batches[k].nrows for k in read.read)
+        got, launches, fus, rate = drive(
+            torch, K, fm, q, rows, card_line, f"tpch22 {name}", reps=reps,
+            extra={"host_syncs": host_sync_metrics}, same_bits=True)
+        rates[name] = rate
+        answers[name] = got
+        total.add(launches)
+        print(f"tpch22 {name}: {len(got)} rows; launches "
+              + ", ".join(f"{k} {launches[k]}" for k in K.launches.NAMES)
+              + f"; hashKernelLaunches {fus['hashKernelLaunches']}, "
+              f"hashOverflowFallbacks {fus['hashOverflowFallbacks']}, "
+              f"host syncs {fus['host_syncs']}; tables "
+              f"{sorted(read.read)}", flush=True)
+        off = query(tables[False]).to_pandas()
+        ok, why = frames_match(got, off, QUERY_RTOL)
+        check(ok, f"tpch22 {name}: hash on equals hash off (floats within "
+              f"rel {QUERY_RTOL}) {why}")
+    want = tpch_q1_oracle(cols)
+    got = answers["q1"]
+    check(got["l_returnflag"].tolist() == want["l_returnflag"]
+          and got["l_linestatus"].tolist() == want["l_linestatus"]
+          and got["count_order"].tolist() == want["count_order"].tolist(),
+          f"tpch22 q1: {len(got)} groups, order and counts equal numpy")
+    for c in ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
+              "avg_qty", "avg_price", "avg_disc"):
+        check(np.allclose(got[c].to_numpy(), want[c], rtol=QUERY_RTOL,
+                          atol=0),
+              f"tpch22 q1 {c} within rel {QUERY_RTOL} of numpy")
+    for s in sessions.values():
+        s.stop()
+    print("tpch22 rows/s on " + card_line + ": " + json.dumps(
+        {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+
+
+def check_tpch22_cpu(torch, tpch, sf):
+    """All 22 queries at scale ``sf`` on the card equal the engine on the
+    CPU over the same columns (check b)."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    t0 = time.perf_counter()
+    cols = tpch.gen_table_columns(sf)
+    card = TpuSession(tpch_conf(True))
+    cpu = TpuSession(tpch_conf(True), device="cpu")
+    on_card = {k: card.create_dataframe(b)
+               for k, b in device_tables(cols, card.device).items()}
+    on_cpu = {k: cpu.create_dataframe(b)
+              for k, b in device_tables(cols, cpu.device).items()}
+    for name, query in tpch.QUERIES.items():
+        ok, why = frames_match(query(on_card).to_pandas(),
+                               query(on_cpu).to_pandas(), QUERY_RTOL)
+        check(ok, f"tpch22 SF{sf} {name}: the card equals the CPU (floats "
+              f"within rel {QUERY_RTOL}) {why}")
+    print(f"tpch22 SF{sf}: 22 queries on the card and on the CPU in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    card.stop()
+    cpu.stop()
 
 
 def make_fact_dim(F, fact, dim):
@@ -901,6 +1072,9 @@ class PathLaunches:
             for shape, c in launches["by_shape"][k].items():
                 self.shapes[k][shape] = self.shapes[k].get(shape, 0) + c
 
+    def extend(self, other: "PathLaunches"):
+        self.add(dict(other.counts, by_shape=other.shapes))
+
 
 def exchanged_rows(stats) -> int:
     """Rows the planner's stage statistics say the exchanges move."""
@@ -986,11 +1160,13 @@ def make_hash_agg(F, df):
 
 
 def drive(torch, K, fm, query, rows, card_line, label, reps=3,
-          extra=None):
+          extra=None, same_bits=False):
     """Reset the launch counts, run the query once through the engine
     (its counts are the main path's), then time ``reps`` more runs.
     ``extra``: more metric objects (reset, snapshot) read like ``fm``;
-    ``fm`` then returns their snapshots in a dict beside its own."""
+    ``fm`` then returns their snapshots in a dict beside its own.
+    ``same_bits``: check that every timed run's answer equals the first
+    run's bit for bit (float sums included)."""
     K.launches.reset()
     fm.reset()
     for m in (extra or {}).values():
@@ -1007,8 +1183,12 @@ def drive(torch, K, fm, query, rows, card_line, label, reps=3,
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        query.to_pandas()
+        again = query.to_pandas()
         walls.append(time.perf_counter() - t0)
+        if same_bits:
+            check(again.equals(result),
+                  f"{label}: a repeated run's answer equals the first "
+                  "bit for bit")
     wall = float(np.median(walls))
     print(f"rows/s {label}: {rows / wall:.6e} (median of {reps} runs, "
           f"{wall * 1e3:.3f} ms; first run {first_s * 1e3:.3f} ms; "
@@ -1289,15 +1469,26 @@ def main() -> int:
     s.stop()
     del sdf, sparse
 
-    # TPC-H q3 at SF10: customer 1.5M, orders 15M, lineitem 60M rows
-    from spark_rapids_tpu_torch.interop import batch_from_arrays
+    # TPC-H at SF10: lineitem 60M rows, orders 15M, partsupp 8M, part 2M,
+    # customer 1.5M, supplier 100k; every table on the card once
     from spark_rapids_tpu_torch.models import tpch
     t0 = time.perf_counter()
-    q3_cols = tpch.gen_q3_columns(Q3_SF)
-    q3_rows = sum(len(next(iter(c.values()))[1]) for c in q3_cols.values())
-    want3, n_groups3 = q3_oracle(q3_cols)
-    print(f"q3 SF{Q3_SF}: {q3_rows} input rows, {n_groups3} groups; data "
-          f"and pandas oracle {time.perf_counter() - t0:.3f} s", flush=True)
+    tpch_cols = tpch.gen_table_columns(TPCH_SF)
+    print(f"TPC-H SF{TPCH_SF}: all eight tables generated in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    tpch_batches = device_tables(tpch_cols, device)
+    torch.cuda.synchronize()
+    print(f"TPC-H SF{TPCH_SF}: on the card in "
+          f"{time.perf_counter() - t0:.3f} s, {table_bytes(tpch_batches)} "
+          "bytes; rows " + ", ".join(
+              f"{k} {b.nrows}" for k, b in tpch_batches.items()), flush=True)
+    t0 = time.perf_counter()
+    q3_rows = sum(tpch_batches[k].nrows
+                  for k in ("customer", "orders", "lineitem"))
+    want3, n_groups3 = q3_oracle(tpch_cols)
+    print(f"q3 SF{TPCH_SF}: {q3_rows} input rows, {n_groups3} groups; "
+          f"pandas oracle {time.perf_counter() - t0:.3f} s", flush=True)
     rev = want3["rev"].to_numpy()
     if abs(rev[9] - rev[10]) > QUERY_RTOL * abs(rev[9]):
         print(f"q3 oracle: 10th and 11th revenues {float(rev[9])!r} and "
@@ -1314,9 +1505,10 @@ def main() -> int:
                         "spark.rapids.tpu.pallas.hash.enabled": enabled,
                         "spark.rapids.tpu.pallas.hash.tableSlots":
                             str(HASH_SLOTS)})
-        tables = {name: s.create_dataframe(batch_from_arrays(c, s.device))
-                  for name, c in q3_cols.items()}
-        label = f"q3 SF{Q3_SF} ({'hash on' if enabled else 'hash off'})"
+        tables = {name: s.create_dataframe(b)
+                  for name, b in tpch_batches.items()}
+        label = (f"q3 SF{TPCH_SF} "
+                 f"({'hash on' if enabled else 'hash off'})")
         got, l3, fus, _ = drive(torch, K, fm, tpch.q3(tables), q3_rows,
                                 card_line, label)
         q3_out[enabled] = got
@@ -1349,7 +1541,18 @@ def main() -> int:
                           atol=0),
           f"q3 identical with hash on and off (revenue within rel "
           f"{PATH_RTOL})")
-    del q3_cols
+
+    # all 22 TPC-H queries at SF10 (hash on, against hash off and numpy),
+    # then at SF0.1 against the engine on the CPU
+    tpch_launches = PathLaunches(K.launches.NAMES)
+    run_tpch22(torch, K, fm, tpch, tpch_cols, tpch_batches, card_line,
+               tpch_launches)
+    for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
+        check(tpch_launches.counts[k] >= 1,
+              f"tpch22 launched {k} {tpch_launches.counts[k]}x")
+    total.extend(tpch_launches)
+    del tpch_cols, tpch_batches
+    check_tpch22_cpu(torch, tpch, TPCH_CHECK_SF)
 
     # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
     fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)

@@ -5,15 +5,19 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 profile_port.py
 
-It builds the same inputs as ``chip_smoke.py`` (TPC-H q3 at SF10 and the
-fact-dim join at 2^26 x 2^19), warms each query once, then traces one run
-per query with ``torch.profiler`` (hash path on and off, and the fact-dim
-join once more over 8 logical shards as a shuffle join), and TPC-H q6
+It builds the same inputs as ``chip_smoke.py`` (the TPC-H tables at SF10
+and the fact-dim join at 2^26 x 2^19), warms each query once, then traces
+one run per query with ``torch.profiler`` (q3 with the hash path on and
+off, TPC-H q1 (a string-keyed group-by) and q9 (a five-way join) with it
+on, the fact-dim join hash on and off and once more over 8 logical shards
+as a shuffle join), and TPC-H q6
 and the q1 shape over 2^26 rows (``bench.py``'s ``gen_host`` columns) on
 one device and over 8 logical shards, and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
-host syncs, the device ops that took the most device time, and the device
+host syncs, the host time of the string dictionary (fetching string
+columns, encoding and decoding) and its share of the wall, the device ops
+that took the most device time, and the device
 time of each hand-written kernel and of all memsets (the hash insert
 clears its table with one; PyTorch issues others), with its share of the
 busy time.  It checks nothing; ``chip_smoke.py`` holds the answers
@@ -49,12 +53,60 @@ def busy_ms(events) -> float:
     return total / 1e3  # profiler times are in us
 
 
+class DictTime:
+    """Host time of the string dictionary (``ops/dictionary.py``): its
+    fetches of string columns and its encoders and decoder, timed by
+    wrapping the module's functions (the engine calls them through the
+    module)."""
+
+    FETCH = ("host_strings",)
+    ENCODE = ("dict_encode_stable", "ordered_dict_encode", "rank_encode",
+              "decode")
+
+    def __init__(self):
+        self.reset()
+        self._wrapped = False
+
+    def reset(self):
+        self.calls, self.fetch_ms, self.encode_ms = 0, 0.0, 0.0
+
+    def snapshot(self):
+        return {"calls": self.calls, "fetch_ms": self.fetch_ms,
+                "encode_ms": self.encode_ms}
+
+    def wrap(self):
+        if self._wrapped:
+            return
+        from spark_rapids_tpu_torch.ops import dictionary
+        for name in self.FETCH + self.ENCODE:
+            setattr(dictionary, name,
+                    self._timed(getattr(dictionary, name),
+                                "fetch_ms" if name in self.FETCH
+                                else "encode_ms"))
+        self._wrapped = True
+
+    def _timed(self, fn, field):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.calls += 1
+                setattr(self, field, getattr(self, field)
+                        + (time.perf_counter() - t0) * 1e3)
+        return run
+
+
+dict_time = DictTime()
+
+
 def profile(torch, query, label, card_line):
     from torch.profiler import ProfilerActivity, profile as tprofile
     from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
     query.to_pandas()  # warm
     torch.cuda.synchronize()
     host_sync_metrics.reset()
+    dict_time.reset()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -62,12 +114,19 @@ def profile(torch, query, label, card_line):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     syncs = host_sync_metrics.snapshot()
+    encode = dict_time.snapshot()
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = busy_ms(device)
     print(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
           f"share {1 - busy / wall:.4f}, {len(device)} device ops, "
           f"{syncs} host syncs on {card_line}", flush=True)
+    if encode["calls"]:
+        print(f"  host dictionary: {encode['calls']} calls, fetch "
+              f"{encode['fetch_ms']:.3f} ms (waits for the card included), "
+              f"encode and decode {encode['encode_ms']:.3f} ms; "
+              f"{(encode['fetch_ms'] + encode['encode_ms']) / wall:.4f} of "
+              "the wall", flush=True)
     by_name = {}
     for e in device:
         t = by_name.setdefault(e.name, [0.0, 0])
@@ -97,9 +156,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
+    dict_time.wrap()
     from spark_rapids_tpu_torch.api import functions as F
     from spark_rapids_tpu_torch.api.session import TpuSession
-    from spark_rapids_tpu_torch.interop import batch_from_arrays
     from spark_rapids_tpu_torch.models import tpch
     card_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,16 +172,20 @@ def main() -> int:
             "spark.rapids.tpu.pallas.hash.enabled": enabled,
             "spark.rapids.tpu.pallas.hash.tableSlots": str(cs.HASH_SLOTS)})
 
-    cols = tpch.gen_q3_columns(cs.Q3_SF)
+    batches = cs.device_tables(tpch.gen_table_columns(cs.TPCH_SF),
+                               torch.device(cs.DEVICE))
     for enabled in (False, True):
         s = session(enabled)
-        t = {name: s.create_dataframe(batch_from_arrays(c, s.device))
-             for name, c in cols.items()}
-        profile(torch, tpch.q3(t), f"q3 SF{cs.Q3_SF} hash "
+        t = {name: s.create_dataframe(b) for name, b in batches.items()}
+        profile(torch, tpch.q3(t), f"q3 SF{cs.TPCH_SF} hash "
                 f"{'on' if enabled else 'off'}", card_line)
+        if enabled:
+            for name in ("q1", "q9"):
+                profile(torch, tpch.QUERIES[name](t),
+                        f"TPC-H {name} SF{cs.TPCH_SF} hash on", card_line)
         s.stop()
         del t
-    del cols
+    del batches
     fact, dim = cs.gen_fact_dim(cs.FACT_ROWS, cs.DIM_ROWS)
     for enabled in (False, True):
         s = session(enabled)

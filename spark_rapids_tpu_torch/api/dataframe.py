@@ -1,8 +1,9 @@
 """DataFrame and GroupedData.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py``, cut to select,
-filter, withColumnRenamed, groupBy/agg, keyless agg, equi-joins on
-column names, crossJoin, orderBy/sort, limit, collect and to_pandas.
+filter, withColumn, withColumnRenamed, groupBy/agg/count, keyless agg,
+distinct, equi-joins on column names, crossJoin, orderBy/sort, limit,
+count, collect and to_pandas.
 Expression-form join conditions are not ported yet.  A DataFrame is a
 logical plan; collecting it offers the plan to the distributed planner
 when the session holds a shard group, else (or when the planner declines)
@@ -34,6 +35,26 @@ class DataFrame:
 
     def filter(self, condition: Col) -> "DataFrame":
         return DataFrame(self.session, L.Filter(_expr(condition), self.plan))
+
+    def withColumn(self, name: str, c: Col) -> "DataFrame":
+        """Replace the column ``name`` in place, or append it."""
+        wrapped = Alias(_expr(c), name)
+        names = [n for n, _ in self.plan.schema]
+        exprs: List[Expression] = [
+            wrapped if n == name else UnresolvedColumn(n) for n in names]
+        if name not in names:
+            exprs.append(wrapped)
+        return self.select(*exprs)
+
+    def distinct(self) -> "DataFrame":
+        """An Aggregate over every column, with no aggregates."""
+        return DataFrame(self.session, L.Aggregate(
+            [UnresolvedColumn(n) for n, _ in self.plan.schema], [],
+            self.plan))
+
+    def count(self) -> int:
+        from spark_rapids_tpu_torch.api import functions as F
+        return int(self.agg(F.count().alias("n")).collect()[0][0])
 
     def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
         exprs = [Alias(UnresolvedColumn(n), new) if n == old
@@ -123,3 +144,7 @@ class GroupedData:
     def agg(self, *aggs: Col) -> DataFrame:
         return DataFrame(self.df.session, L.Aggregate(
             self.group_exprs, [_expr(a) for a in aggs], self.df.plan))
+
+    def count(self) -> DataFrame:
+        from spark_rapids_tpu_torch.api import functions as F
+        return self.agg(F.count().alias("count"))

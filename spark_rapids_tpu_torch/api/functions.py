@@ -2,18 +2,24 @@
 
 Counterpart of ``spark_rapids_tpu/api/functions.py``, cut to what the
 ported slices run: column references, literals (numbers, bools, strings,
-dates), arithmetic, comparisons, logic, null tests, sort keys, and the
-sum / avg / count / min / max aggregates.
+dates), arithmetic (``%`` too), comparisons, logic, null
+tests, casts, ``isin``, the string predicates (``startswith``,
+``endswith``, ``contains``, ``like``), ``when``/``otherwise``,
+``coalesce``, ``substring``, the date parts and date arithmetic, sort
+keys, and the sum / avg / count / min / max aggregates.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
-from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.columnar.dtypes import DataType, dtype_from_name
 from spark_rapids_tpu_torch.ops import aggregates as agg
 from spark_rapids_tpu_torch.ops import arithmetic as arith
+from spark_rapids_tpu_torch.ops import datetime_ops as D
 from spark_rapids_tpu_torch.ops import predicates as preds
+from spark_rapids_tpu_torch.ops import stringops as S
+from spark_rapids_tpu_torch.ops.cast import Cast
 from spark_rapids_tpu_torch.ops.expressions import (
     Alias, Expression, Literal, UnresolvedColumn)
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
@@ -70,6 +76,9 @@ class Col:
     def __rtruediv__(self, o):
         return Col(arith.Divide(_lit_expr(o), self.expr))
 
+    def __mod__(self, o):
+        return Col(arith.Remainder(self.expr, _lit_expr(o)))
+
     def __eq__(self, o):  # type: ignore[override]
         return Col(preds.EqualTo(self.expr, _lit_expr(o)))
 
@@ -105,6 +114,32 @@ class Col:
 
     def isNotNull(self) -> "Col":
         return Col(preds.IsNotNull(self.expr))
+
+    def cast(self, dtype: Union[str, DataType]) -> "Col":
+        if isinstance(dtype, str):
+            dtype = dtype_from_name(dtype)
+        return Col(Cast(self.expr, dtype))
+
+    def isin(self, *values) -> "Col":
+        if len(values) == 1 and isinstance(values[0], (list, tuple, set)):
+            values = tuple(values[0])
+        # a large non-string literal set is one sorted-table lookup
+        if len(values) > 16 and not any(isinstance(v, str)
+                                        for v in values):
+            return Col(preds.InSet(self.expr, list(values)))
+        return Col(preds.In(self.expr, [Literal(v) for v in values]))
+
+    def startswith(self, prefix: str) -> "Col":
+        return Col(S.StartsWith(self.expr, prefix))
+
+    def endswith(self, suffix: str) -> "Col":
+        return Col(S.EndsWith(self.expr, suffix))
+
+    def contains(self, needle: str) -> "Col":
+        return Col(S.Contains(self.expr, needle))
+
+    def like(self, pattern: str) -> "Col":
+        return Col(S.Like(self.expr, pattern))
 
     def between(self, lo, hi) -> "Col":
         return Col(preds.And(
@@ -156,6 +191,57 @@ def col(name: str) -> Col:
 
 def lit(value, dtype: Optional[DataType] = None) -> Col:
     return Col(Literal(value, dtype))
+
+
+def when(condition: Col, value) -> "CaseBuilder":
+    return CaseBuilder([(condition.expr, _lit_expr(value))])
+
+
+class CaseBuilder(Col):
+    """``when(...).when(...).otherwise(...)``."""
+
+    def __init__(self, branches):
+        self.branches = branches
+        super().__init__(preds.CaseWhen(branches))
+
+    def when(self, condition: Col, value) -> "CaseBuilder":
+        return CaseBuilder(self.branches + [(condition.expr,
+                                             _lit_expr(value))])
+
+    def otherwise(self, value) -> Col:
+        return Col(preds.CaseWhen(self.branches, _lit_expr(value)))
+
+
+def coalesce(*cols) -> Col:
+    return Col(preds.Coalesce(*[_expr(c) for c in cols]))
+
+
+def substring(c, pos: int, length_: int = 2**31 - 1) -> Col:
+    return Col(S.Substring(_expr(c), pos, length_))
+
+
+def year(c) -> Col:
+    return Col(D.Year(_expr(c)))
+
+
+def month(c) -> Col:
+    return Col(D.Month(_expr(c)))
+
+
+def dayofmonth(c) -> Col:
+    return Col(D.DayOfMonth(_expr(c)))
+
+
+def date_add(c, days) -> Col:
+    return Col(D.DateAdd(_expr(c), _lit_expr(days)))
+
+
+def date_sub(c, days) -> Col:
+    return Col(D.DateSub(_expr(c), _lit_expr(days)))
+
+
+def datediff(end, start) -> Col:
+    return Col(D.DateDiff(_expr(end), _expr(start)))
 
 
 def _agg(func_cls, c) -> Col:

@@ -10,6 +10,17 @@ counted fetch), then the dense coded directory when the key space fits,
 else the hash table when ``spark.rapids.tpu.pallas.hash.enabled`` is on,
 else the sort path.  A hash overflow discards the hash output and runs the
 exact sort path, counted in ``hashOverflowFallbacks``.
+
+String group keys take the JAX package's host dictionary
+(``dictionary.StableDictionary``, its ``_StringKeyEncoder``): per
+operator, codes stable across batches (a null interns as a code of its
+own), so the partial batches carry int32 codes, every path (coded, hash,
+sort) groups them as integers, and the merge's output decodes them on
+the card.  A string min/max buffer takes
+batch-local order-preserving codes (``dictionary.ordered_dict_encode``)
+for each reduction: the partials decode their winners to strings, and
+the merge re-encodes them over every partial, so comparisons across
+batches stay exact.  Groups with string keys come out in code order.
 """
 
 from __future__ import annotations
@@ -17,13 +28,16 @@ from __future__ import annotations
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import RowCount, bucket_capacity
 from spark_rapids_tpu_torch.exec.base import (
     AGG_TIME, CONCAT_TIME, NUM_INPUT_BATCHES, NUM_INPUT_ROWS, Schema, TpuExec)
 from spark_rapids_tpu_torch.exec.fusion import fusion_metrics
 from spark_rapids_tpu_torch.ops import aggregates as agg
+from spark_rapids_tpu_torch.ops import dictionary
 from spark_rapids_tpu_torch.ops.compiler import (
     batch_context, batch_to_colvals, check_raise, colvals_to_columns, widen)
 from spark_rapids_tpu_torch.ops.concat import concat_batches
@@ -31,6 +45,31 @@ from spark_rapids_tpu_torch.ops.expressions import (
     ColVal, EmitContext, Expression, fold_conjuncts)
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
 from spark_rapids_tpu_torch.utils import hostsync
+
+
+def _head(c: ColVal, n: int) -> ColVal:
+    """The first ``n`` rows of a fixed-width output (a keyless output's
+    one row stays as it is)."""
+    if c.offsets is not None or c.values.dim() == 0:
+        return c
+    return ColVal(c.dtype, c.values[:n],
+                  None if c.validity is None else c.validity[:n])
+
+
+def _ordered_codes(c: ColVal, capacity: int):
+    """(int64 codes ColVal, sorted distinct values) of a string buffer
+    input: order-preserving, so min/max over codes is min/max over the
+    strings."""
+    host = dictionary.host_strings(c, capacity)
+    codes, values = dictionary.ordered_dict_encode(host)
+    return ColVal(dts.INT64, torch.from_numpy(codes).to(c.values.device),
+                  c.validity), values
+
+
+def _rows(c: ColVal) -> int:
+    if c.offsets is not None:
+        return int(c.offsets.shape[0]) - 1
+    return int(c.values.shape[0]) if c.values.dim() else 1
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -50,10 +89,9 @@ class TpuHashAggregateExec(TpuExec):
         self.pre_filters = list(pre_filter or [])
         self.hash_table_slots = hash_table_slots
         self.funcs = [ae.func for _, ae in agg_exprs]
-        for e in self.group_exprs:
-            if e.dtype.is_string:
-                raise NotImplementedError(
-                    f"string group key {e.name!r} is not ported")
+        self._encoders = {i: dictionary.StableDictionary()
+                          for i, e in enumerate(self.group_exprs)
+                          if e.dtype.is_string}
         for name in (NUM_INPUT_ROWS, NUM_INPUT_BATCHES, AGG_TIME,
                      CONCAT_TIME):
             self._register_metric(name)
@@ -67,8 +105,13 @@ class TpuHashAggregateExec(TpuExec):
             self._buf_specs.extend(specs)
         self._merge_kinds = tuple(agg.merge_kind(s.kind)
                                   for s in self._buf_specs)
+        # buffer positions of string min/max (order-preserving codes)
+        self._string_bufs = {j for j, spec in enumerate(self._buf_specs)
+                             if spec.dtype.is_string}
         self._coded_eligible = bool(self.group_exprs) and \
-            agg.coded_key_eligible([e.dtype for e in self.group_exprs])
+            agg.coded_key_eligible([dt for _, dt in
+                                    self._partial_schema[:len(
+                                        self.group_exprs)]])
 
     @property
     def child(self) -> TpuExec:
@@ -82,7 +125,9 @@ class TpuHashAggregateExec(TpuExec):
 
     @property
     def _partial_schema(self) -> Schema:
-        keys = [(f"_k{i}", e.dtype) for i, e in enumerate(self.group_exprs)]
+        """String keys travel as their int32 codes."""
+        keys = [(f"_k{i}", dts.INT32 if i in self._encoders else e.dtype)
+                for i, e in enumerate(self.group_exprs)]
         bufs = [(f"_b{j}", spec.dtype)
                 for j, spec in enumerate(self._buf_specs)]
         return keys + bufs
@@ -112,15 +157,40 @@ class TpuHashAggregateExec(TpuExec):
         mask = fold_conjuncts(ctx, self.pre_filters) if self.pre_filters \
             else ctx.row_mask()
         keys = [widen(e.emit(ctx), ctx.capacity) for e in self.group_exprs]
+        keys = [ColVal(dts.INT32, torch.from_numpy(
+            self._encoders[i].encode(k, ctx.capacity).astype(np.int32))
+            .to(ctx.device)) if i in self._encoders else k
+            for i, k in enumerate(keys)]
         bufs = self._eval_update_inputs(ctx)
         check_raise(ctx)
-        if not keys:
-            outs = agg.reduce_aggregate(bufs, ctx.nrows, ctx.capacity,
-                                        ctx.device, row_mask=mask)
-            return self._batch(self._partial_schema, outs, 1)
-        key_out, buf_out, n = self._grouped(keys, bufs, ctx.nrows,
-                                            ctx.capacity, mask)
+        key_out, buf_out, n = self._reduce(keys, bufs, ctx.nrows,
+                                           ctx.capacity, mask)
         return self._batch(self._partial_schema, key_out + buf_out, n)
+
+    def _reduce(self, keys, bufs, nrows, capacity, mask):
+        """Grouped or keyless reduction of one batch of buffer inputs;
+        string min/max buffers reduce as order-preserving codes and come
+        back as strings."""
+        dicts = {}
+        for j in self._string_bufs:
+            kind, c = bufs[j]
+            codes, dicts[j] = _ordered_codes(c, capacity)
+            bufs[j] = (kind, codes)
+        if keys:
+            key_out, buf_out, n = self._grouped(keys, bufs, nrows,
+                                                capacity, mask)
+        else:
+            key_out, n = [], 1
+            buf_out = agg.reduce_aggregate(bufs, nrows, capacity,
+                                           self.device, row_mask=mask)
+        if dicts:
+            n = int(RowCount.wrap(n))
+            key_out = [_head(k, n) for k in key_out]
+            buf_out = [dictionary.decode(dicts[j], _head(b, n).values,
+                                         _head(b, n).validity)
+                       if j in dicts else _head(b, n)
+                       for j, b in enumerate(buf_out)]
+        return key_out, buf_out, n
 
     def _grouped(self, keys, bufs, nrows, capacity, mask):
         """coded -> hashed -> sort."""
@@ -172,23 +242,25 @@ class TpuHashAggregateExec(TpuExec):
         rc = merged.row_count
         nrows = int(rc) if rc.is_concrete else rc.device_tensor(self.device)
         capacity = merged.capacity
-        if keys:
-            mask = agg._row_mask(nrows, capacity, self.device)
-            key_out, buf_out, n = self._grouped(keys, merge_inputs, nrows,
-                                                capacity, mask)
-        else:
-            key_out, n = [], 1
-            buf_out = agg.reduce_aggregate(merge_inputs, nrows, capacity,
-                                           self.device)
+        mask = agg._row_mask(nrows, capacity, self.device) if keys \
+            else None
+        key_out, buf_out, n = self._reduce(keys, merge_inputs, nrows,
+                                           capacity, mask)
+        if self._encoders:
+            n = int(RowCount.wrap(n))
+            key_out = [dictionary.decode(self._encoders[i].values,
+                                         _head(k, n).values)
+                       if i in self._encoders else _head(k, n)
+                       for i, k in enumerate(key_out)]
+            buf_out = [_head(b, n) for b in buf_out]
         results = [f.finalize(buf_out[sl])
                    for f, sl in zip(self.funcs, self._buf_slices)]
         return self._batch(self.schema, list(key_out) + results, n)
 
     @staticmethod
     def _batch(schema, outs: List[ColVal], n) -> ColumnarBatch:
-        capacity = max(o.values.shape[0] if o.values.dim() else 1
-                       for o in outs)
-        outs = [ColVal(dt, o.values, o.validity)
+        capacity = max(_rows(o) for o in outs)
+        outs = [ColVal(dt, o.values, o.validity, o.offsets)
                 for (_, dt), o in zip(schema, outs)]
         n = RowCount.wrap(n)
         cols = colvals_to_columns(outs, n, capacity)

@@ -15,8 +15,12 @@ single-key join whose build side passes the gate takes the hash phase A
 ``hashOverflowFallbacks`` and reruns the sort-merge phase.  Results are
 identical either way.
 
-Not ported yet: string join keys (the JAX package's shared host
-dictionary), residual (non-equi) conditions, and the build side's spill
+String join keys take the JAX package's shared host dictionary
+(``dictionary.StableDictionary``, its ``_JoinKeyEncoder``): both sides
+encode through one dictionary, so code equality is string equality, and
+the codes (int64, nulls kept null) join as integers on every path.
+
+Not ported yet: residual (non-equi) conditions, and the build side's spill
 and retry (``memory/coalesce.py``, ``memory/retry.py``): the build is one
 ``concat_batches`` of its child's output.  Host syncs per probe batch:
 the overflow flag of a hash phase A and the output total, each one
@@ -29,10 +33,12 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
+from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import Column, bucket_capacity
 from spark_rapids_tpu_torch.exec.base import JOIN_TIME, Schema, TpuExec
 from spark_rapids_tpu_torch.exec.fusion import fusion_metrics
+from spark_rapids_tpu_torch.ops import dictionary
 from spark_rapids_tpu_torch.ops import joins as J
 from spark_rapids_tpu_torch.ops import selection
 from spark_rapids_tpu_torch.ops.compiler import StageFn
@@ -80,10 +86,6 @@ class TpuHashJoinExec(TpuExec):
         self.hash_enabled = hash_enabled
         self._swap = join_type == "right"
         self._register_metric(JOIN_TIME)
-        for e in self.left_keys + self.right_keys:
-            if e.dtype.is_string:
-                raise NotImplementedError(
-                    f"string join key {e.name!r} is not ported")
         self._lkey_fn = StageFn(self.left_keys,
                                 [dt for _, dt in left.schema])
         self._rkey_fn = StageFn(self.right_keys,
@@ -116,9 +118,12 @@ class TpuHashJoinExec(TpuExec):
                 f"{[e.name for e in self.left_keys]}]")
 
     # ------------------------------------------------------------------ exec --
-    @staticmethod
-    def _keys(batch: ColumnarBatch, fn: StageFn) -> List[ColVal]:
-        return [ColVal(c.dtype, c.data, c.validity) for c in fn(batch)]
+    def _keys(self, batch: ColumnarBatch, fn: StageFn) -> List[ColVal]:
+        return [ColVal(dts.INT64, torch.from_numpy(
+            self._encoders[i].encode(c, c.capacity, null_code=-1))
+            .to(c.data.device), c.validity) if c.dtype.is_string
+            else ColVal(c.dtype, c.data, c.validity)
+            for i, c in enumerate(fn(batch))]
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         if self.join_type == "cross":
@@ -128,6 +133,8 @@ class TpuHashJoinExec(TpuExec):
             else (self.left, self.right)
         probe_fn, build_fn = (self._rkey_fn, self._lkey_fn) if self._swap \
             else (self._lkey_fn, self._rkey_fn)
+        self._encoders = [dictionary.StableDictionary()
+                          for _ in self.left_keys]
         build_batches = list(build_exec.execute())
         build = concat_batches(build_batches) if build_batches else None
         if build is None or build.capacity == 0:

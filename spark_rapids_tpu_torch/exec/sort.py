@@ -17,20 +17,23 @@ its row count on the host: a batch from a scan, filter or join carries a
 host count; a device-resident count (an aggregate's groups) resolves
 through one counted fetch.
 
-Numeric, bool, date and timestamp sort keys; string sort keys (the JAX
-package's rank encoding) are not ported yet.
+A string sort key becomes order-preserving int32 ranks on the host
+(``dictionary.rank_encode``, as in the JAX package): exact within the
+batch being sorted, since the ranks are dense over its value set.
 """
 
 from __future__ import annotations
 
 from typing import Iterator, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec.base import SORT_TIME, Schema, TpuExec
 from spark_rapids_tpu_torch.ops import aggregates as agg
-from spark_rapids_tpu_torch.ops import selection
+from spark_rapids_tpu_torch.ops import dictionary, selection
 from spark_rapids_tpu_torch.ops.compiler import (
     StageFn, batch_to_colvals, colvals_to_columns)
 from spark_rapids_tpu_torch.ops.concat import concat_batches
@@ -40,14 +43,19 @@ from spark_rapids_tpu_torch.ops.expressions import ColVal, Expression
 Order = Tuple[Expression, bool, bool]
 
 
+def _rank_key(c, capacity: int) -> ColVal:
+    """A string key as int32 ranks in string order (nulls keep the
+    validity; padding rows rank anywhere, the live mask sorts them
+    last)."""
+    ranks = dictionary.rank_encode(dictionary.host_strings(c, capacity))
+    return ColVal(dts.INT32, torch.from_numpy(ranks.astype(np.int32)).to(
+        c.data.device), c.validity)
+
+
 class TpuSortExec(TpuExec):
     def __init__(self, orders: Sequence[Order], child: TpuExec):
         super().__init__(child)
         self.orders = list(orders)
-        for e, _, _ in self.orders:
-            if e.dtype.is_string:
-                raise NotImplementedError(
-                    f"string sort key {e.name!r} is not ported")
         self._key_fn = StageFn([e for e, _, _ in self.orders],
                                [dt for _, dt in child.schema])
         self._register_metric(SORT_TIME)
@@ -71,7 +79,8 @@ class TpuSortExec(TpuExec):
         when None), as an exact-length batch."""
         n = batch.nrows
         take = n if limit is None else min(limit, n)
-        keys = [ColVal(c.dtype, c.data, c.validity)
+        keys = [_rank_key(c, batch.capacity) if c.dtype.is_string
+                else ColVal(c.dtype, c.data, c.validity)
                 for c in self._key_fn(batch)]
         live = torch.arange(batch.capacity, device=batch.device) < n
         perm = agg.sort_permutation(

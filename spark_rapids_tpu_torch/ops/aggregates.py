@@ -17,12 +17,16 @@ Group-by paths, picked per batch by ``exec/aggregate.py``:
   every key type, and the fallback after a hash overflow.
 
 All three give the same groups in the same order (ascending keys, nulls
-first) and, for integer and integer-valued sums, the same bits.  Segment
-sums use ``index_add_``, which on CUDA adds floats with atomics in an
-order that changes from run to run; float sums therefore agree with
-another order to a relative 1e-12 (the tests' bound), and counts and keys
-exactly.  The port leaves ``torch.use_deterministic_algorithms`` at its
-default (off).
+first) and, for integer and integer-valued sums, the same bits.  Integer
+segment sums use ``index_add_`` (exact in any order).  Float segment
+sums go through :func:`fixed_order_sums`, a stable sort by slot and a
+blocked segmented scan, so a float sum has the same bits on every run of
+the same input on every device (``index_add_`` on CUDA adds floats with
+atomics in an order that changes from run to run, and a query that
+compares a recomputed sum with an earlier one, as TPC-H q15 does, would
+then drop rows).  Another path's float sums agree with another order to
+a relative 1e-12 (the tests' bound).  The port leaves
+``torch.use_deterministic_algorithms`` at its default (off).
 """
 
 from __future__ import annotations
@@ -204,12 +208,89 @@ def _row_mask(nrows, capacity: int, device, row_mask=None) -> torch.Tensor:
 
 
 def _sentinel(kind: str, dtype: torch.dtype):
-    """Identity of a min/max reduction in ``dtype``."""
+    """Identity of a min/max reduction in ``dtype`` (a bool reduces as
+    int8: True for min, False for max)."""
+    if dtype == torch.bool:
+        return 1 if kind == "min" else 0
     if dtype.is_floating_point:
         info = torch.finfo(dtype)
     else:
         info = torch.iinfo(dtype)
     return info.max if kind == "min" else info.min
+
+
+_SCAN_BLOCK = 256
+
+
+def _segmented_scan(si: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of the rows of ``x`` within each run of equal
+    values of the sorted ``si``, in an order fixed by the input alone.
+    Within blocks of ``_SCAN_BLOCK`` rows a Hillis-Steele scan (each row
+    adds the row ``d`` before it in its run and block, d = 1, 2, 4, ...);
+    a run that crosses blocks then adds the scan of the earlier blocks'
+    last rows, computed the same way one level up."""
+    n = si.shape[0]
+    pos = torch.arange(n, device=si.device)
+    rank = pos - torch.searchsorted(si, si)       # rows before r in its run
+    lim = torch.minimum(rank, pos % _SCAN_BLOCK)  # ... and in its block
+    y = x.clone()
+    spare = torch.empty_like(x)
+    d = 1
+    while d < min(n, _SCAN_BLOCK):
+        ok = lim[d:] >= d
+        if x.dim() > 1:
+            ok = ok.unsqueeze(1)
+        spare[:d] = y[:d]
+        torch.add(y[d:], torch.where(ok, y[:-d], 0.0), out=spare[d:])
+        y, spare = spare, y
+        d <<= 1
+    if n <= _SCAN_BLOCK:
+        return y
+    last = torch.clamp(torch.arange(_SCAN_BLOCK - 1, n + _SCAN_BLOCK - 1,
+                                    _SCAN_BLOCK, device=si.device), max=n - 1)
+    carry = _segmented_scan(si[last], y[last])    # per block, inclusive
+    block = pos // _SCAN_BLOCK
+    # a run that began before this block adds the previous block's scan
+    crosses = (rank > lim) & (block > 0)
+    if x.dim() > 1:
+        crosses = crosses.unsqueeze(1)
+    prev = carry[(block - 1).clamp(min=0)]
+    return torch.where(crosses, prev + y, y)
+
+
+def fixed_order_sums(index: torch.Tensor, values: torch.Tensor,
+                     size: int) -> torch.Tensor:
+    """Per-slot sums of ``values`` (n rows, 1-D or 2-D) at ``index`` (n
+    slots in [0, size)), in an order fixed by the input alone: a stable
+    sort by slot, then a segmented scan (:func:`_segmented_scan`) whose
+    last row per slot is the slot's sum.  Integer sums take
+    ``index_add_`` (exact in any order)."""
+    shape = (size,) + tuple(values.shape[1:])
+    out = torch.zeros(shape, dtype=values.dtype, device=values.device)
+    if not values.dtype.is_floating_point:
+        return out.index_add_(0, index, values)
+    n = int(index.shape[0])
+    if n == 0:
+        return out
+    # a 32-bit sort key halves the radix sort's passes
+    key = index.to(torch.int32) if size < (1 << 31) else index
+    order = torch.argsort(key, stable=True)
+    si = key[order]
+    x = _segmented_scan(si, values[order])
+    last = torch.ones(n, dtype=torch.bool, device=index.device)
+    last[:-1] = si[1:] != si[:-1]
+    # each slot's last row writes its sum; the other rows go to a trash
+    # row past the end
+    full = torch.zeros((size + 1,) + shape[1:], dtype=values.dtype,
+                       device=values.device)
+    full.index_copy_(0, torch.where(last, si.to(torch.int64), size), x)
+    return full[:size]
+
+
+def _minmax_view(v: torch.Tensor) -> torch.Tensor:
+    """Values as a min/max reduction takes them: a bool column as int8
+    (torch reduces no bool with ``amin``/``amax`` on every device)."""
+    return v.to(torch.int8) if v.dtype == torch.bool else v
 
 
 # ---------------------------------------------------------------- sort path --
@@ -304,14 +385,15 @@ def _segment_reduce(kind: str, c: ColVal, seg_ids, num_segments: int,
     v = c.values
     if kind == "sum":
         vals = torch.where(contrib, v, torch.zeros_like(v))
-        out = torch.zeros(ns + 1, dtype=v.dtype, device=dev).index_add_(
-            0, seg_ids, vals)
+        out = fixed_order_sums(seg_ids, vals, ns + 1)
     elif kind in ("min", "max"):
+        w = _minmax_view(v)
         s = _sentinel(kind, v.dtype)
-        vals = torch.where(contrib, v, torch.full_like(v, s))
-        out = torch.full((ns + 1,), s, dtype=v.dtype, device=dev)
+        vals = torch.where(contrib, w, torch.full_like(w, s))
+        out = torch.full((ns + 1,), s, dtype=w.dtype, device=dev)
         out.scatter_reduce_(0, seg_ids, vals,
                             "amin" if kind == "min" else "amax")
+        out = out.to(v.dtype)
     else:
         raise ValueError(f"unknown reduce kind {kind}")
     return out[:ns], counts
@@ -464,13 +546,14 @@ def _segment_reduce_coded(kind: str, c: ColVal, code, ns: int, counts_of):
     counts = counts_of(c.validity, bcode)
     dev = vals.device
     if kind == "sum":
-        out = torch.zeros(ns, dtype=vals.dtype, device=dev).index_add_(
-            0, bcode, vals)
+        out = fixed_order_sums(bcode, vals, ns)
     elif kind in ("min", "max"):
-        s = _sentinel(kind, vals.dtype)
-        out = torch.full((ns,), s, dtype=vals.dtype, device=dev)
-        out.scatter_reduce_(0, bcode, vals,
+        w = _minmax_view(vals)
+        out = torch.full((ns,), _sentinel(kind, vals.dtype), dtype=w.dtype,
+                         device=dev)
+        out.scatter_reduce_(0, bcode, w,
                             "amin" if kind == "min" else "amax")
+        out = out.to(vals.dtype)
     else:
         raise ValueError(f"unknown reduce kind {kind}")
     return out[: ns - 1], counts
@@ -479,8 +562,9 @@ def _segment_reduce_coded(kind: str, c: ColVal, code, ns: int, counts_of):
 def _slot_reductions(buffer_inputs, code, ns: int, device):
     """Per-slot (values, counts) of every buffer over ``ns`` slots (the
     last one the trash).  Same-dtype, validity-free ``sum`` buffers stack
-    into ONE 2-D ``index_add_`` whose extra ones column also yields the
-    per-slot live counts (the JAX package's batched sum scatter)."""
+    into ONE 2-D sum (:func:`fixed_order_sums`) whose extra ones column
+    also yields the per-slot live counts (the JAX package's batched sum
+    scatter)."""
     results: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
     groups: Dict[torch.dtype, List[int]] = {}
     for j, (kind, c) in enumerate(buffer_inputs):
@@ -495,9 +579,7 @@ def _slot_reductions(buffer_inputs, code, ns: int, device):
             continue
         if fuse_counts:
             cols.append(torch.ones_like(cols[0]))
-        summed = torch.zeros((ns, len(cols)), dtype=dt,
-                             device=device).index_add_(
-            0, code, torch.stack(cols, dim=1))
+        summed = fixed_order_sums(code, torch.stack(cols, dim=1), ns)
         if fuse_counts:
             slot_counts = summed[:, -1].to(torch.int64)
         for col_i, j in enumerate(idxs):
@@ -646,12 +728,14 @@ def reduce_aggregate(buffer_inputs: Sequence[Tuple[str, ColVal]],
             out = torch.where(contrib, v, torch.zeros_like(v)).sum(
                 dtype=v.dtype)
         elif kind in ("min", "max"):
+            w = _minmax_view(v)
             s = _sentinel(kind, v.dtype)
-            masked = torch.where(contrib, v, torch.full_like(v, s))
+            masked = torch.where(contrib, w, torch.full_like(w, s))
             if capacity == 0:
-                out = torch.tensor(s, dtype=v.dtype, device=device)
+                out = torch.tensor(s, dtype=w.dtype, device=device)
             else:
                 out = masked.min() if kind == "min" else masked.max()
+            out = out.to(v.dtype)
         else:
             raise ValueError(f"unknown reduce kind {kind}")
         outs.append(ColVal(c.dtype, out.reshape(1), (count > 0).reshape(1)))

@@ -1,7 +1,7 @@
 """Arithmetic expressions.
 
-Counterpart of ``spark_rapids_tpu/ops/arithmetic.py``, cut to the numeric
-operators this slice's queries use.  ANSI mode is off, as in the JAX
+Counterpart of ``spark_rapids_tpu/ops/arithmetic.py``, cut to ``+``,
+``-``, ``*``, ``/``, ``div`` and ``%``.  ANSI mode is off, as in the JAX
 package's defaults: integer overflow wraps, division by zero yields null.
 """
 
@@ -39,3 +39,33 @@ class Divide(BinaryExpression):
         zero = r == 0
         safe = torch.where(zero, torch.ones_like(r), r)
         return l / safe, torch.logical_not(zero)
+
+
+class IntegralDivide(BinaryExpression):
+    """Spark ``div``: long division truncating toward zero; x div 0 is
+    null."""
+
+    def operand_type(self) -> DataType:
+        return dts.INT64
+
+    def eval_values(self, l, r):
+        zero = r == 0
+        # x div -1 is -x (wrapping at the minimum, where the hardware's
+        # division traps)
+        minus_one = r == -1
+        safe = torch.where(zero | minus_one, torch.ones_like(r), r)
+        q = torch.div(l, safe, rounding_mode="trunc")
+        return torch.where(minus_one, -l, q), torch.logical_not(zero)
+
+
+class Remainder(BinaryExpression):
+    """Spark ``%``: the sign follows the dividend (Java); x % 0 is
+    null."""
+
+    def eval_values(self, l, r):
+        zero = r == 0
+        safe = torch.where(zero, torch.ones_like(r), r)
+        if not l.dtype.is_floating_point:
+            # x % -1 is 0, as x % 1 (the hardware traps at the minimum)
+            safe = torch.where(r == -1, torch.ones_like(r), safe)
+        return torch.fmod(l, safe), torch.logical_not(zero)

@@ -39,12 +39,13 @@ def batch_context(batch: ColumnarBatch,
 def widen(c: ColVal, capacity: int) -> ColVal:
     """Scalar values/validity (literal operands) widen to full columns.
     A string column's chars are not rows and stay as they are; a string
-    literal does not widen into a column in this port."""
+    literal repeats over the rows."""
     v, val = c.values, c.validity
     if c.offsets is not None:
         if c.offsets.shape[0] != capacity + 1:
-            raise NotImplementedError(
-                "a string literal as a column is not ported")
+            from spark_rapids_tpu_torch.ops.stringops import (
+                string_literal_column)
+            return string_literal_column(c, capacity)
     elif v.dim() == 0:
         v = v.expand(capacity)
     if val is not None and val.dim() == 0:

@@ -258,19 +258,22 @@ class Literal(Expression):
 
     def emit(self, ctx: EmitContext) -> ColVal:
         tdt = dts.torch_dtype(self._dtype)
-        if self.value is None:
-            return ColVal(self._dtype,
-                          torch.zeros((), dtype=tdt, device=ctx.device),
-                          torch.zeros((), dtype=torch.bool,
-                                      device=ctx.device))
+        null = torch.zeros((), dtype=torch.bool, device=ctx.device) \
+            if self.value is None else None
         if self._dtype.is_string:
-            data = np.frombuffer(str(self.value).encode("utf-8"),
+            # a one-row string: its chars and offsets [0, len]
+            text = "" if self.value is None else str(self.value)
+            data = np.frombuffer(text.encode("utf-8"),
                                  dtype=np.uint8).copy()
             return ColVal(self._dtype,
-                          torch.from_numpy(data).to(ctx.device),
+                          torch.from_numpy(data).to(ctx.device), null,
                           offsets=torch.tensor([0, len(data)],
                                                dtype=torch.int32,
                                                device=ctx.device))
+        if self.value is None:
+            return ColVal(self._dtype,
+                          torch.zeros((), dtype=tdt, device=ctx.device),
+                          null)
         return ColVal(self._dtype, torch.tensor(
             literal_storage_value(self.value, self._dtype), dtype=tdt,
             device=ctx.device))
@@ -419,8 +422,8 @@ _MICROS_PER_DAY = 86_400_000_000
 
 def cast_value(v: ColVal, target: DataType) -> ColVal:
     """Implicit promotion: a widening cast of the storage, or a date to
-    a timestamp (days to microseconds at midnight UTC).  Narrowing and
-    other casts arrive with the cast module."""
+    a timestamp (days to microseconds at midnight UTC).  Explicit casts
+    are ``ops/cast.py``'s."""
     if v.dtype.name == target.name:
         return v
     if promote_types(v.dtype, target).name != target.name:

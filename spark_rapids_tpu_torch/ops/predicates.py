@@ -2,21 +2,29 @@
 
 Counterpart of ``spark_rapids_tpu/ops/predicates.py``.  Numeric, date and
 timestamp operands compare through their storage (a date meets a
-timestamp as a timestamp); strings support equality (``==`` and ``!=``)
-through ``stringops.string_equal``, and their ordering comparisons are
-not ported yet.  Spark semantics kept: AND/OR use Kleene three-valued
-logic (null AND false = false); float comparisons treat NaN = NaN as true
-and NaN as the largest value; -0.0 compares equal to 0.0.
+timestamp as a timestamp); strings compare byte-wise through
+``stringops`` (UTF-8 byte order is Spark's string order).  Also ``In`` /
+``InSet`` (Spark's null rule: no match and a null option give null),
+``If`` / ``CaseWhen`` (a null predicate takes the else branch) and
+``Coalesce``; string-valued CASE and COALESCE go through
+``stringops.string_select``.  Spark semantics kept: AND/OR use Kleene
+three-valued logic (null AND false = false); float comparisons treat
+NaN = NaN as true and NaN as the largest value; -0.0 compares equal to
+0.0.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dts
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.ops.expressions import (
-    BinaryExpression, ColVal, EmitContext, UnaryExpression,
-    combine_validity)
+    BinaryExpression, ColVal, EmitContext, Expression, Literal,
+    UnaryExpression, cast_value, combine_validity, promote_types)
 
 
 def _is_float(v) -> bool:
@@ -24,8 +32,8 @@ def _is_float(v) -> bool:
 
 
 class _Comparison(BinaryExpression):
-    # strings: only equality is ported (stringops.string_equal)
-    _string_equality = False
+    # the stringops comparator of string operands
+    _string_op = ""
 
     @property
     def dtype(self):
@@ -33,19 +41,17 @@ class _Comparison(BinaryExpression):
 
     def emit(self, ctx: EmitContext) -> ColVal:
         if self.left.dtype.is_string and self.right.dtype.is_string:
-            if not self._string_equality:
-                raise NotImplementedError(
-                    f"{type(self).__name__} on strings is not ported")
             from spark_rapids_tpu_torch.ops import stringops
             l = self.left.emit(ctx)
             r = self.right.emit(ctx)
-            return ColVal(dts.BOOL, stringops.string_equal(l, r, ctx),
+            vals = getattr(stringops, self._string_op)(l, r, ctx)
+            return ColVal(dts.BOOL, vals,
                           combine_validity(l.validity, r.validity))
         return super().emit(ctx)
 
 
 class EqualTo(_Comparison):
-    _string_equality = True
+    _string_op = "string_equal"
 
     def eval_values(self, l, r):
         eq = l == r
@@ -55,6 +61,8 @@ class EqualTo(_Comparison):
 
 
 class LessThan(_Comparison):
+    _string_op = "string_lt"
+
     def eval_values(self, l, r):
         lt = l < r
         if _is_float(l):  # NaN is largest
@@ -64,6 +72,8 @@ class LessThan(_Comparison):
 
 
 class LessThanOrEqual(_Comparison):
+    _string_op = "string_le"
+
     def eval_values(self, l, r):
         le = l <= r
         if _is_float(l):
@@ -73,6 +83,8 @@ class LessThanOrEqual(_Comparison):
 
 
 class GreaterThan(_Comparison):
+    _string_op = "string_gt"
+
     def eval_values(self, l, r):
         gt = l > r
         if _is_float(l):
@@ -82,6 +94,8 @@ class GreaterThan(_Comparison):
 
 
 class GreaterThanOrEqual(_Comparison):
+    _string_op = "string_ge"
+
     def eval_values(self, l, r):
         ge = l >= r
         if _is_float(l):
@@ -177,3 +191,256 @@ class IsNotNull(UnaryExpression):
             return ColVal(dts.BOOL, torch.ones(
                 _row_shape(c, ctx), dtype=torch.bool, device=ctx.device))
         return ColVal(dts.BOOL, c.validity)
+
+
+# ------------------------------------------------------- conditional values --
+
+def _cond_mask(p: ColVal, ctx: EmitContext) -> torch.Tensor:
+    """A predicate as a full bool mask; null reads as false."""
+    cond = p.values
+    if p.validity is not None:
+        cond = torch.logical_and(cond, p.validity)
+    if cond.dim() == 0:
+        cond = cond.expand(ctx.capacity)
+    return cond
+
+
+def _full_validity(v, ctx: EmitContext) -> torch.Tensor:
+    if v is None:
+        return torch.ones(ctx.capacity, dtype=torch.bool, device=ctx.device)
+    return v.expand(ctx.capacity) if v.dim() == 0 else v
+
+
+class Coalesce(Expression):
+    """The first non-null argument per row."""
+
+    def __init__(self, *children: Expression):
+        self.children = tuple(children)
+
+    def with_children(self, children):
+        return Coalesce(*children)
+
+    @property
+    def dtype(self) -> DataType:
+        t = self.children[0].dtype
+        for c in self.children[1:]:
+            t = promote_types(t, c.dtype)
+        return t
+
+    @property
+    def nullable(self):
+        return all(c.nullable for c in self.children)
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        t = self.dtype
+        if t.is_string:
+            from spark_rapids_tpu_torch.ops.stringops import string_select
+            vals = [c.emit(ctx) for c in self.children]
+            masks = [_full_validity(v.validity, ctx) for v in vals]
+            return string_select(masks, vals, ctx.capacity, ctx.device)
+        out = cast_value(self.children[-1].emit(ctx), t)
+        for child in reversed(self.children[:-1]):
+            c = cast_value(child.emit(ctx), t)
+            if c.validity is None:
+                out = c
+                continue
+            values = torch.where(c.validity, c.values, out.values)
+            validity = None if out.validity is None else \
+                torch.logical_or(c.validity, out.validity)
+            out = ColVal(t, values, validity)
+        return out
+
+
+class If(Expression):
+    """if(pred, a, b); a null predicate takes ``b`` (Spark)."""
+
+    def __init__(self, pred: Expression, if_true: Expression,
+                 if_false: Expression):
+        self.children = (pred, if_true, if_false)
+
+    def with_children(self, children):
+        return If(*children)
+
+    @property
+    def dtype(self) -> DataType:
+        return promote_types(self.children[1].dtype, self.children[2].dtype)
+
+    @property
+    def nullable(self):
+        return any(c.nullable for c in self.children)
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        t = self.dtype
+        cond = _cond_mask(self.children[0].emit(ctx), ctx)
+        if t.is_string:
+            from spark_rapids_tpu_torch.ops.stringops import string_select
+            return string_select(
+                [cond, _full_validity(None, ctx)],
+                [self.children[1].emit(ctx), self.children[2].emit(ctx)],
+                ctx.capacity, ctx.device)
+        a = cast_value(self.children[1].emit(ctx), t)
+        b = cast_value(self.children[2].emit(ctx), t)
+        values = torch.where(cond, a.values, b.values)
+        if a.validity is None and b.validity is None:
+            return ColVal(t, values)
+        true = torch.ones((), dtype=torch.bool, device=ctx.device)
+        av = a.validity if a.validity is not None else true
+        bv = b.validity if b.validity is not None else true
+        return ColVal(t, values, torch.where(cond, av, bv))
+
+
+class CaseWhen(Expression):
+    """CASE WHEN p1 THEN v1 ... [ELSE e] END: a chain of Ifs, or one
+    ``string_select`` over every branch for a string result."""
+
+    def __init__(self, branches: Sequence[tuple],
+                 else_value: Optional[Expression] = None):
+        self.branches = [(p, v) for p, v in branches]
+        self.else_value = else_value
+        flat = [e for pv in self.branches for e in pv]
+        if else_value is not None:
+            flat.append(else_value)
+        self.children = tuple(flat)
+
+    def with_children(self, children):
+        n = len(self.branches)
+        branches = [(children[2 * i], children[2 * i + 1])
+                    for i in range(n)]
+        els = children[2 * n] if self.else_value is not None else None
+        return CaseWhen(branches, els)
+
+    def _else(self) -> Expression:
+        if self.else_value is not None:
+            return self.else_value
+        return Literal(None, self.branches[0][1].dtype)
+
+    def _as_if_chain(self) -> Expression:
+        out = self._else()
+        for pred, val in reversed(self.branches):
+            out = If(pred, val, out)
+        return out
+
+    @property
+    def dtype(self) -> DataType:
+        return self._as_if_chain().dtype
+
+    @property
+    def nullable(self):
+        return self.else_value is None or self._as_if_chain().nullable
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        if not self.dtype.is_string:
+            return self._as_if_chain().emit(ctx)
+        from spark_rapids_tpu_torch.ops.stringops import string_select
+        masks = [_cond_mask(p.emit(ctx), ctx) for p, _ in self.branches]
+        vals = [v.emit(ctx) for _, v in self.branches]
+        els = self._else().emit(ctx)
+        masks.append(_full_validity(None, ctx))
+        return string_select(masks, vals + [els], ctx.capacity, ctx.device)
+
+    def cache_key(self):
+        return ("CaseWhen", tuple(c.cache_key() for c in self.children),
+                self.else_value is not None)
+
+
+def _null_rule(v: ColVal, hit, has_null_option, ctx: EmitContext) -> ColVal:
+    """IN's result: a match is true; no match with a null option is
+    null; else false.  A null value is null."""
+    if hit.dim() == 0:
+        hit = hit.expand(ctx.capacity)
+    validity = torch.logical_or(hit, torch.logical_not(has_null_option))
+    if v.validity is not None:
+        validity = torch.logical_and(v.validity, validity)
+    return ColVal(dts.BOOL, hit, validity)
+
+
+class In(Expression):
+    """value IN (literals...), one equality per option."""
+
+    def __init__(self, value: Expression, options: Sequence[Expression]):
+        self.children = (value,) + tuple(options)
+
+    def with_children(self, children):
+        return In(children[0], children[1:])
+
+    @property
+    def dtype(self):
+        return dts.BOOL
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        v = self.children[0].emit(ctx)
+        is_string = self.children[0].dtype.is_string
+        hit = torch.zeros((), dtype=torch.bool, device=ctx.device)
+        has_null = torch.zeros((), dtype=torch.bool, device=ctx.device)
+        for opt in self.children[1:]:
+            o = opt.emit(ctx)
+            if isinstance(opt, Literal) and opt.value is None:
+                has_null = torch.ones((), dtype=torch.bool,
+                                      device=ctx.device)
+                continue
+            if is_string:
+                from spark_rapids_tpu_torch.ops import stringops
+                eq = stringops.string_equal(v, o, ctx)
+            else:
+                eq = v.values == o.values.to(v.values.dtype)
+            if o.validity is not None:
+                eq = torch.logical_and(eq, o.validity)
+                has_null = torch.logical_or(
+                    has_null, torch.logical_not(o.validity))
+            hit = torch.logical_or(hit, eq)
+        return _null_rule(v, hit, has_null, ctx)
+
+
+class InSet(Expression):
+    """value IN (a large literal set): the distinct values sit in a
+    sorted device table and membership is one ``searchsorted`` and one
+    gather per row (string sets compare each literal's bytes)."""
+
+    def __init__(self, child: Expression, values):
+        self.children = (child,)
+        values = list(values)
+        vals = [v for v in values if v is not None]
+        self.has_null = len(vals) != len(values)
+        self.table = np.unique(np.asarray(vals)) if vals else \
+            np.zeros(0, dtype=np.int64)
+
+    def with_children(self, children):
+        vals = list(self.table.tolist())
+        if self.has_null:
+            vals.append(None)
+        return InSet(children[0], vals)
+
+    @property
+    def dtype(self):
+        return dts.BOOL
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        v = self.children[0].emit(ctx)
+        dt = self.children[0].dtype
+        if len(self.table) == 0:
+            hit = torch.zeros(ctx.capacity, dtype=torch.bool,
+                              device=ctx.device)
+        elif dt.is_string:
+            from spark_rapids_tpu_torch.ops import stringops
+            hit = torch.zeros(ctx.capacity, dtype=torch.bool,
+                              device=ctx.device)
+            for s in self.table.tolist():
+                hit = hit | stringops.EqualsLiteral(
+                    self.children[0], str(s)).emit(ctx).values
+        else:
+            table = torch.from_numpy(np.ascontiguousarray(
+                self.table.astype(dt.storage))).to(ctx.device)
+            vals = v.values.expand(ctx.capacity) if v.values.dim() == 0 \
+                else v.values
+            idx = torch.searchsorted(table, vals).clamp(
+                0, len(self.table) - 1)
+            hit = table[idx] == vals
+        has_null = torch.tensor(self.has_null, device=ctx.device)
+        return _null_rule(v, hit, has_null, ctx)
+
+    def cache_key(self):
+        return ("InSet", self.children[0].cache_key(), self.has_null,
+                self.table.tobytes())
+
+    def __str__(self):
+        return f"{self.children[0]} INSET[{len(self.table)}]"

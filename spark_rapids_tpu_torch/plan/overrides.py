@@ -7,7 +7,8 @@ TopN`` rewrite and the fusion pass the JAX planner applies: a
 Project/Filter chain under an Aggregate folds into the aggregate (its
 predicates become the row mask), and any other chain of two or more
 members collapses into one FusedStageExec.  There is no CPU fallback: a
-node this port cannot run raises.
+node or expression this port cannot run raises ``NotImplementedError``
+with its name, before anything runs (``check_ported``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from spark_rapids_tpu_torch.exec.join import TpuHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
 from spark_rapids_tpu_torch.exec.fusion import (
     FusedStageExec, compose_chain, fusion_metrics)
+from spark_rapids_tpu_torch.ops.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.ops.expressions import (
     Alias, BoundReference, Expression, substitute_bound)
+from spark_rapids_tpu_torch.ops.stringops import Like
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
 
@@ -92,6 +95,40 @@ def _plan_aggregate(group_exprs, agg_out_exprs, child_exec, device,
     return TpuProjectExec(proj, agg_exec)
 
 
+def _node_expressions(node: L.LogicalPlan) -> List[Expression]:
+    if isinstance(node, L.Project):
+        return list(node.exprs)
+    if isinstance(node, L.Filter):
+        return [node.condition]
+    if isinstance(node, L.Aggregate):
+        return list(node.group_exprs) + list(node.agg_exprs)
+    if isinstance(node, L.Join):
+        return list(node.left_keys) + list(node.right_keys)
+    if isinstance(node, L.Sort):
+        return [e for e, _, _ in node.orders]
+    return []
+
+
+def check_ported(plan: L.LogicalPlan) -> None:
+    """Raise ``NotImplementedError`` naming the first expression of the
+    plan that the port does not run: a cast to or from a string, a LIKE
+    pattern with ``_``."""
+    def walk(e: Expression):
+        if isinstance(e, Cast):
+            reason = cast_supported(e.child.dtype, e.target)
+            if reason is not None:
+                raise NotImplementedError(reason)
+        if isinstance(e, Like) and e._plan is None:
+            raise NotImplementedError(
+                f"LIKE pattern {e.pattern!r}: '_' is not ported")
+        for c in e.children:
+            walk(c)
+    for e in _node_expressions(plan):
+        walk(e)
+    for child in plan.children:
+        check_ported(child)
+
+
 class TpuOverrides:
     """Logical plan -> TpuExec tree on one device."""
 
@@ -105,6 +142,7 @@ class TpuOverrides:
         self._chain_nodes: set = set()
 
     def apply(self, plan: L.LogicalPlan):
+        check_ported(plan)
         self._chain_nodes = set()
         return self._convert(plan)
 

@@ -446,3 +446,85 @@ def test_check_masking_follows_filter_order(fusion):
     assert guarded.select(TF.col("v")).collect() == [(2.0,)]
     with pytest.raises(ArithmeticError, match="division by zero"):
         df.filter(recip > 0.3).agg(TF.sum("v").alias("s")).collect()
+
+
+# ----------------------------------------------- BOOLEAN and string min/max --
+
+BOOLS = {"a": [True, False, None, False, None],
+         "g": [1, 1, 2, None, 3]}
+
+
+def _bool_minmax(grouped):
+    def build(F, df):
+        aggs = [F.max("a").alias("mx"), F.min("a").alias("mn"),
+                F.count("a").alias("n")]
+        if grouped:
+            return df.groupBy("g").agg(*aggs).orderBy("g")
+        return df.agg(*aggs)
+    return build
+
+
+BOOL_CONFS = {
+    "default": {},
+    "hash": HASH_ON,
+    "unfused_batches_of_2": {"spark.rapids.tpu.fusion.enabled": False,
+                             "spark.rapids.sql.tpu.maxBatchRows": 2},
+    "shards_8": {"spark.rapids.sql.distributed.numShards": 8},
+}
+
+
+@pytest.mark.parametrize("conf", list(BOOL_CONFS))
+@pytest.mark.parametrize("grouped", [False, True])
+def test_boolean_min_max_match_jax(grouped, conf):
+    """max True and min False over [True, False, None, False, None];
+    grouped, the group whose rows are all null stays null, and so does
+    the null group's."""
+    build = _bool_minmax(grouped)
+    want = _jax({}, build, BOOLS)
+    s = TpuSession(BOOL_CONFS[conf], device="cpu")
+    got = build(TF, s.create_dataframe(BOOLS)).to_pandas()
+    if conf == "shards_8":
+        assert s.last_dist_explain == "distributed"
+    pd.testing.assert_frame_equal(got, want)
+    if not grouped:
+        assert got.iloc[0].tolist() == [True, False, 3]
+
+
+@pytest.mark.parametrize("conf", ["default", "hash", "small_batches"])
+def test_string_min_max_matches_jax(conf):
+    """min "a" and max "c" over ["b", "a", "c"] (with a null), keyless
+    and grouped."""
+    data = {"s": ["b", None, "a", "c", "ab"], "g": [1, 2, 1, 1, 2]}
+
+    def build(F, df):
+        return df.agg(F.min("s").alias("mn"), F.max("s").alias("mx"))
+
+    def grouped(F, df):
+        return df.groupBy("g").agg(F.min("s").alias("mn"),
+                                   F.max("s").alias("mx")).orderBy("g")
+    conf = {**PORT_CONFS, "hash": HASH_ON}[conf]
+    for b in (build, grouped):
+        got = _port(conf, b, data)
+        pd.testing.assert_frame_equal(got, _jax({}, b, data))
+    assert _port(conf, build, data).iloc[0].tolist() == ["a", "c"]
+
+
+@pytest.mark.parametrize("n,size,k", [(1, 3, 1), (5, 3, 2), (256, 4, 1),
+                                      (257, 4, 2), (70_000, 7, 2),
+                                      (70_000, 60_000, 1),
+                                      (300_000, 5, 3)])
+def test_fixed_order_sums_match_index_add(n, size, k):
+    """The fixed-order float sums equal ``index_add_``'s (another order:
+    rtol 1e-12), with the same bits on a second run; runs crossing many
+    256-row scan blocks included."""
+    from spark_rapids_tpu_torch.ops.aggregates import fixed_order_sums
+    rng = np.random.default_rng(n + size)
+    idx = torch.from_numpy(rng.integers(0, size, n))
+    v = torch.from_numpy(rng.normal(size=(n, k)) * 1e3)
+    if k == 1:
+        v = v[:, 0]
+    got = fixed_order_sums(idx, v, size)
+    want = torch.zeros_like(got).index_add_(0, idx, v)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                               atol=1e-9)
+    assert torch.equal(got, fixed_order_sums(idx, v, size))

@@ -18,7 +18,6 @@ from spark_rapids_tpu.api.session import TpuSession as JaxSession
 from spark_rapids_tpu.models import tpch as jax_tpch
 from spark_rapids_tpu_torch.api import functions as TF
 from spark_rapids_tpu_torch.api.session import TpuSession
-from spark_rapids_tpu_torch.interop import batch_from_arrays
 from spark_rapids_tpu_torch.models import tpch
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,24 +79,32 @@ def test_gen_tables_equals_jax():
         pd.testing.assert_frame_equal(got[name], want[name])
 
 
+def _host_strings(offsets, chars):
+    return [bytes(chars[offsets[i]:offsets[i + 1]]).decode()
+            for i in range(len(offsets) - 1)]
+
+
 @pytest.mark.parametrize("sf", [SF, 0.01])
 def test_gen_q3_columns_equal_gen_tables(sf, tables):
+    """``gen_table_columns`` (which replaced the q3-only generator) gives
+    every table and column of ``gen_tables``, value for value and in
+    order, with the same types."""
     full = tables if sf == SF else jax_tpch.gen_tables(sf=sf)
-    cols = tpch.gen_q3_columns(sf)
+    cols = tpch.gen_table_columns(sf)
+    assert list(cols) == list(full)
     for table, columns in cols.items():
+        assert list(columns) == list(full[table].columns)
         for name, (type_name, values, validity) in columns.items():
             assert validity is None
             want = full[table][name]
             if type_name == "string":
-                offsets, chars = values
-                got = [bytes(chars[offsets[i]:offsets[i + 1]]).decode()
-                       for i in range(len(offsets) - 1)]
-                assert got == list(want)
+                assert _host_strings(*values) == list(want), (table, name)
             elif type_name == "date":
                 np.testing.assert_array_equal(
                     values, want.to_numpy().astype("datetime64[D]")
                     .astype(np.int64))
             else:
+                assert values.dtype == want.to_numpy().dtype, (table, name)
                 np.testing.assert_array_equal(values, want.to_numpy())
 
 
@@ -117,21 +124,21 @@ def test_q6_matches_jax(conf, tables):
 
 
 def test_q3_over_date_columns_matches_pandas():
-    """q3 over ``gen_q3_columns`` (DATE32 columns and a string column
+    """q3 over ``gen_table_columns`` (DATE32 columns and string columns
     from raw buffers, as the chip check loads them) equals a pandas
     oracle on the same arrays: order exact, revenue to rtol."""
-    cols = tpch.gen_q3_columns(0.01)
+    cols = tpch.gen_table_columns(0.01)
     s = TpuSession({"spark.rapids.tpu.pallas.hash.enabled": True,
                     "spark.rapids.tpu.pallas.hash.tableSlots": 1 << 14},
                    device="cpu")
-    t = {name: s.create_dataframe(batch_from_arrays(c, device="cpu"))
-         for name, c in cols.items()}
+    t = tpch.load_columns(s, cols)
     got = tpch.q3(t).to_pandas()
     host = {name: {k: v for k, (_, v, _) in c.items()}
             for name, c in cols.items()}
-    offsets, chars = host["customer"]["c_mktsegment"]
-    seg = np.array([bytes(chars[offsets[i]:offsets[i + 1]]).decode()
-                    for i in range(len(offsets) - 1)])
+    seg = np.array(_host_strings(*host["customer"]["c_mktsegment"]))
+    for name in ("orders", "lineitem"):
+        host[name] = {k: v for k, v in host[name].items()
+                      if cols[name][k][0] != "string"}
     cutoff = (np.datetime64("1995-03-15") - np.datetime64("1970-01-01")) \
         .astype(np.int64)
     c = pd.DataFrame({"o_custkey": host["customer"]["c_custkey"][
