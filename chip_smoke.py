@@ -36,6 +36,20 @@ just before it and read just after:
   counts, strings and order exactly, floats within 1e-9 relative), q1
   equals a numpy oracle, and all 22 at SF0.1 on the card equal the
   engine on the CPU;
+- the same 22 queries as SQL text (``models/tpch_sql.py``) through
+  ``session.sql`` over the same tables, hash on, each once after its
+  DataFrame form: launches, host syncs and rows/s per query, and each
+  answer equal to the DataFrame form's; an unported SQL function, a
+  residual on a left join and a RANGE frame with offsets each raise
+  ``NotImplementedError`` naming it;
+- the 29 TPC-DS queries (``models/tpcds.py``) through ``session.sql`` at
+  scale factor 50 (store_sales 3.0e7 rows), after the TPC-H tables left
+  the card: per query one warm run, then the median of 2 timed runs
+  (rows/s over the input rows of the tables it reads), launches, hash
+  overflow fallbacks and host syncs; the timed runs equal the warm run
+  bit for bit, the answer equals a hash-off run's, and all 29 at SF1 on
+  the card equal the engine on the CPU (computed meanwhile in a spawned
+  process of its own);
 - the fact-dim hash join (2^26 fact rows against 2^19 dim rows, then a
   group-by on the key), hash path on (``hash_insert`` + ``hash_probe`` in
   every probe batch) and off;
@@ -53,7 +67,7 @@ Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
-in total and by shape), and last
+in total, by phase for the three query suites, and by shape), and last
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -80,6 +94,11 @@ HASH_SLOTS = 1 << 21
 MMR_CHECK_ROWS = 1 << 26
 TPCH_SF = 10            # TPC-H scale of q3's phase and the 22 queries
 TPCH_CHECK_SF = 0.1     # the card against the engine on the CPU
+# store_sales 3.0e7 rows: SF100 (lineitem's SF10 rows) took 409 s of the
+# 400 s the phase may take on a slower host
+TPCDS_SF = 50
+TPCDS_CHECK_SF = 1      # the card against the engine on the CPU
+CPU_CHECK_THREADS = 4   # the CPU answers' process, beside the card's phase
 FACT_ROWS = 1 << 26
 DIM_ROWS = 1 << 19
 BATCH_ROWS = 1 << 22
@@ -806,6 +825,212 @@ def run_tpch22(torch, K, fm, tpch, cols, batches, card_line, total, reps=3):
         s.stop()
     print("tpch22 rows/s on " + card_line + ": " + json.dumps(
         {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+    return answers
+
+
+def sql_tables(text):
+    """Names of the tables a SQL statement reads (its CTEs substituted)."""
+    from spark_rapids_tpu_torch.sql import parser as A
+    found = set()
+
+    def walk(node):
+        if isinstance(node, A.TableRef):
+            found.add(node.name.lower())
+        if isinstance(node, list):
+            for x in node:
+                walk(x)
+        elif hasattr(node, "__dataclass_fields__"):
+            for f in node.__dataclass_fields__:
+                walk(getattr(node, f))
+    walk(A.parse(text))
+    return found
+
+
+def sql_launch_line(label, got, launches, fus, tables):
+    print(f"{label}: {len(got)} rows; launches "
+          + ", ".join(f"{k} {launches[k]}" for k in launches
+                      if k != "by_shape")
+          + f"; hashKernelLaunches {fus['hashKernelLaunches']}, "
+          f"hashOverflowFallbacks {fus['hashOverflowFallbacks']}, "
+          f"host syncs {fus['host_syncs']}; tables {sorted(tables)}",
+          flush=True)
+
+
+def run_tpch_sql(torch, K, fm, tpch_sql, batches, df_answers, card_line,
+                 total):
+    """The 22 queries as SQL text through ``session.sql`` over the same
+    device tables, hash on, each once after its DataFrame form ran: its
+    launches, host syncs and rows/s, and its answer equal to the
+    DataFrame form's (keys, counts, strings and order exactly, floats
+    within ``QUERY_RTOL``)."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    s = TpuSession(tpch_conf(True))
+    tpch_sql.register(s, {k: s.create_dataframe(b)
+                          for k, b in batches.items()})
+    rates, mmr = {}, {}
+    for name, text in tpch_sql.QUERIES.items():
+        read = sql_tables(text)
+        rows = sum(batches[k].nrows for k in read)
+        got, launches, fus, rates[name] = drive(
+            torch, K, fm, lambda text=text: s.sql(text), rows, card_line,
+            f"tpch_sql {name}", reps=0, extra={"host_syncs":
+                                               host_sync_metrics})
+        total.add(launches)
+        mmr[name] = launches["masked_multi_reduce"]
+        sql_launch_line(f"tpch_sql {name}", got, launches, fus, read)
+        want = tpch_sql.dataframe_form(name, df_answers[name])
+        ok, why = frames_match(got.reset_index(drop=True),
+                               want.reset_index(drop=True), QUERY_RTOL)
+        check(ok, f"tpch_sql {name}: the SQL answer equals the DataFrame "
+              f"form's (floats within rel {QUERY_RTOL}) {why}")
+    check_unported_raise(s)
+    s.stop()
+    print("tpch_sql rows/s on " + card_line + ": " + json.dumps(
+        {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+    print("tpch_sql masked_multi_reduce launches: " + json.dumps(mmr),
+          flush=True)
+
+
+def check_unported_raise(s):
+    """On the card as on the CPU, what the port does not run raises
+    ``NotImplementedError`` naming it: an SQL function, a residual
+    condition on a join that is not inner, a window frame."""
+    from spark_rapids_tpu_torch.api import functions as F
+    nation, region = s.table("nation"), s.table("region")
+    cases = {
+        "upper": lambda: s.sql("SELECT upper(n_name) FROM nation"),
+        "left join": lambda: nation.join(
+            region, on=(F.col("n_regionkey") == F.col("r_regionkey"))
+            & (F.col("n_nationkey") > F.col("r_regionkey")), how="left"),
+        "range frames": lambda: nation.select(F.window_sum(
+            "n_nationkey").over(F.Window.partitionBy("n_regionkey")
+                                .orderBy("n_nationkey")
+                                .rangeBetween(-2, 2)).alias("w")),
+    }
+    for what, build in cases.items():
+        try:
+            build().collect()
+            raised = ""
+        except NotImplementedError as exc:
+            raised = str(exc)
+        check(what in raised, f"unported {what!r} raises "
+              f"NotImplementedError on the card: {raised!r}")
+
+
+def tpcds_device_tables(data, device):
+    """Every TPC-DS table (pandas, from ``tpcds.gen_tables``) as one
+    batch on ``device``, through arrow as ``create_dataframe`` takes it."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    return {name: ColumnarBatch.from_pandas(df, device=device)
+            for name, df in data.items()}
+
+
+def tpcds_session(conf, batches):
+    """A session with every TPC-DS table registered as a view over the
+    shared device batches."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    s = TpuSession(conf, device=next(iter(batches.values())).device)
+    for name, b in batches.items():
+        s.create_dataframe(b).createOrReplaceTempView(name)
+    return s
+
+
+def run_tpcds(torch, K, fm, tpcds, batches, card_line, total, reps=2):
+    """The 29 TPC-DS queries through ``session.sql`` on the card, hash on:
+    launches, hash overflow fallbacks and host syncs of the warm run (the
+    main path's), rows/s over the median of ``reps`` timed runs, each of
+    which must equal the warm run bit for bit (check a), and the answer
+    equal to a hash-off run's (check b)."""
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    on = tpcds_session(tpch_conf(True), batches)
+    off = tpcds_session(tpch_conf(False), batches)
+    rates, walls = {}, {}
+    for name, text in tpcds.QUERIES.items():
+        read = sql_tables(text)
+        rows = sum(batches[k].nrows for k in read)
+        t0 = time.perf_counter()
+        got, launches, fus, rates[name] = drive(
+            torch, K, fm, lambda text=text: on.sql(text), rows, card_line,
+            f"tpcds {name}", reps=reps, same_bits=True,
+            extra={"host_syncs": host_sync_metrics})
+        walls[name] = rows / rates[name]
+        total.add(launches)
+        sql_launch_line(f"tpcds {name}", got, launches, fus, read)
+        hash_off = off.sql(text).to_pandas()
+        ok, why = frames_match(got, hash_off, QUERY_RTOL)
+        check(ok, f"tpcds {name}: hash on equals hash off (floats within "
+              f"rel {QUERY_RTOL}) {why}")
+        print(f"tpcds {name}: phase time {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    on.stop()
+    off.stop()
+    print("tpcds rows/s on " + card_line + ": " + json.dumps(
+        {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+    print("tpcds median wall s: " + json.dumps(
+        {k: float(f"{v:.6f}") for k, v in walls.items()}), flush=True)
+
+
+def tpcds_cpu_answers(sf, conn):
+    """In a process of its own: the 29 TPC-DS answers of the engine on the
+    CPU at scale ``sf``, sent down ``conn`` (check c's reference), so that
+    they are computed while the card runs the tpcds phase."""
+    import torch
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from spark_rapids_tpu_torch.models import tpcds
+    try:
+        s = tpcds_session(tpch_conf(True), tpcds_device_tables(
+            tpcds.gen_tables(sf=sf), "cpu"))
+        conn.send({name: s.sql(text).to_pandas()
+                   for name, text in tpcds.QUERIES.items()})
+    except BaseException as exc:
+        conn.send(exc)
+        raise
+    finally:
+        conn.close()
+
+
+def start_tpcds_cpu(sf):
+    """(process, connection) computing :func:`tpcds_cpu_answers`."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe(duplex=False)
+    # daemonic: a failed check ends the script, and the process with it
+    proc = ctx.Process(target=tpcds_cpu_answers, args=(sf, child),
+                       daemon=True)
+    proc.start()
+    child.close()
+    return proc, parent
+
+
+def check_tpcds_cpu(torch, tpcds, sf, proc, conn):
+    """All 29 queries at scale ``sf`` on the card equal the engine on the
+    CPU over the same generated tables (check c); the CPU's answers come
+    from the process :func:`start_tpcds_cpu` started."""
+    t0 = time.perf_counter()
+    card = tpcds_session(tpch_conf(True), tpcds_device_tables(
+        tpcds.gen_tables(sf=sf), DEVICE))
+    got = {name: card.sql(text).to_pandas()
+           for name, text in tpcds.QUERIES.items()}
+    card.stop()
+    try:
+        want = conn.recv()
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+    if isinstance(want, BaseException):
+        raise want
+    check(proc.exitcode == 0, f"tpcds SF{sf}: the CPU process exited "
+          f"{proc.exitcode}")
+    for name in tpcds.QUERIES:
+        ok, why = frames_match(got[name], want[name], QUERY_RTOL)
+        check(ok, f"tpcds SF{sf} {name}: the card equals the CPU (floats "
+              f"within rel {QUERY_RTOL}) {why}")
+    print(f"tpcds SF{sf}: 29 queries on the card, then waited for the "
+          f"CPU's answers, in {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def check_tpch22_cpu(torch, tpch, sf):
@@ -1162,18 +1387,23 @@ def make_hash_agg(F, df):
 def drive(torch, K, fm, query, rows, card_line, label, reps=3,
           extra=None, same_bits=False):
     """Reset the launch counts, run the query once through the engine
-    (its counts are the main path's), then time ``reps`` more runs.
-    ``extra``: more metric objects (reset, snapshot) read like ``fm``;
-    ``fm`` then returns their snapshots in a dict beside its own.
+    (its counts are the main path's), then time ``reps`` more runs (with
+    ``reps=0`` the rate is the one run's).  ``query`` is a DataFrame, or a
+    function that builds one (a SQL statement, whose scalar subqueries
+    run while it is built: they count, and each timed run builds it
+    anew).  ``extra``: more metric objects (reset, snapshot) read like
+    ``fm``; ``fm`` then returns their snapshots in a dict beside its own.
     ``same_bits``: check that every timed run's answer equals the first
     run's bit for bit (float sums included)."""
+    def run():
+        return (query() if callable(query) else query).to_pandas()
     K.launches.reset()
     fm.reset()
     for m in (extra or {}).values():
         m.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = query.to_pandas()
+    result = run()
     first_s = time.perf_counter() - t0
     launches = dict(K.launches.snapshot(),
                     by_shape=K.launches.shape_snapshot())
@@ -1183,14 +1413,15 @@ def drive(torch, K, fm, query, rows, card_line, label, reps=3,
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        again = query.to_pandas()
+        again = run()
         walls.append(time.perf_counter() - t0)
         if same_bits:
             check(again.equals(result),
                   f"{label}: a repeated run's answer equals the first "
                   "bit for bit")
-    wall = float(np.median(walls))
-    print(f"rows/s {label}: {rows / wall:.6e} (median of {reps} runs, "
+    wall = float(np.median(walls)) if walls else first_s
+    runs = f"median of {reps} runs" if reps else "one run"
+    print(f"rows/s {label}: {rows / wall:.6e} ({runs}, "
           f"{wall * 1e3:.3f} ms; first run {first_s * 1e3:.3f} ms; "
           f"{rows} rows) on {card_line}", flush=True)
     return result, launches, fusion, rows / wall
@@ -1545,14 +1776,60 @@ def main() -> int:
     # all 22 TPC-H queries at SF10 (hash on, against hash off and numpy),
     # then at SF0.1 against the engine on the CPU
     tpch_launches = PathLaunches(K.launches.NAMES)
-    run_tpch22(torch, K, fm, tpch, tpch_cols, tpch_batches, card_line,
-               tpch_launches)
+    df_answers = run_tpch22(torch, K, fm, tpch, tpch_cols, tpch_batches,
+                            card_line, tpch_launches)
     for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
         check(tpch_launches.counts[k] >= 1,
               f"tpch22 launched {k} {tpch_launches.counts[k]}x")
     total.extend(tpch_launches)
-    del tpch_cols, tpch_batches
+
+    # the same 22 queries as SQL text through session.sql, each once
+    from spark_rapids_tpu_torch.models import tpch_sql
+    sql_launches = PathLaunches(K.launches.NAMES)
+    t0 = time.perf_counter()
+    run_tpch_sql(torch, K, fm, tpch_sql, tpch_batches, df_answers,
+                 card_line, sql_launches)
+    print(f"tpch_sql phase {time.perf_counter() - t0:.3f} s; launches "
+          f"{sql_launches.counts}", flush=True)
+    for k in ("hash_insert", "hash_probe"):
+        check(sql_launches.counts[k] >= 1,
+              f"tpch_sql launched {k} {sql_launches.counts[k]}x")
+    total.extend(sql_launches)
+    del tpch_cols, tpch_batches, df_answers
     check_tpch22_cpu(torch, tpch, TPCH_CHECK_SF)
+
+    # TPC-DS at SF50 (half the rows of SF10's lineitem in the fact
+    # table): the 29 queries through session.sql, hash on, against hash
+    # off; then all 29 at SF1 against the engine on the CPU, whose answers
+    # a process of their own computes meanwhile
+    from spark_rapids_tpu_torch.models import tpcds
+    cpu_proc, cpu_conn = start_tpcds_cpu(TPCDS_CHECK_SF)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ds_data = tpcds.gen_tables(sf=TPCDS_SF)
+    print(f"TPC-DS SF{TPCDS_SF}: {len(ds_data)} tables generated in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    ds_batches = tpcds_device_tables(ds_data, device)
+    del ds_data
+    torch.cuda.synchronize()
+    print(f"TPC-DS SF{TPCDS_SF}: on the card in "
+          f"{time.perf_counter() - t0:.3f} s, {table_bytes(ds_batches)} "
+          "bytes; rows " + ", ".join(
+              f"{k} {b.nrows}" for k, b in ds_batches.items()), flush=True)
+    ds_launches = PathLaunches(K.launches.NAMES)
+    run_tpcds(torch, K, fm, tpcds, ds_batches, card_line, ds_launches)
+    for k in ("hash_insert", "hash_probe"):
+        check(ds_launches.counts[k] >= 1,
+              f"tpcds launched {k} {ds_launches.counts[k]}x")
+    total.extend(ds_launches)
+    del ds_batches
+    print(f"tpcds phase (SF{TPCDS_SF}) {time.perf_counter() - t_phase:.3f}"
+          f" s; launches {ds_launches.counts}", flush=True)
+    check_tpcds_cpu(torch, tpcds, TPCDS_CHECK_SF, cpu_proc, cpu_conn)
+    phase_launches = {"tpch22": tpch_launches.counts,
+                      "tpch_sql": sql_launches.counts,
+                      "tpcds": ds_launches.counts}
 
     # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
     fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)
@@ -1675,6 +1952,8 @@ def main() -> int:
              "replaces": f"spark_rapids_tpu/ops/pallas_kernels.py:{replaces}",
              "launches": total.counts[name], "max_abs_err": float(err),
              **first,
+             "launches_by_phase": {p: c[name]
+                                   for p, c in phase_launches.items()},
              "launches_by_shape": total.shapes[name]}
         if len(times) > 1:
             e["other_shapes"] = times[1:]

@@ -3,20 +3,26 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 profile_port.py
+    python3 profile_port.py [tpch] [join] [q6] [tpcds]
 
-It builds the same inputs as ``chip_smoke.py`` (the TPC-H tables at SF10
-and the fact-dim join at 2^26 x 2^19), warms each query once, then traces
+(no argument runs every section).  It builds the same inputs as
+``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
+2^19 and the TPC-DS tables at the tpcds phase's scale), warms each
+query once, then traces
 one run per query with ``torch.profiler`` (q3 with the hash path on and
 off, TPC-H q1 (a string-keyed group-by) and q9 (a five-way join) with it
 on, the fact-dim join hash on and off and once more over 8 logical shards
 as a shuffle join), and TPC-H q6
 and the q1 shape over 2^26 rows (``bench.py``'s ``gen_host`` columns) on
-one device and over 8 logical shards, and prints, per run: the host wall
+one device and over 8 logical shards, and TPC-DS q67 (rollup over eight
+keys, four of them strings, then a window) and q47 (a windowed average
+and ``lag``/``lead`` over two specs) through ``session.sql`` with the
+hash path on, and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
 host syncs, the host time of the string dictionary (fetching string
-columns, encoding and decoding) and its share of the wall, the device ops
+columns, encoding and decoding on the host; apart from that, its
+card-side calls) and its share of the wall, the device ops
 that took the most device time, and the device
 time of each hand-written kernel and of all memsets (the hash insert
 clears its table with one; PyTorch issues others), with its share of the
@@ -55,13 +61,17 @@ def busy_ms(events) -> float:
 
 class DictTime:
     """Host time of the string dictionary (``ops/dictionary.py``): its
-    fetches of string columns and its encoders and decoder, timed by
-    wrapping the module's functions (the engine calls them through the
-    module)."""
+    fetches of string columns and its host encoders and decoder, and
+    apart from those the calls of its card-side encoder, decoder and sort
+    keys (their host wall, waits for the card at their counted fetches
+    included), timed by wrapping the module's functions and the
+    dictionary's methods (the engine calls them through those)."""
 
     FETCH = ("host_strings",)
     ENCODE = ("dict_encode_stable", "ordered_dict_encode", "rank_encode",
               "decode")
+    CARD = ("string_sort_keys",)
+    CARD_METHODS = ("_encode_device", "_decode_device")
 
     def __init__(self):
         self.reset()
@@ -69,10 +79,12 @@ class DictTime:
 
     def reset(self):
         self.calls, self.fetch_ms, self.encode_ms = 0, 0.0, 0.0
+        self.card_calls, self.card_ms = 0, 0.0
 
     def snapshot(self):
         return {"calls": self.calls, "fetch_ms": self.fetch_ms,
-                "encode_ms": self.encode_ms}
+                "encode_ms": self.encode_ms, "card_calls": self.card_calls,
+                "card_ms": self.card_ms}
 
     def wrap(self):
         if self._wrapped:
@@ -82,16 +94,23 @@ class DictTime:
             setattr(dictionary, name,
                     self._timed(getattr(dictionary, name),
                                 "fetch_ms" if name in self.FETCH
-                                else "encode_ms"))
+                                else "encode_ms", "calls"))
+        for name in self.CARD:
+            setattr(dictionary, name, self._timed(
+                getattr(dictionary, name), "card_ms", "card_calls"))
+        for name in self.CARD_METHODS:
+            setattr(dictionary.StableDictionary, name, self._timed(
+                getattr(dictionary.StableDictionary, name), "card_ms",
+                "card_calls"))
         self._wrapped = True
 
-    def _timed(self, fn, field):
+    def _timed(self, fn, field, count):
         def run(*args, **kwargs):
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
-                self.calls += 1
+                setattr(self, count, getattr(self, count) + 1)
                 setattr(self, field, getattr(self, field)
                         + (time.perf_counter() - t0) * 1e3)
         return run
@@ -101,16 +120,22 @@ dict_time = DictTime()
 
 
 def profile(torch, query, label, card_line):
+    """``query``: a DataFrame, or a function that builds one (a SQL
+    statement, built anew in the traced run: its scalar subqueries run
+    there)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
-    query.to_pandas()  # warm
+
+    def run():
+        return (query() if callable(query) else query).to_pandas()
+    run()  # warm
     torch.cuda.synchronize()
     host_sync_metrics.reset()
     dict_time.reset()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        query.to_pandas()
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     syncs = host_sync_metrics.snapshot()
@@ -126,6 +151,11 @@ def profile(torch, query, label, card_line):
               f"{encode['fetch_ms']:.3f} ms (waits for the card included), "
               f"encode and decode {encode['encode_ms']:.3f} ms; "
               f"{(encode['fetch_ms'] + encode['encode_ms']) / wall:.4f} of "
+              "the wall", flush=True)
+    if encode["card_calls"]:
+        print(f"  string dictionary on the card: {encode['card_calls']} "
+              f"calls, {encode['card_ms']:.3f} ms of host wall (its waits "
+              f"for the card included); {encode['card_ms'] / wall:.4f} of "
               "the wall", flush=True)
     by_name = {}
     for e in device:
@@ -165,6 +195,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card_line, flush=True)
+    sections = set(sys.argv[1:]) or {"tpch", "join", "q6", "tpcds"}
 
     def session(enabled):
         return TpuSession({
@@ -172,6 +203,19 @@ def main() -> int:
             "spark.rapids.tpu.pallas.hash.enabled": enabled,
             "spark.rapids.tpu.pallas.hash.tableSlots": str(cs.HASH_SLOTS)})
 
+    if "tpch" in sections:
+        profile_tpch(torch, tpch, session, card_line)
+    if "join" in sections and profile_joins(torch, F, TpuSession, session,
+                                            card_line):
+        return 1
+    if "q6" in sections:
+        profile_q6(torch, F, TpuSession, card_line)
+    if "tpcds" in sections:
+        profile_tpcds(torch, session, card_line)
+    return 0
+
+
+def profile_tpch(torch, tpch, session, card_line):
     batches = cs.device_tables(tpch.gen_table_columns(cs.TPCH_SF),
                                torch.device(cs.DEVICE))
     for enabled in (False, True):
@@ -186,6 +230,11 @@ def main() -> int:
         s.stop()
         del t
     del batches
+
+
+def profile_joins(torch, F, TpuSession, session, card_line) -> bool:
+    """The fact-dim join hash off and on, and as a shuffle join over 8
+    shards; True when the sharded run fell back."""
     fact, dim = cs.gen_fact_dim(cs.FACT_ROWS, cs.DIM_ROWS)
     for enabled in (False, True):
         s = session(enabled)
@@ -203,9 +252,13 @@ def main() -> int:
     if s.last_dist_explain != "distributed":
         print(f"profile_port: the sharded run fell back: "
               f"{s.last_dist_explain}", file=sys.stderr)
-        return 1
+        return True
     s.stop()
-    del fact, dim, q
+    return False
+
+
+def profile_q6(torch, F, TpuSession, card_line):
+    sharded = {"spark.rapids.sql.distributed.numShards": cs.NSHARDS}
     data = cs.gen_host(cs.Q6_ROWS)
     for make, name in ((cs.make_q6, "q6"), (cs.make_q1, "q1 shape")):
         for conf, where in (({}, "one device"),
@@ -214,7 +267,20 @@ def main() -> int:
             profile(torch, make(F, s.create_dataframe(data)),
                     f"{name}, {where}", card_line)
             s.stop()
-    return 0
+
+
+def profile_tpcds(torch, session, card_line):
+    from spark_rapids_tpu_torch.models import tpcds
+    t0 = time.perf_counter()
+    batches = cs.tpcds_device_tables(tpcds.gen_tables(sf=cs.TPCDS_SF),
+                                     torch.device(cs.DEVICE))
+    print(f"TPC-DS SF{cs.TPCDS_SF} generated and on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    s = cs.tpcds_session(cs.tpch_conf(True), batches)
+    for name in ("q67", "q47"):
+        profile(torch, lambda name=name: s.sql(tpcds.QUERIES[name]),
+                f"TPC-DS {name} SF{cs.TPCDS_SF} hash on", card_line)
+    s.stop()
 
 
 if __name__ == "__main__":

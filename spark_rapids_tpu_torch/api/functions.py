@@ -2,11 +2,14 @@
 
 Counterpart of ``spark_rapids_tpu/api/functions.py``, cut to what the
 ported slices run: column references, literals (numbers, bools, strings,
-dates), arithmetic (``%`` too), comparisons, logic, null
-tests, casts, ``isin``, the string predicates (``startswith``,
-``endswith``, ``contains``, ``like``), ``when``/``otherwise``,
-``coalesce``, ``substring``, the date parts and date arithmetic, sort
-keys, and the sum / avg / count / min / max aggregates.
+dates), arithmetic (``%`` and unary minus too), ``abs``, comparisons,
+logic, null tests, casts, ``isin``, the string predicates
+(``startswith``, ``endswith``, ``contains``, ``like``),
+``when``/``otherwise``, ``coalesce``, ``substring``, the date parts and
+date arithmetic, sort keys, the sum / avg / count / min / max
+aggregates, ``grouping``/``grouping_id`` (rollup, cube, grouping sets),
+and window functions (``Window`` specs, ``.over``: the ranking
+functions, ``lead``/``lag`` and the ``window_*`` aggregates).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from spark_rapids_tpu_torch.ops import datetime_ops as D
 from spark_rapids_tpu_torch.ops import predicates as preds
 from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops.cast import Cast
+from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.ops.expressions import (
     Alias, Expression, Literal, UnresolvedColumn)
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
@@ -78,6 +82,9 @@ class Col:
 
     def __mod__(self, o):
         return Col(arith.Remainder(self.expr, _lit_expr(o)))
+
+    def __neg__(self):
+        return Col(arith.UnaryMinus(self.expr))
 
     def __eq__(self, o):  # type: ignore[override]
         return Col(preds.EqualTo(self.expr, _lit_expr(o)))
@@ -212,6 +219,10 @@ class CaseBuilder(Col):
         return Col(preds.CaseWhen(self.branches, _lit_expr(value)))
 
 
+def abs(c) -> Col:  # noqa: A001 - pyspark.sql.functions.abs
+    return Col(arith.Abs(_expr(c)))
+
+
 def coalesce(*cols) -> Col:
     return Col(preds.Coalesce(*[_expr(c) for c in cols]))
 
@@ -270,3 +281,183 @@ def min(c) -> Col:  # noqa: A001
 
 def max(c) -> Col:  # noqa: A001
     return _agg(agg.Max, c)
+
+
+# ------------------------------------------------------------------- windows
+
+class Window:
+    """Window spec (the ``pyspark.sql.Window`` surface)."""
+
+    unboundedPreceding = None
+    unboundedFollowing = None
+    currentRow = 0
+
+    def __init__(self, partition=(), orders=(), frame=None):
+        self._partition = list(partition)
+        self._orders = list(orders)
+        self._frame = frame
+
+    @classmethod
+    def partitionBy(cls, *cols) -> "Window":
+        return cls(partition=[_expr(c) for c in cols])
+
+    def orderBy(self, *keys) -> "Window":
+        orders = []
+        for k in keys:
+            if isinstance(k, SortKey):
+                orders.append((k.expr, k.descending, k.nulls_first))
+            else:
+                orders.append((_expr(k), False, True))
+        return Window(self._partition, orders, self._frame)
+
+    def rowsBetween(self, start, end) -> "Window":
+        from spark_rapids_tpu_torch.exec.window import Frame
+        return Window(self._partition, self._orders,
+                      Frame("rows", start, end))
+
+    def rangeBetween(self, start, end) -> "Window":
+        from spark_rapids_tpu_torch.exec.window import Frame
+        return Window(self._partition, self._orders,
+                      Frame("range", start, end))
+
+    def _spec(self):
+        from spark_rapids_tpu_torch.exec.window import WindowSpec
+        return WindowSpec(self._partition, self._orders, self._frame)
+
+
+class _WindowFunc(Col):
+    """A window function waiting for ``.over(window)``."""
+
+    def __init__(self, kind: str, child=None, offset: int = 1,
+                 default=None):
+        self._kind = kind
+        self._child = child
+        self._offset = offset
+        self._default = default
+
+    def over(self, window: Window) -> Col:
+        from spark_rapids_tpu_torch.exec.window import WindowExpression
+        return Col(WindowExpression(
+            self._kind, window._spec(),
+            child=None if self._child is None else _expr(self._child),
+            offset=self._offset,
+            default=None if self._default is None
+            else _lit_expr(self._default)))
+
+
+def row_number() -> _WindowFunc:
+    return _WindowFunc("row_number")
+
+
+def rank() -> _WindowFunc:
+    return _WindowFunc("rank")
+
+
+def dense_rank() -> _WindowFunc:
+    return _WindowFunc("dense_rank")
+
+
+def percent_rank() -> _WindowFunc:
+    return _WindowFunc("percent_rank")
+
+
+def lead(c, offset: int = 1, default=None) -> _WindowFunc:
+    return _WindowFunc("lead", c, offset, default)
+
+
+def lag(c, offset: int = 1, default=None) -> _WindowFunc:
+    return _WindowFunc("lag", c, offset, default)
+
+
+def window_sum(c) -> _WindowFunc:
+    return _WindowFunc("sum", c)
+
+
+def window_count(c="*") -> _WindowFunc:
+    return _WindowFunc(
+        "count", None if isinstance(c, str) and c == "*" else c)
+
+
+def window_min(c) -> _WindowFunc:
+    return _WindowFunc("min", c)
+
+
+def window_max(c) -> _WindowFunc:
+    return _WindowFunc("max", c)
+
+
+def window_avg(c) -> _WindowFunc:
+    return _WindowFunc("avg", c)
+
+
+# ------------------------------------------------------------ grouping sets
+
+class _GroupingIdMarker(Expression):
+    """Placeholder for ``grouping_id()``: ``GroupedData.agg`` rewrites it
+    to the grouping-id column the Expand produces."""
+
+    children = ()
+
+    @property
+    def dtype(self):
+        return dts.INT64
+
+    @property
+    def nullable(self):
+        return False
+
+    @property
+    def name(self):
+        return "grouping_id()"
+
+    def emit(self, ctx):
+        raise RuntimeError(
+            "grouping_id() is only valid in rollup/cube/groupingSets "
+            "aggregations")
+
+    def cache_key(self):
+        return ("_GroupingIdMarker",)
+
+
+class _GroupingMarker(Expression):
+    """Placeholder for ``grouping(col)`` (1 when the column is
+    aggregated away in this output row, else 0)."""
+
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    def with_children(self, children):
+        return _GroupingMarker(children[0])
+
+    @property
+    def dtype(self):
+        return dts.INT32
+
+    @property
+    def nullable(self):
+        return False
+
+    @property
+    def name(self):
+        return f"grouping({self.children[0].name})"
+
+    def emit(self, ctx):
+        raise RuntimeError(
+            "grouping() is only valid in rollup/cube/groupingSets "
+            "aggregations")
+
+    def cache_key(self):
+        return ("_GroupingMarker", self.children[0].cache_key())
+
+
+def grouping_id() -> Col:
+    """Bit vector of the aggregated-away grouping columns (bit i,
+    MSB-first over the grouping columns, is 1 when column i is rolled
+    up in this row)."""
+    return Col(_GroupingIdMarker())
+
+
+def grouping(c) -> Col:
+    """1 when the grouping column is aggregated away in this row, else 0
+    (int32, as in the JAX package, where Spark returns tinyint)."""
+    return Col(_GroupingMarker(_expr(c)))

@@ -61,6 +61,7 @@ class TpuSession:
                 self.conf.get(rc.DISTRIBUTED_NUM_SHARDS), self.device)
         self.last_dist_explain = ""
         self.last_dist_stats = None
+        self._views: Dict[str, DataFrame] = {}
 
     def create_dataframe(self, data) -> DataFrame:
         """A DataFrame over a dict of numpy arrays (or lists with None
@@ -79,6 +80,36 @@ class TpuSession:
         else:
             raise TypeError(f"cannot create a DataFrame from {type(data)}")
         return DataFrame(self, L.InMemoryRelation([batch], batch.schema))
+
+    def range(self, start: int, end: Optional[int] = None,
+              step: int = 1) -> DataFrame:
+        """A bigint column ``id`` over [start, end) by ``step``
+        (``range(n)`` is [0, n))."""
+        if end is None:
+            start, end = 0, start
+        return DataFrame(self, L.Range(start, end, step))
+
+    # ------------------------------------------------------------- SQL --
+    def register_view(self, name: str, df: DataFrame) -> None:
+        """The temp-view registry that ``sql`` FROM clauses read
+        (``df.createOrReplaceTempView`` forwards here)."""
+        self._views[name.lower()] = df
+
+    def table(self, name: str) -> DataFrame:
+        key = name.lower()
+        if key not in self._views:
+            raise KeyError(
+                f"unknown table or view {name!r}; register with "
+                "df.createOrReplaceTempView(name)")
+        return self._views[key]
+
+    def sql(self, query: str) -> DataFrame:
+        """A SQL SELECT over the registered temp views, lowered onto the
+        DataFrame algebra (``sql/``).  An uncorrelated scalar subquery
+        runs here, once, as one counted sync; a construct the port does
+        not run raises ``NotImplementedError`` naming it."""
+        from spark_rapids_tpu_torch.sql import parse, resolve
+        return resolve(self, parse(query))
 
     def plan(self, logical: L.LogicalPlan):
         if self.stopped:

@@ -105,8 +105,7 @@ class ColumnarBatch:
                 arr = arr.dictionary_decode()
             dt = dts.from_arrow_type(arr.type)
             if dt.is_string:
-                cols[name] = Column.from_strings(arr.to_pylist(),
-                                                 device=device)
+                cols[name] = _string_column_from_arrow(arr, device)
                 continue
             validity = None
             if arr.null_count:
@@ -158,6 +157,29 @@ class ColumnarBatch:
 
     def to_pandas(self):
         return self.to_arrow().to_pandas()
+
+
+def _string_column_from_arrow(arr, device) -> Column:
+    """A string column from an arrow string array's own buffers (no
+    Python string per row); a null row becomes an empty string under a
+    false validity, as ``Column.from_strings`` makes it."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    validity = np.asarray(pc.is_valid(arr)) if arr.null_count else None
+    if arr.null_count:
+        arr = pc.fill_null(arr, "")
+    n = len(arr)
+    if n == 0:
+        return Column.from_strings([], device=device)
+    bufs = arr.buffers()
+    width = np.int64 if pa.types.is_large_string(arr.type) else np.int32
+    offsets = np.frombuffer(bufs[1], dtype=width)[
+        arr.offset: arr.offset + n + 1].astype(np.int64)
+    chars = np.frombuffer(bufs[2], dtype=np.uint8) \
+        if bufs[2] is not None else np.zeros(0, dtype=np.uint8)
+    chars = chars[offsets[0]: offsets[-1]]
+    return Column.from_string_buffers(offsets - offsets[0], chars,
+                                      validity, device)
 
 
 def _column_from_list(values: list, device) -> Column:

@@ -11,12 +11,13 @@ else the hash table when ``spark.rapids.tpu.pallas.hash.enabled`` is on,
 else the sort path.  A hash overflow discards the hash output and runs the
 exact sort path, counted in ``hashOverflowFallbacks``.
 
-String group keys take the JAX package's host dictionary
-(``dictionary.StableDictionary``, its ``_StringKeyEncoder``): per
-operator, codes stable across batches (a null interns as a code of its
-own), so the partial batches carry int32 codes, every path (coded, hash,
-sort) groups them as integers, and the merge's output decodes them on
-the card.  A string min/max buffer takes
+String group keys take the string dictionary
+(``dictionary.StableDictionary``, the JAX package's
+``_StringKeyEncoder``; on the card for strings of at most 256 bytes):
+per operator, codes stable across batches (a null interns as a code of
+its own), so the partial batches carry int32 codes, every path (coded,
+hash, sort) groups them as integers, and the merge's output decodes them
+on the card.  A string min/max buffer takes
 batch-local order-preserving codes (``dictionary.ordered_dict_encode``)
 for each reduction: the partials decode their winners to strings, and
 the merge re-encodes them over every partial, so comparisons across
@@ -157,9 +158,8 @@ class TpuHashAggregateExec(TpuExec):
         mask = fold_conjuncts(ctx, self.pre_filters) if self.pre_filters \
             else ctx.row_mask()
         keys = [widen(e.emit(ctx), ctx.capacity) for e in self.group_exprs]
-        keys = [ColVal(dts.INT32, torch.from_numpy(
-            self._encoders[i].encode(k, ctx.capacity).astype(np.int32))
-            .to(ctx.device)) if i in self._encoders else k
+        keys = [ColVal(dts.INT32, self._encoders[i].encode(
+            k, ctx.capacity).to(torch.int32)) if i in self._encoders else k
             for i, k in enumerate(keys)]
         bufs = self._eval_update_inputs(ctx)
         check_raise(ctx)
@@ -248,8 +248,7 @@ class TpuHashAggregateExec(TpuExec):
                                            capacity, mask)
         if self._encoders:
             n = int(RowCount.wrap(n))
-            key_out = [dictionary.decode(self._encoders[i].values,
-                                         _head(k, n).values)
+            key_out = [self._encoders[i].decode(_head(k, n).values)
                        if i in self._encoders else _head(k, n)
                        for i, k in enumerate(key_out)]
             buf_out = [_head(b, n) for b in buf_out]

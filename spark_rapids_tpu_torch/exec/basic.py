@@ -1,4 +1,5 @@
-"""Basic physical operators: scan, project, filter, coalesce, limit.
+"""Basic physical operators: scan, range, union, project, filter,
+coalesce, limit.
 
 Counterpart of ``spark_rapids_tpu/exec/basic.py``.  Project and filter
 each own a stage function (``ops/compiler.py``) that evaluates their whole
@@ -11,12 +12,15 @@ from typing import Iterator, Sequence
 
 import torch
 
+from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import Column
 from spark_rapids_tpu_torch.exec.base import (
     NUM_INPUT_BATCHES, NUM_INPUT_ROWS, Schema, TpuExec)
 from spark_rapids_tpu_torch.ops.compiler import FilterStageFn, StageFn
 from spark_rapids_tpu_torch.ops.expressions import BoundReference, Expression
+
+RANGE_BATCH_ROWS = 1 << 20
 
 
 class TpuCoalesceBatchesExec(TpuExec):
@@ -106,6 +110,48 @@ def _slice(c: Column, off: int, m: int, char_bounds, i: int) -> Column:
     c0, c1 = char_bounds[i], char_bounds[i + 1]
     return Column(c.dtype, c.data[c0:c1], m, validity,
                   offsets=c.offsets[off:off + m + 1] - c0)
+
+
+class TpuRangeExec(TpuExec):
+    """``range(start, end, step)`` as a bigint ``id`` column, made on the
+    device in batches of at most ``RANGE_BATCH_ROWS`` rows."""
+
+    def __init__(self, start: int, end: int, step: int, device):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self.device = device
+
+    @property
+    def schema(self) -> Schema:
+        return [("id", dts.INT64)]
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        total = max(0, -(-(self.end - self.start) // self.step))
+        for off in range(0, total, RANGE_BATCH_ROWS):
+            n = min(RANGE_BATCH_ROWS, total - off)
+            vals = self.start + (off + torch.arange(
+                n, dtype=torch.int64, device=self.device)) * self.step
+            yield ColumnarBatch({"id": Column(dts.INT64, vals, n)}, n)
+
+    def describe(self):
+        return f"TpuRangeExec[{self.start}, {self.end}, {self.step}]"
+
+
+class TpuUnionExec(TpuExec):
+    """UNION ALL: each child's batches in turn, renamed to the first
+    child's column names."""
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        names = [n for n, _ in self.schema]
+        for child in self.children:
+            for batch in child.execute():
+                yield ColumnarBatch(
+                    dict(zip(names, batch.columns.values())),
+                    batch.row_count)
 
 
 class TpuLocalLimitExec(TpuExec):

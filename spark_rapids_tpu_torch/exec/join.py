@@ -15,12 +15,14 @@ single-key join whose build side passes the gate takes the hash phase A
 ``hashOverflowFallbacks`` and reruns the sort-merge phase.  Results are
 identical either way.
 
-String join keys take the JAX package's shared host dictionary
-(``dictionary.StableDictionary``, its ``_JoinKeyEncoder``): both sides
+String join keys take one string dictionary for both sides
+(``dictionary.StableDictionary``, the JAX package's ``_JoinKeyEncoder``;
+on the card for strings of at most 256 bytes): both sides
 encode through one dictionary, so code equality is string equality, and
 the codes (int64, nulls kept null) join as integers on every path.
 
-Not ported yet: residual (non-equi) conditions, and the build side's spill
+A residual (non-equi) condition is a filter the planner puts over an
+inner join (``plan/overrides.py``).  Not ported yet: the build side's spill
 and retry (``memory/coalesce.py``, ``memory/retry.py``): the build is one
 ``concat_batches`` of its child's output.  Host syncs per probe batch:
 the overflow flag of a hash phase A and the output total, each one
@@ -119,9 +121,8 @@ class TpuHashJoinExec(TpuExec):
 
     # ------------------------------------------------------------------ exec --
     def _keys(self, batch: ColumnarBatch, fn: StageFn) -> List[ColVal]:
-        return [ColVal(dts.INT64, torch.from_numpy(
-            self._encoders[i].encode(c, c.capacity, null_code=-1))
-            .to(c.data.device), c.validity) if c.dtype.is_string
+        return [ColVal(dts.INT64, self._encoders[i].encode(
+            c, c.capacity, null_code=-1), c.validity) if c.dtype.is_string
             else ColVal(c.dtype, c.data, c.validity)
             for i, c in enumerate(fn(batch))]
 

@@ -17,9 +17,11 @@ its row count on the host: a batch from a scan, filter or join carries a
 host count; a device-resident count (an aggregate's groups) resolves
 through one counted fetch.
 
-A string sort key becomes order-preserving int32 ranks on the host
-(``dictionary.rank_encode``, as in the JAX package): exact within the
-batch being sorted, since the ranks are dense over its value set.
+A string sort key becomes its packed words and its length on the device
+(``dictionary.string_sort_keys``), which sort as the strings do; a
+string longer than ``dictionary.MAX_PACKED_BYTES`` takes the JAX
+package's order-preserving int32 ranks on the host
+(``dictionary.rank_encode``), exact within the batch being sorted.
 """
 
 from __future__ import annotations
@@ -43,13 +45,16 @@ from spark_rapids_tpu_torch.ops.expressions import ColVal, Expression
 Order = Tuple[Expression, bool, bool]
 
 
-def _rank_key(c, capacity: int) -> ColVal:
-    """A string key as int32 ranks in string order (nulls keep the
-    validity; padding rows rank anywhere, the live mask sorts them
-    last)."""
+def _string_keys(c, capacity: int) -> List[ColVal]:
+    """A string key as sort keys in string order, most significant
+    first (nulls keep the validity; padding rows sort anywhere, the live
+    mask puts them last)."""
+    keys = dictionary.string_sort_keys(c, capacity)
+    if keys is not None:
+        return keys
     ranks = dictionary.rank_encode(dictionary.host_strings(c, capacity))
-    return ColVal(dts.INT32, torch.from_numpy(ranks.astype(np.int32)).to(
-        c.data.device), c.validity)
+    return [ColVal(dts.INT32, torch.from_numpy(ranks.astype(np.int32)).to(
+        c.data.device), c.validity)]
 
 
 class TpuSortExec(TpuExec):
@@ -79,13 +84,16 @@ class TpuSortExec(TpuExec):
         when None), as an exact-length batch."""
         n = batch.nrows
         take = n if limit is None else min(limit, n)
-        keys = [_rank_key(c, batch.capacity) if c.dtype.is_string
-                else ColVal(c.dtype, c.data, c.validity)
-                for c in self._key_fn(batch)]
+        keys, descending, nulls_first = [], [], []
+        for c, (_, d, nf) in zip(self._key_fn(batch), self.orders):
+            parts = _string_keys(c, batch.capacity) if c.dtype.is_string \
+                else [ColVal(c.dtype, c.data, c.validity)]
+            keys.extend(parts)
+            descending.extend([d] * len(parts))
+            nulls_first.extend([nf] * len(parts))
         live = torch.arange(batch.capacity, device=batch.device) < n
-        perm = agg.sort_permutation(
-            keys, live, descending=[d for _, d, _ in self.orders],
-            nulls_first=[nf for _, _, nf in self.orders])
+        perm = agg.sort_permutation(keys, live, descending=descending,
+                                    nulls_first=nulls_first)
         outs = selection.gather(
             batch_to_colvals(batch, [dt for _, dt in self.schema]),
             perm[:take])

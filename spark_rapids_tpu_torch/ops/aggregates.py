@@ -222,9 +222,12 @@ def _sentinel(kind: str, dtype: torch.dtype):
 _SCAN_BLOCK = 256
 
 
-def _segmented_scan(si: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sums of the rows of ``x`` within each run of equal
-    values of the sorted ``si``, in an order fixed by the input alone.
+def _segmented_scan(si: torch.Tensor, x: torch.Tensor, op=torch.add,
+                    identity=0.0) -> torch.Tensor:
+    """Inclusive prefix sums (or another associative ``op`` with its
+    ``identity``, e.g. ``torch.maximum``) of the rows of ``x`` within each
+    run of equal values of the sorted ``si``, in an order fixed by the
+    input alone.
     Within blocks of ``_SCAN_BLOCK`` rows a Hillis-Steele scan (each row
     adds the row ``d`` before it in its run and block, d = 1, 2, 4, ...);
     a run that crosses blocks then adds the scan of the earlier blocks'
@@ -241,21 +244,21 @@ def _segmented_scan(si: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         if x.dim() > 1:
             ok = ok.unsqueeze(1)
         spare[:d] = y[:d]
-        torch.add(y[d:], torch.where(ok, y[:-d], 0.0), out=spare[d:])
+        op(y[d:], torch.where(ok, y[:-d], identity), out=spare[d:])
         y, spare = spare, y
         d <<= 1
     if n <= _SCAN_BLOCK:
         return y
     last = torch.clamp(torch.arange(_SCAN_BLOCK - 1, n + _SCAN_BLOCK - 1,
                                     _SCAN_BLOCK, device=si.device), max=n - 1)
-    carry = _segmented_scan(si[last], y[last])    # per block, inclusive
+    carry = _segmented_scan(si[last], y[last], op, identity)  # per block
     block = pos // _SCAN_BLOCK
     # a run that began before this block adds the previous block's scan
     crosses = (rank > lim) & (block > 0)
     if x.dim() > 1:
         crosses = crosses.unsqueeze(1)
     prev = carry[(block - 1).clamp(min=0)]
-    return torch.where(crosses, prev + y, y)
+    return torch.where(crosses, op(prev, y), y)
 
 
 def fixed_order_sums(index: torch.Tensor, values: torch.Tensor,
@@ -662,8 +665,12 @@ def groupby_aggregate_hashed(keys: Sequence[ColVal],
     past the cap, or more groups than slots) the outputs are None: the
     caller re-runs the exact sort path.  Otherwise outputs have exactly
     ``num_groups`` rows, bit-identical to the coded/sort paths: occupied
-    slots compact in stored-code-ascending order, which does not depend on
-    the table's layout."""
+    slots compact in stored-code-ascending order, and every row reduces
+    into its group's rank in that order, not its slot.  Which slot a key
+    takes depends on the table's layout, and on the card on which of two
+    colliding keys claims a slot first; the float sums' fixed order
+    (:func:`fixed_order_sums`) depends on where each group's run falls,
+    so reducing by slot would change their last bits from run to run."""
     device = keys[0].values.device
     keys = [widen(c, capacity) for c in keys]
     buffer_inputs = [(k, widen(c, capacity)) for k, c in buffer_inputs]
@@ -685,9 +692,13 @@ def groupby_aggregate_hashed(keys: Sequence[ColVal],
     occ_slots = order[:ng]
     out_keys = _key_columns_from_codes(keys, slot_code[occ_slots], mins,
                                        slot_ranges, strides)
-    reduced, _ = _slot_reductions(buffer_inputs, slot.to(torch.int64),
-                                  T + 1, device)
-    out_bufs = [ColVal(c.dtype, vals[occ_slots], counts[occ_slots] > 0)
+    # slot -> the group's rank in code order; dead rows (slot T) go to
+    # the trash rank ng
+    rank = torch.full((T + 1,), ng, dtype=torch.int64, device=device)
+    rank[occ_slots] = torch.arange(ng, device=device)
+    reduced, _ = _slot_reductions(buffer_inputs, rank[slot.to(torch.int64)],
+                                  ng + 1, device)
+    out_bufs = [ColVal(c.dtype, vals, counts > 0)
                 for (_, c), (vals, counts) in zip(buffer_inputs, reduced)]
     return out_keys, out_bufs, ng, False
 

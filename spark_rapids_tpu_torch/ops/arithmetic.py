@@ -1,7 +1,8 @@
 """Arithmetic expressions.
 
 Counterpart of ``spark_rapids_tpu/ops/arithmetic.py``, cut to ``+``,
-``-``, ``*``, ``/``, ``div`` and ``%``.  ANSI mode is off, as in the JAX
+``-``, ``*``, ``/``, ``div``, ``%``, unary minus, ``abs``, and the
+bitwise AND and right shift that ``grouping()`` reads its bit with.  ANSI mode is off, as in the JAX
 package's defaults: integer overflow wraps, division by zero yields null.
 """
 
@@ -11,7 +12,9 @@ import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
-from spark_rapids_tpu_torch.ops.expressions import BinaryExpression
+from spark_rapids_tpu_torch.ops.expressions import (
+    BinaryExpression, ColVal, EmitContext, UnaryExpression,
+    combine_validity)
 
 
 class Add(BinaryExpression):
@@ -69,3 +72,36 @@ class Remainder(BinaryExpression):
             # x % -1 is 0, as x % 1 (the hardware traps at the minimum)
             safe = torch.where(r == -1, torch.ones_like(r), safe)
         return torch.fmod(l, safe), torch.logical_not(zero)
+
+
+class UnaryMinus(UnaryExpression):
+    def eval_values(self, v, cv):
+        return -v
+
+
+class Abs(UnaryExpression):
+    """``abs``; the integer minimum wraps to itself, as in Java."""
+
+    def eval_values(self, v, cv):
+        return torch.abs(v)
+
+
+class BitwiseAnd(BinaryExpression):
+    def eval_values(self, l, r):
+        return l & r, None
+
+
+class ShiftRight(BinaryExpression):
+    """Java ``>>``: the shift amount masked by the value's bit width;
+    the result keeps the left operand's type."""
+
+    def operand_type(self) -> DataType:
+        return self.left.dtype
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        l = self.left.emit(ctx)
+        r = self.right.emit(ctx)
+        bits = l.values.element_size() * 8
+        amount = (r.values.to(torch.int32) & (bits - 1)).to(l.values.dtype)
+        return ColVal(self.dtype, l.values >> amount,
+                      combine_validity(l.validity, r.validity))

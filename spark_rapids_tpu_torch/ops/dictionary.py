@@ -17,7 +17,13 @@ host through :func:`host_strings` in one counted sync
 
 Arrow's hash dictionary encode and its sort over the distinct values do
 the work where pyarrow is present, as in the JAX package; the byte-matrix
-path is the fallback.  Encoding on the device is not ported.
+path is the fallback.
+
+:class:`StableDictionary` (group and join keys) and
+:func:`string_sort_keys` (sort keys) work on the device instead while
+the strings are at most ``MAX_PACKED_BYTES`` long: a string becomes its
+bytes packed eight to an int64 word plus its length, which compare as
+the strings do, exactly.
 """
 
 from __future__ import annotations
@@ -208,21 +214,276 @@ def dict_encode_stable(col: HostStrings, codes: Dict[Optional[str], int],
     return out
 
 
+# strings of at most this many bytes encode on the device as packed words
+MAX_PACKED_BYTES = 256
+
+
+def _string_parts(c, nrows: int):
+    """(chars, int64 row starts, int64 lengths, validity or None) of the
+    first ``nrows`` rows of a string ``ColVal`` or ``Column``."""
+    import torch
+    chars = c.values if hasattr(c, "values") else c.data
+    offs = c.offsets[: nrows + 1].to(torch.int64)
+    validity = None if c.validity is None else c.validity[:nrows]
+    return chars, offs[:-1], offs[1:] - offs[:-1], validity
+
+
+def max_length(c, nrows: int) -> int:
+    """The longest of the first ``nrows`` rows, in bytes (one counted
+    fetch)."""
+    if nrows == 0:
+        return 0
+    _, _, lengths, _ = _string_parts(c, nrows)
+    return int(hostsync.fetch(lengths.max()))
+
+
+def pack_words(chars, starts, lengths, width: int):
+    """int64 ``[n, width]``: each row's first ``8 * width`` bytes, zero
+    padded, eight to a word, big-endian with the sign bit flipped, so that
+    comparing the words as signed integers, then the lengths, is
+    comparing the strings byte by byte (Spark's string order)."""
+    import torch
+    n = starts.shape[0]
+    out = torch.zeros((n, width), dtype=torch.int64, device=starts.device)
+    if n == 0 or chars.shape[0] == 0:
+        out[:, :] = -(1 << 63)
+        return out
+    top = chars.shape[0] - 1
+    for k in range(width):
+        word = torch.zeros(n, dtype=torch.int64, device=starts.device)
+        for b in range(8):
+            j = 8 * k + b
+            byte = chars[(starts + j).clamp(max=top)].to(torch.int64)
+            byte = torch.where(j < lengths, byte, torch.zeros_like(byte))
+            if b == 0:
+                byte = byte - 128  # the sign flip, without overflow
+            word = word + byte * (1 << (56 - 8 * b))
+        out[:, k] = word
+    return out
+
+
+def _unpack_bytes(words):
+    """uint8 ``[n, 8 * width]`` of :func:`pack_words` output."""
+    import torch
+    n, width = words.shape
+    parts = []
+    for b in range(8):
+        shifted = words >> (56 - 8 * b)
+        if b == 0:
+            shifted = shifted + 128
+        parts.append((shifted & 0xFF).to(torch.uint8))
+    # [n, width, 8] -> bytes in row order
+    return torch.stack(parts, dim=2).reshape(n, width * 8)
+
+
+def string_sort_keys(c, nrows: int):
+    """Sort keys of a string column, most significant first: its packed
+    words and then its length, each an int64 ``ColVal`` with the column's
+    validity; or None when a row is longer than ``MAX_PACKED_BYTES``."""
+    from spark_rapids_tpu_torch.columnar import dtypes as dts
+    from spark_rapids_tpu_torch.ops.expressions import ColVal
+    maxlen = max_length(c, nrows)
+    if maxlen > MAX_PACKED_BYTES:
+        return None
+    chars, starts, lengths, validity = _string_parts(c, nrows)
+    words = pack_words(chars, starts, lengths, max(1, -(-maxlen // 8)))
+    return [ColVal(dts.INT64, words[:, k].contiguous(), validity)
+            for k in range(words.shape[1])] + \
+        [ColVal(dts.INT64, lengths, validity)]
+
+
+def _groups(keys, live):
+    """(row -> group of equal keys, group -> its first row): groups are
+    numbered in key order, dead rows map to group ``n`` (a trash slot),
+    and a group slot with no row holds ``n`` as its first row."""
+    import torch
+    from spark_rapids_tpu_torch.ops import aggregates as agg
+    from spark_rapids_tpu_torch.ops.expressions import ColVal
+    n = live.shape[0]
+    device = live.device
+    perm = agg.sort_permutation(keys, live)
+    sorted_keys = [ColVal(k.dtype, k.values[perm]) for k in keys]
+    slive = live[perm]
+    boundary = ~agg._keys_equal_prev(sorted_keys, n, device) & slive
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    group = torch.empty(n, dtype=torch.int64, device=device)
+    group[perm] = torch.where(slive, gid, torch.full_like(gid, n))
+    first = torch.full((n + 1,), n, dtype=torch.int64, device=device)
+    first.scatter_reduce_(0, group, torch.arange(n, device=device), "amin")
+    return group, first[:n]
+
+
 class StableDictionary:
     """Codes stable across batches, and across the two sides of a join:
     the JAX package's ``_StringKeyEncoder`` (group keys) and
-    ``_JoinKeyEncoder`` (join keys) in one."""
+    ``_JoinKeyEncoder`` (join keys) in one.  A value's code is fixed by
+    its first appearance (across every batch this dictionary encodes),
+    as there; a null interns as a value of its own unless the caller
+    gives ``null_code``.
+
+    The JAX package keeps the dictionary on the host.  Here it stays on
+    the column's device while every string is at most
+    ``MAX_PACKED_BYTES`` long: each string is its packed words plus its
+    length (exact, no hashing), a batch's distinct values come from one
+    sort of those keys, and one more sort against the known values finds
+    their codes.  A batch costs two counted fetches (the longest string
+    and the number of new values) instead of fetching the column.  Past
+    that length the dictionary moves to the host (arrow's hash encode)
+    for good."""
 
     def __init__(self):
-        self.codes: Dict[Optional[str], int] = {}
-        self.values: List[Optional[str]] = []
+        self.words = None   # int64 [K, W] of the known values, by code
+        self.lengths = None  # int64 [K]; -1 is the null value
+        self.host_codes: Optional[Dict[Optional[str], int]] = None
+        self.host_values: List[Optional[str]] = []
 
-    def encode(self, c, nrows: int,
-               null_code: Optional[int] = None) -> np.ndarray:
-        """int64 codes of the first ``nrows`` rows of a string column (see
-        :func:`dict_encode_stable` for ``null_code``)."""
-        return dict_encode_stable(host_strings(c, nrows), self.codes,
-                                  self.values, null_code)
+    def __len__(self) -> int:
+        if self.host_codes is not None:
+            return len(self.host_values)
+        return 0 if self.lengths is None else int(self.lengths.shape[0])
+
+    def encode(self, c, nrows: int, null_code: Optional[int] = None):
+        """int64 codes (a tensor on the column's device) of the first
+        ``nrows`` rows of a string column; null rows get ``null_code``, or
+        with None, the code of the null value."""
+        import torch
+        chars, starts, lengths, validity = _string_parts(c, nrows)
+        if nrows == 0:
+            return torch.zeros(0, dtype=torch.int64, device=starts.device)
+        if self.host_codes is None:
+            maxlen = max_length(c, nrows)
+            if maxlen > MAX_PACKED_BYTES:
+                self._to_host()
+        if self.host_codes is not None:
+            codes = dict_encode_stable(host_strings(c, nrows),
+                                       self.host_codes, self.host_values,
+                                       null_code)
+            return torch.from_numpy(codes).to(starts.device)
+        return self._encode_device(chars, starts, lengths, validity,
+                                   max(1, -(-maxlen // 8)), null_code)
+
+    def _encode_device(self, chars, starts, lengths, validity, width,
+                       null_code):
+        import torch
+        from spark_rapids_tpu_torch.columnar import dtypes as dts
+        from spark_rapids_tpu_torch.ops.expressions import ColVal
+        n = starts.shape[0]
+        device = starts.device
+        known = 0 if self.lengths is None else int(self.lengths.shape[0])
+        if known:
+            width = max(width, int(self.words.shape[1]))
+            if self.words.shape[1] < width:
+                # wider strings arrived: known values gain zero words
+                pad = torch.full((known, width - self.words.shape[1]),
+                                 -(1 << 63), dtype=torch.int64,
+                                 device=device)
+                self.words = torch.cat([self.words, pad], dim=1)
+        words = pack_words(chars, starts, lengths, width)
+        key_len = lengths
+        live = torch.ones(n, dtype=torch.bool, device=device)
+        if validity is not None:
+            words = torch.where(validity[:, None], words,
+                                torch.full_like(words, -(1 << 63)))
+            if null_code is None:
+                key_len = torch.where(validity, lengths,
+                                      torch.full_like(lengths, -1))
+            else:
+                live = validity
+
+        def cols(w, ln):
+            return [ColVal(dts.INT64, w[:, k]) for k in range(width)] + \
+                [ColVal(dts.INT64, ln)]
+
+        # the batch's distinct values, each with its first row
+        group, first = _groups(cols(words, key_len), live)
+        exists = first < n
+        rep = first.clamp(max=n - 1)
+        cand_words, cand_len = words[rep], key_len[rep]
+        # which of them the dictionary knows: sort them with the known
+        # values (known first, so a group's first member says)
+        if known:
+            all_words = torch.cat([self.words, cand_words])
+            all_len = torch.cat([self.lengths, cand_len])
+            all_live = torch.cat([torch.ones(known, dtype=torch.bool,
+                                             device=device), exists])
+            g2, first2 = _groups(cols(all_words, all_len), all_live)
+            head = first2[g2.clamp(max=known + n - 1)][known:]
+            code = torch.where(head < known, head,
+                               torch.full_like(head, -1))
+        else:
+            code = torch.full((n,), -1, dtype=torch.int64, device=device)
+        # new values take the next codes in order of first appearance,
+        # the null value after the batch's other new values (as the host
+        # encoder interns it)
+        is_new = exists & (code < 0)
+        appear = torch.where(cand_len < 0, torch.full_like(first, n), first)
+        order = torch.argsort(torch.where(is_new, appear,
+                                          torch.full_like(first, n + 1)),
+                              stable=True)
+        rank = torch.empty(n, dtype=torch.int64, device=device)
+        rank[order] = torch.arange(n, device=device)
+        code = torch.where(is_new, known + rank, code)
+        out = code[group.clamp(max=n - 1)]
+        if validity is not None and null_code is not None:
+            out = torch.where(validity, out, torch.full_like(out, null_code))
+        n_new = int(hostsync.fetch(is_new.sum()))
+        if n_new:
+            take = order[:n_new]
+            new_words, new_len = cand_words[take], cand_len[take]
+            self.words = new_words if not known else \
+                torch.cat([self.words, new_words])
+            self.lengths = new_len if not known else \
+                torch.cat([self.lengths, new_len])
+        return out
+
+    def _to_host(self) -> None:
+        """Move the known values to the host dictionary, in code order."""
+        known = len(self)
+        if not known:
+            self.host_codes, self.host_values = {}, []
+            return
+        host = host_strings(self._table(), known)
+        values = [None if not host.valid[i] else
+                  host.chars[host.offsets[i]:host.offsets[i + 1]]
+                  .tobytes().decode("utf-8") for i in range(host.nrows)]
+        self.host_values = values
+        self.host_codes = {v: i for i, v in enumerate(values)}
+        self.words = self.lengths = None
+
+    def _table(self):
+        """The known values as a string ``ColVal``, one row per code."""
+        import torch
+        codes = torch.arange(self.lengths.shape[0],
+                             device=self.lengths.device)
+        return self.decode(codes)
+
+    def decode(self, codes, validity=None):
+        """String ``ColVal`` of the values at ``codes`` on the codes'
+        device; the null value and rows whose ``validity`` is False
+        decode to null."""
+        if self.host_codes is not None or self.lengths is None:
+            return decode(self.host_values, codes, validity)
+        return self._decode_device(codes, validity)
+
+    def _decode_device(self, codes, validity):
+        import torch
+        from spark_rapids_tpu_torch.columnar import dtypes as dts
+        from spark_rapids_tpu_torch.ops.expressions import (
+            ColVal, combine_validity)
+        from spark_rapids_tpu_torch.ops.stringops import build_strings
+        idx = codes.to(torch.int64).clamp(0, self.lengths.shape[0] - 1)
+        lengths = self.lengths[idx]
+        valid = combine_validity(lengths >= 0, validity)
+        lengths = lengths.clamp(min=0)
+        if validity is not None:
+            lengths = torch.where(validity, lengths,
+                                  torch.zeros_like(lengths))
+        flat = _unpack_bytes(self.words).reshape(-1)
+        row_bytes = 8 * int(self.words.shape[1])
+        total = int(hostsync.fetch(lengths.sum()))
+        chars, offsets = build_strings(lengths, idx * row_bytes, flat,
+                                       total)
+        return ColVal(dts.STRING, chars, valid, offsets)
 
 
 def string_table(values: List[Optional[str]]):

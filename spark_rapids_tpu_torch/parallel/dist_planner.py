@@ -284,6 +284,9 @@ class DistPlanner:
         if not plan.left_keys or plan.join_type == "cross":
             raise NotDistributable(
                 "cross joins have no distributed lowering")
+        if plan.condition is not None:
+            raise NotDistributable(
+                "residual join conditions have no distributed lowering")
         _check_supported(plan.left_keys + plan.right_keys)
         left = self.run(plan.left, dry)
         right = self.run(plan.right, dry)

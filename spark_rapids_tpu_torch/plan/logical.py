@@ -1,9 +1,10 @@
 """Logical plan nodes.
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, cut to the nodes the
-ported slices plan: an in-memory relation, Project (also the plan node of
-``withColumnRenamed``), Filter, Aggregate, Join (equi-join keys, no
-residual condition), Sort and Limit.  The
+ported slices plan: an in-memory relation, Range, Project (also the plan
+node of ``withColumnRenamed``), Filter, Aggregate, Join (equi-join keys
+and an optional residual condition), Sort, Limit, Union and Window
+(``exec/expand.py`` holds Expand, as in the JAX package).  The
 DataFrame API builds them and ``plan/overrides.py`` lowers them to
 physical operators.
 """
@@ -129,12 +130,20 @@ class Join(LogicalPlan):
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], join_type: str,
+                 condition: Optional[Expression] = None,
                  using: Optional[Sequence[str]] = None):
         self.left_keys = [e.bind(left.schema) for e in left_keys]
         self.right_keys = [e.bind(right.schema) for e in right_keys]
         self.join_type = join_type
         self.using = list(using) if using else None
         self.children = (left, right)
+        # the residual (non-equi) condition binds against the left and
+        # right columns, not ``schema``: a semi/anti join's schema drops
+        # the right side, which the residual may still read (the planner
+        # then refuses the join with its reason)
+        self.condition = condition.bind(
+            list(left.schema) + list(right.schema)) \
+            if condition is not None else None
 
     @property
     def left(self):
@@ -187,3 +196,53 @@ class Limit(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self.child.schema
+
+
+class Union(LogicalPlan):
+    """UNION ALL: the children's rows one after the other, under the
+    first child's names (every child has the same column types)."""
+
+    def __init__(self, children: Sequence[LogicalPlan]):
+        self.children = tuple(children)
+        first = self.children[0].schema
+        for c in self.children[1:]:
+            if [dt.name for _, dt in c.schema] != \
+                    [dt.name for _, dt in first]:
+                raise ValueError("union children schemas differ")
+
+    @property
+    def schema(self) -> Schema:
+        return self.children[0].schema
+
+
+class Range(LogicalPlan):
+    """``range(start, end, step)``: one bigint column ``id``."""
+
+    def __init__(self, start: int, end: int, step: int = 1):
+        from spark_rapids_tpu_torch.columnar import dtypes as dts
+        self.start, self.end, self.step = start, end, step
+        self._schema = [("id", dts.INT64)]
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+
+class Window(LogicalPlan):
+    """Append window-function columns to the child's."""
+
+    def __init__(self, window_exprs: Sequence[Tuple[str, Expression]],
+                 child: LogicalPlan):
+        # (output name, WindowExpression) pairs bound to the child
+        self.window_exprs = [(n, e.bind(child.schema))
+                             for n, e in window_exprs]
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        return list(self.child.schema) + \
+            [(n, e.dtype) for n, e in self.window_exprs]

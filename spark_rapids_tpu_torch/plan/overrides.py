@@ -1,9 +1,10 @@
 """The planner: logical plan -> physical operators.
 
 Counterpart of ``spark_rapids_tpu/plan/overrides.py``, cut to the
-converters of the ported slices (in-memory relation, Project, Filter,
-Aggregate, Join, Sort, Limit), ``_plan_aggregate``, the ``Limit(Sort) ->
-TopN`` rewrite and the fusion pass the JAX planner applies: a
+converters of the ported slices (in-memory relation, Range, Project,
+Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window),
+``_plan_aggregate``, the ``Limit(Sort) -> TopN`` rewrite and the fusion
+pass the JAX planner applies: a
 Project/Filter chain under an Aggregate folds into the aggregate (its
 predicates become the row mask), and any other chain of two or more
 members collapses into one FusedStageExec.  There is no CPU fallback: a
@@ -18,9 +19,13 @@ from typing import List, Optional
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.basic import (
-    TpuFilterExec, TpuLocalLimitExec, TpuProjectExec, TpuScanExec)
+    TpuFilterExec, TpuLocalLimitExec, TpuProjectExec, TpuRangeExec,
+    TpuScanExec, TpuUnionExec)
+from spark_rapids_tpu_torch.exec.expand import Expand, TpuExpandExec
 from spark_rapids_tpu_torch.exec.join import TpuHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
+from spark_rapids_tpu_torch.exec.window import (
+    TpuWindowExec, WindowExpression, group_by_spec)
 from spark_rapids_tpu_torch.exec.fusion import (
     FusedStageExec, compose_chain, fusion_metrics)
 from spark_rapids_tpu_torch.ops.cast import Cast, cast_supported
@@ -96,6 +101,10 @@ def _plan_aggregate(group_exprs, agg_out_exprs, child_exec, device,
 
 
 def _node_expressions(node: L.LogicalPlan) -> List[Expression]:
+    if isinstance(node, Expand):
+        return [e for p in node.projections for e in p]
+    if isinstance(node, L.Window):
+        return [e for _, e in node.window_exprs]
     if isinstance(node, L.Project):
         return list(node.exprs)
     if isinstance(node, L.Filter):
@@ -103,17 +112,33 @@ def _node_expressions(node: L.LogicalPlan) -> List[Expression]:
     if isinstance(node, L.Aggregate):
         return list(node.group_exprs) + list(node.agg_exprs)
     if isinstance(node, L.Join):
-        return list(node.left_keys) + list(node.right_keys)
+        out = list(node.left_keys) + list(node.right_keys)
+        return out + ([node.condition] if node.condition is not None
+                      else [])
     if isinstance(node, L.Sort):
         return [e for e, _, _ in node.orders]
     return []
 
 
 def check_ported(plan: L.LogicalPlan) -> None:
-    """Raise ``NotImplementedError`` naming the first expression of the
-    plan that the port does not run: a cast to or from a string, a LIKE
-    pattern with ``_``."""
+    """Raise ``NotImplementedError`` naming the first node or expression
+    of the plan that the port does not run: a residual condition on a
+    join that is not inner, a window function or frame outside the
+    ported set, a cast to or from a string, a LIKE pattern with ``_``.
+    The JAX package sends these to its CPU fallback, which the port does
+    not have."""
+    if isinstance(plan, L.Join) and plan.condition is not None and \
+            plan.join_type != "inner":
+        raise NotImplementedError(
+            f"a residual (non-equi) condition on a {plan.join_type} join: "
+            "only inner joins take one (the outer, semi and anti residual "
+            "semantics need the nested-loop join, which is not ported)")
+
     def walk(e: Expression):
+        if isinstance(e, WindowExpression):
+            reason = e.supported_reason()
+            if reason is not None:
+                raise NotImplementedError(f"window {e.kind}: {reason}")
         if isinstance(e, Cast):
             reason = cast_supported(e.child.dtype, e.target)
             if reason is not None:
@@ -170,6 +195,15 @@ class TpuOverrides:
         if isinstance(node, L.InMemoryRelation):
             return TpuScanExec(node.batches, node.schema,
                                self._scan_rows(node.schema))
+        if isinstance(node, L.Range):
+            return TpuRangeExec(node.start, node.end, node.step,
+                                self.device)
+        if isinstance(node, L.Union):
+            return TpuUnionExec(*children)
+        if isinstance(node, Expand):
+            return TpuExpandExec(node, children[0])
+        if isinstance(node, L.Window):
+            return self._window(node, children[0])
         if isinstance(node, L.Project):
             return TpuProjectExec(node.exprs, children[0])
         if isinstance(node, L.Filter):
@@ -179,17 +213,66 @@ class TpuOverrides:
                                    children[0], self.device,
                                    hash_table_slots=self.hash_table_slots)
         if isinstance(node, L.Join):
-            return TpuHashJoinExec(
-                node.left_keys, node.right_keys, node.join_type,
+            join_type = node.join_type
+            if node.condition is not None and not node.left_keys:
+                # a pure non-equi inner join: the cross product, then the
+                # filter
+                join_type = "cross"
+            join = TpuHashJoinExec(
+                node.left_keys, node.right_keys, join_type,
                 children[0], children[1], self.device, using=node.using,
                 max_output_rows=self.conf.get(rc.JOIN_OUTPUT_BATCH_ROWS),
                 hash_enabled=self.hash_enabled)
+            if node.condition is not None:
+                # the residual, evaluated over the joined rows
+                return TpuFilterExec(node.condition, join)
+            return join
         if isinstance(node, L.Sort):
             return TpuSortExec(node.orders, children[0])
         if isinstance(node, L.Limit):
             return TpuLocalLimitExec(node.n, children[0])
         raise NotImplementedError(
             f"{type(node).__name__} is not ported to the PyTorch engine")
+
+    def _window_one_spec(self, window_exprs, child_exec):
+        """One window operator over one spec; with partition or order
+        keys, a sort on (partition keys ascending, order keys) under it,
+        as Spark plans WindowExec over a SortExec."""
+        spec = window_exprs[0][1].spec
+        if spec.partition_exprs or spec.orders:
+            orders = [(e, False, True) for e in spec.partition_exprs] + \
+                list(spec.orders)
+            return TpuWindowExec(window_exprs,
+                                 TpuSortExec(orders, child_exec),
+                                 self.device)
+        return TpuWindowExec(window_exprs, child_exec, self.device)
+
+    def _window(self, node: L.Window, child_exec):
+        """Several specs chain one operator each (later ones carry the
+        earlier outputs as payload; the child's ordinals do not move, as
+        outputs append at the end), then a projection restores the
+        node's column order."""
+        exprs = node.window_exprs
+        groups = group_by_spec(exprs)
+        if len(groups) == 1:
+            return self._window_one_spec(exprs, child_exec)
+        nchild = len(child_exec.schema)
+        cur = child_exec
+        appended_pos = {}
+        base = nchild
+        for grp in groups:
+            cur = self._window_one_spec([(n, we) for _, n, we in grp], cur)
+            for i, (j, _, _) in enumerate(grp):
+                appended_pos[j] = base + i
+            base += len(grp)
+        perm = list(range(nchild)) + \
+            [appended_pos[j] for j in range(len(exprs))]
+        cur_schema = cur.schema
+        projs = []
+        for want, p in zip([n for n, _ in node.schema], perm):
+            pname, pdt = cur_schema[p]
+            projs.append(Alias(BoundReference(p, pdt, pname), want))
+        return TpuProjectExec(projs, cur)
 
     def _try_fuse_chain(self, node) -> Optional[FusedStageExec]:
         """Collapse a maximal Project/Filter run into one FusedStageExec."""

@@ -528,3 +528,49 @@ def test_fixed_order_sums_match_index_add(n, size, k):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
                                atol=1e-9)
     assert torch.equal(got, fixed_order_sums(idx, v, size))
+
+
+@pytest.mark.parametrize("batch_rows", [1 << 22, 4096])
+def test_hash_group_by_sums_do_not_depend_on_slots(monkeypatch,
+                                                   batch_rows):
+    """The hash group-by's float sums have the same bits whichever slot
+    each key takes (on the card two colliding keys claim slots in either
+    order from run to run), and equal the sort path's bit for bit: rows
+    reduce into their group's rank in key order, not into their slot."""
+    from spark_rapids_tpu_torch.ops import kernels
+    rng = np.random.default_rng(3)
+    n = 20_000
+    pool = rng.integers(0, 1 << 40, 3000)
+    data = {"k": pool[rng.integers(0, 3000, n)],
+            "v": rng.normal(size=n) * 10.0 ** rng.integers(-3, 6, n)}
+
+    def run(hash_on):
+        s = TpuSession({"spark.rapids.tpu.pallas.hash.enabled": hash_on,
+                        "spark.rapids.tpu.pallas.hash.tableSlots": 1 << 13,
+                        "spark.rapids.sql.tpu.maxBatchRows": batch_rows},
+                       device="cpu")
+        return s.create_dataframe(data).groupBy("k").agg(
+            TF.sum("v").alias("s"), TF.avg("v").alias("a")).to_pandas()
+
+    before = fusion_metrics.snapshot()["hashKernelLaunches"]
+    plain = run(True)
+    assert fusion_metrics.snapshot()["hashKernelLaunches"] > before
+    orig = kernels.hash_insert
+
+    def moved(lo, hi, live, T):
+        """The plain insert with every slot moved to another place."""
+        slot, tlo, thi, occ, ovf = orig(lo, hi, live, T)
+        perm = torch.from_numpy(np.random.default_rng(9).permutation(T))
+        out = []
+        for t in (tlo, thi, occ):
+            m = torch.empty_like(t)
+            m[perm] = t
+            out.append(m)
+        slot = torch.where(slot < T, perm[slot.clamp(max=T - 1)].to(
+            slot.dtype), slot)
+        return (slot, *out, ovf)
+
+    monkeypatch.setattr(kernels, "hash_insert", moved)
+    assert run(True).equals(plain)
+    monkeypatch.setattr(kernels, "hash_insert", orig)
+    assert run(False).equals(plain)

@@ -457,3 +457,76 @@ def test_dictionary_encoders_match_jax(encoder, path, table, monkeypatch):
         want, want_values = want
         assert got_values == want_values
     np.testing.assert_array_equal(got[valid], want[valid])
+
+
+# --------------------------------------------- the dictionary on the device --
+
+def _string_col(values):
+    from spark_rapids_tpu_torch.columnar.column import Column
+    return Column.from_strings(values)
+
+
+DEVICE_BATCHES = [
+    ["b", "a", None, "b", "", "héllo", "a", None],
+    ["c", "a", "long string past eight", "", "b", "zz"],
+    [None, None, "c"],
+    ["x" * 30, "a", "x" * 29, "x" * 31],
+]
+
+
+@pytest.mark.parametrize("null_code", [None, -1])
+def test_stable_dictionary_on_device_equals_host_encoder(null_code):
+    """The device dictionary gives the host encoder's codes batch after
+    batch (first-appearance order, the null value after a batch's other
+    new values, ``null_code`` for joins), as its strings grow past one
+    and two packed words, and decodes them back."""
+    from spark_rapids_tpu_torch.ops import dictionary
+    d = dictionary.StableDictionary()
+    codes, seen = {}, []
+    for values in DEVICE_BATCHES:
+        c = _string_col(values)
+        got = d.encode(c, len(values), null_code=null_code)
+        want = dictionary.dict_encode_stable(
+            dictionary.host_strings(c, len(values)), codes, seen,
+            null_code)
+        assert d.host_codes is None
+        np.testing.assert_array_equal(got.numpy(), want)
+        back = d.decode(got, c.validity)
+        host = dictionary.host_strings(back, len(values))
+        texts = [None if not host.valid[i] else
+                 host.chars[host.offsets[i]:host.offsets[i + 1]]
+                 .tobytes().decode() for i in range(len(values))]
+        assert texts == values
+    assert len(d) == len(seen)
+
+
+def test_stable_dictionary_moves_to_the_host_past_its_width():
+    from spark_rapids_tpu_torch.ops import dictionary
+    d = dictionary.StableDictionary()
+    first = ["a", None, "b"]
+    long_ = ["b", "y" * (dictionary.MAX_PACKED_BYTES + 1), "a", None]
+    codes = [d.encode(_string_col(v), len(v)).tolist()
+             for v in (first, long_)]
+    assert d.host_codes is not None
+    assert codes == [[0, 2, 1], [1, 3, 0, 2]]
+    assert d.host_values == ["a", "b", None,
+                             "y" * (dictionary.MAX_PACKED_BYTES + 1)]
+
+
+def test_string_sort_keys_order_as_rank_encode():
+    """Packed words then length sort as Spark orders strings (bytes,
+    then a prefix first), the host ranks' order."""
+    from spark_rapids_tpu_torch.ops import aggregates as agg
+    from spark_rapids_tpu_torch.ops import dictionary
+    rng = np.random.default_rng(4)
+    pool = ["", "a", "a\x00", "ab", "abcdefgh", "abcdefghi", "abcdefgh\x7f",
+            "héllo", "hello", "日本", "\xff", "zzzzzzzzzzzzzzzzz", "Z"]
+    values = [pool[i] for i in rng.integers(0, len(pool), 200)]
+    c = _string_col(values)
+    keys = dictionary.string_sort_keys(c, len(values))
+    live = torch.ones(len(values), dtype=torch.bool)
+    perm = agg.sort_permutation(keys, live).numpy()
+    ranks = dictionary.rank_encode(dictionary.host_strings(c, len(values)))
+    assert list(ranks[perm]) == sorted(ranks)
+    assert [values[i] for i in perm] == sorted(
+        values, key=lambda v: v.encode("utf-8"))
