@@ -42,6 +42,17 @@ just before it and read just after:
   answer equal to the DataFrame form's; an unported SQL function, a
   residual on a left join and a RANGE frame with offsets each raise
   ``NotImplementedError`` naming it;
+- the ``files`` phase: the same SF10 tables written as parquet through
+  ``DataFrame.write.parquet`` (lineitem and orders as 16 files each),
+  then the 22 queries over ``session.read.parquet`` with the pipeline on
+  (one warm run, the median of 2 timed runs; rows/s, launches, host
+  syncs and the host time the scans waited for decoded tables and spent
+  uploading), each answer equal to the in-memory one; once more with the
+  pipeline off, equal bit for bit; q1 and q6 under the PERFILE,
+  COALESCING and MULTITHREADED readers, q6's scan decoding only its four
+  columns; at SF0.1 lineitem as ORC and as CSV equal to its parquet
+  copy, a partitioned write read back through discovery and a bucketed
+  write pruned to one file by an equality filter;
 - the 29 TPC-DS queries (``models/tpcds.py``) through ``session.sql`` at
   scale factor 50 (store_sales 3.0e7 rows), after the TPC-H tables left
   the card: per query one warm run, then the median of 2 timed runs
@@ -67,7 +78,8 @@ Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
-in total, by phase for the three query suites, and by shape), and last
+in total, by phase for the tpch22, tpch_sql, files and tpcds phases, and
+by shape), and last
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -94,6 +106,8 @@ HASH_SLOTS = 1 << 21
 MMR_CHECK_ROWS = 1 << 26
 TPCH_SF = 10            # TPC-H scale of q3's phase and the 22 queries
 TPCH_CHECK_SF = 0.1     # the card against the engine on the CPU
+FILES_PER_BIG_TABLE = 16  # lineitem and orders as parquet in the files phase
+FILES_CHECK_SF = 0.1    # ORC, CSV, partitioned and bucketed round trips
 # store_sales 3.0e7 rows: SF100 (lineitem's SF10 rows) took 409 s of the
 # 400 s the phase may take on a slower host
 TPCDS_SF = 50
@@ -783,7 +797,8 @@ def run_tpch22(torch, K, fm, tpch, cols, batches, card_line, total, reps=3):
     device tables ``batches`` (made from the host ``cols``), hash on:
     launches and host syncs of the first run (the main path's), then
     rows/s over the median of ``reps``; each answer equals the hash-off
-    run's (check a) and q1 equals numpy (check c)."""
+    run's (check a) and q1 equals numpy (check c).  Returns the answers
+    and the rows/s by query."""
     from spark_rapids_tpu_torch.api.session import TpuSession
     from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
     sessions = {on: TpuSession(tpch_conf(on)) for on in (True, False)}
@@ -825,7 +840,7 @@ def run_tpch22(torch, K, fm, tpch, cols, batches, card_line, total, reps=3):
         s.stop()
     print("tpch22 rows/s on " + card_line + ": " + json.dumps(
         {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
-    return answers
+    return answers, rates
 
 
 def sql_tables(text):
@@ -1054,6 +1069,228 @@ def check_tpch22_cpu(torch, tpch, sf):
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     card.stop()
     cpu.stop()
+
+
+# ----------------------------------------------------------------- files --
+
+def files_conf(pipeline: bool = True, reader: str = "AUTO"):
+    """The tpch22 conf (hash on, 2^22-row batches) for file scans: the
+    reader's batches are 2^22 rows too."""
+    return dict(tpch_conf(True), **{
+        "spark.rapids.sql.reader.batchSizeRows": BATCH_ROWS,
+        "spark.rapids.tpu.pipeline.enabled": pipeline,
+        "spark.rapids.sql.format.parquet.reader.type": reader})
+
+
+def import_formats():
+    """pyarrow's parquet, ORC and CSV modules; a missing one fails the
+    phase, naming it."""
+    import importlib
+    mods = {}
+    for fmt in ("parquet", "orc", "csv"):
+        try:
+            mods[fmt] = importlib.import_module(f"pyarrow.{fmt}")
+        except ImportError as exc:
+            raise CheckFailed(f"files: pyarrow.{fmt} does not import on "
+                              f"this machine: {exc}") from exc
+    import pyarrow
+    print(f"files: pyarrow {pyarrow.__version__} with parquet, orc and csv",
+          flush=True)
+    return mods
+
+
+def scans_of(plan):
+    """The file scans of a physical plan."""
+    out = []
+
+    def walk(n):
+        if type(n).__name__ == "TpuFileScanExec":
+            out.append(n)
+        for c in n.children:
+            walk(c)
+    walk(plan)
+    return out
+
+
+def scan_split(df):
+    """Host ms the last run's scans waited for decoded tables and spent
+    uploading them, and the bytes arrow decoded."""
+    scans = scans_of(df._last_exec)
+    return (sum(sc.metrics["decodeTime"].value for sc in scans) / 1e6,
+            sum(sc.metrics["uploadTime"].value for sc in scans) / 1e6,
+            sum(sc.metrics["bytesDecoded"].value for sc in scans))
+
+
+def write_tpch_parquet(batches, root):
+    """The TPC-H device tables written through ``DataFrame.write.parquet``:
+    lineitem and orders as FILES_PER_BIG_TABLE files each, every other
+    table as one file."""
+    import os
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    t0 = time.perf_counter()
+    on_disk = 0
+    for name, b in batches.items():
+        parts = FILES_PER_BIG_TABLE if name in ("lineitem", "orders") else 1
+        per_file = -(-b.nrows // parts)
+        s = TpuSession({"spark.rapids.sql.writer.maxRowsPerFile": per_file})
+        st = s.create_dataframe(b).write.parquet(os.path.join(root, name))
+        check(st.num_files == parts and st.num_rows == b.nrows,
+              f"files: {name} written as {st.num_files} parquet files, "
+              f"{st.num_rows} rows, {st.num_bytes} bytes")
+        on_disk += st.num_bytes
+        s.stop()
+    print(f"files: the eight SF{TPCH_SF} tables written as parquet in "
+          f"{time.perf_counter() - t0:.3f} s, {on_disk} bytes on disk",
+          flush=True)
+
+
+def run_files(torch, K, fm, tpch, batches, df_answers, mem_rates,
+              card_line, total):
+    """The 22 TPC-H queries over parquet files the port wrote, against
+    the in-memory tpch22 answers of this run (rows/s beside theirs,
+    ``mem_rates``); pipeline on and off; the reader strategies; q6's
+    pruning; ORC, CSV, partitioned and bucketed round trips at SF0.1."""
+    import os
+    import tempfile
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    import_formats()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-files-") as tmp:
+        root = os.path.join(tmp, "tpch")
+        write_tpch_parquet(batches, root)
+        on = TpuSession(files_conf(True))
+        tables = tpch.read_parquet(on, root)
+        check(len(tables["lineitem"].plan.paths) == FILES_PER_BIG_TABLE,
+              f"files: lineitem read as {FILES_PER_BIG_TABLE} files")
+        rates, answers = {}, {}
+        for name, query in tpch.QUERIES.items():
+            read = ReadTables(tables)
+            q = query(read)
+            rows = sum(batches[k].nrows for k in read.read)
+            got, launches, fus, rates[name] = drive(
+                torch, K, fm, q, rows, card_line, f"files {name}", reps=2,
+                extra={"host_syncs": host_sync_metrics}, same_bits=True)
+            answers[name] = got
+            total.add(launches)
+            dec, up, nbytes = scan_split(q)
+            wall = 1e3 * rows / rates[name]
+            st = on.last_pipeline_stats
+            print(f"files {name}: launches "
+                  + ", ".join(f"{k} {launches[k]}" for k in K.launches.NAMES)
+                  + f"; host syncs {fus['host_syncs']}; last run: wall "
+                  f"{wall:.3f} ms, scans waited {dec:.3f} ms for decoded "
+                  f"tables and uploaded for {up:.3f} ms, the rest "
+                  f"{wall - dec - up:.3f} ms; {nbytes} bytes decoded; "
+                  f"pipeline {st.as_dict()}", flush=True)
+            ok, why = frames_match(got, df_answers[name], QUERY_RTOL)
+            check(ok, f"files {name}: the answer over parquet equals the "
+                  f"in-memory tpch22 answer (floats within rel "
+                  f"{QUERY_RTOL}) {why}")
+        print("files rows/s on " + card_line + ": " + json.dumps(
+            {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+        print("files rows/s beside in memory (files, in memory, ratio): "
+              + json.dumps({k: [float(f"{v:.6e}"),
+                                float(f"{mem_rates[k]:.6e}"),
+                                round(v / mem_rates[k], 4)]
+                            for k, v in rates.items()}), flush=True)
+        on.stop()
+
+        # pipeline off: the same answers, bit for bit
+        off = TpuSession(files_conf(False))
+        off_tables = tpch.read_parquet(off, root)
+        for name, query in tpch.QUERIES.items():
+            got = query(off_tables).to_pandas()
+            check(got.equals(answers[name]),
+                  f"files {name}: pipeline off equals pipeline on bit for "
+                  "bit")
+        off.stop()
+
+        # the reader strategies, and q6's pruning
+        q6_cols = {"l_shipdate", "l_discount", "l_quantity",
+                   "l_extendedprice"}
+        for reader in ("PERFILE", "COALESCING", "MULTITHREADED"):
+            s = TpuSession(files_conf(True, reader))
+            t = tpch.read_parquet(s, root)
+            for name in ("q1", "q6"):
+                q = tpch.QUERIES[name](t)
+                got = q.to_pandas()
+                ok, why = frames_match(got, answers[name], QUERY_RTOL)
+                check(ok, f"files {name} {reader}: equals the default "
+                      f"reader's answer (floats within rel {QUERY_RTOL}) "
+                      f"{why}")
+                if name == "q6":
+                    sc = scans_of(q._last_exec)
+                    dec, up, nbytes = scan_split(q)
+                    check(len(sc) == 1 and set(sc[0].columns) == q6_cols
+                          and t["lineitem"].plan.required_columns
+                          == q6_cols,
+                          f"files q6 {reader}: the scan decodes only "
+                          f"{sorted(sc[0].columns)}: {nbytes} bytes "
+                          f"decoded, waited {dec:.3f} ms, uploads "
+                          f"{up:.3f} ms")
+            s.stop()
+        check_small_formats(tpch, os.path.join(tmp, "small"))
+
+
+def check_small_formats(tpch, root):
+    """At SF0.1: lineitem as ORC and as CSV reads back equal to its
+    parquet copy; a partitionBy write reads back through discovery equal
+    to what was written; a bucketBy write under an equality filter
+    prunes to one file."""
+    import os
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    s = TpuSession(files_conf(True))
+    cols = tpch.gen_table_columns(FILES_CHECK_SF)["lineitem"]
+    li = s.create_dataframe(device_tables({"l": cols}, s.device)["l"])
+    paths = {fmt: os.path.join(root, fmt) for fmt in
+             ("parquet", "orc", "csv")}
+    for fmt, p in paths.items():
+        getattr(li.write, fmt)(p)
+    base = s.read.parquet(paths["parquet"]).to_pandas()
+    check(len(base) == len(cols["l_orderkey"][1]),
+          f"files SF{FILES_CHECK_SF}: lineitem parquet holds {len(base)} "
+          "rows")
+    for fmt in ("orc", "csv"):
+        got = getattr(s.read, fmt)(paths[fmt]).to_pandas()
+        note = ""
+        if fmt == "csv":
+            # CSV carries no types: its integers read back as bigint
+            widened = [c for c in got.columns
+                       if got[c].dtype != base[c].dtype]
+            got = got.astype({c: base[c].dtype for c in widened})
+            note = f"; read back as another type, then cast: {widened}"
+        ok, why = frames_match(got, base, 0.0)
+        check(ok, f"files SF{FILES_CHECK_SF}: lineitem as {fmt} reads back "
+              f"equal to its parquet copy{note} {why}")
+    part = os.path.join(root, "by_flag")
+    st = li.write.partitionBy("l_returnflag").parquet(part)
+    back = s.read.parquet(part).to_pandas()
+    keys = list(base.columns)  # (orderkey, linenumber) is not unique
+    ok, why = frames_match(
+        back[list(base.columns)].sort_values(keys, ignore_index=True),
+        base.sort_values(keys, ignore_index=True), 0.0)
+    check(ok and st.num_partitions == 3 and
+          sorted(os.listdir(part)) == ["l_returnflag=A", "l_returnflag=N",
+                                       "l_returnflag=R"],
+          f"files SF{FILES_CHECK_SF}: partitionBy(l_returnflag) reads back "
+          f"through discovery equal to what was written "
+          f"({st.num_partitions} partitions) {why}")
+    buck = os.path.join(root, "bucketed")
+    st = li.write.bucketBy(8, "l_orderkey").parquet(buck)
+    key = int(base["l_orderkey"].iloc[len(base) // 2])
+    q = s.read.parquet(buck).filter(F.col("l_orderkey") == key)
+    got = q.to_pandas().sort_values(keys, ignore_index=True)
+    want = base[base["l_orderkey"] == key].sort_values(
+        keys, ignore_index=True)
+    sc = scans_of(q._last_exec)
+    ok, why = frames_match(got, want, 0.0)
+    check(ok and st.num_files == 8 and len(sc) == 1
+          and len(sc[0].paths) == 1,
+          f"files SF{FILES_CHECK_SF}: bucketBy(8, l_orderkey) then "
+          f"l_orderkey == {key} reads one of {st.num_files} files and "
+          f"equals pandas ({len(got)} rows) {why}")
+    s.stop()
 
 
 def make_fact_dim(F, fact, dim):
@@ -1776,8 +2013,9 @@ def main() -> int:
     # all 22 TPC-H queries at SF10 (hash on, against hash off and numpy),
     # then at SF0.1 against the engine on the CPU
     tpch_launches = PathLaunches(K.launches.NAMES)
-    df_answers = run_tpch22(torch, K, fm, tpch, tpch_cols, tpch_batches,
-                            card_line, tpch_launches)
+    df_answers, mem_rates = run_tpch22(torch, K, fm, tpch, tpch_cols,
+                                       tpch_batches, card_line,
+                                       tpch_launches)
     for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
         check(tpch_launches.counts[k] >= 1,
               f"tpch22 launched {k} {tpch_launches.counts[k]}x")
@@ -1795,6 +2033,19 @@ def main() -> int:
         check(sql_launches.counts[k] >= 1,
               f"tpch_sql launched {k} {sql_launches.counts[k]}x")
     total.extend(sql_launches)
+
+    # the 22 queries over parquet files the port writes from the same
+    # tables, against this run's in-memory answers
+    files_launches = PathLaunches(K.launches.NAMES)
+    t0 = time.perf_counter()
+    run_files(torch, K, fm, tpch, tpch_batches, df_answers, mem_rates,
+              card_line, files_launches)
+    print(f"files phase {time.perf_counter() - t0:.3f} s; launches "
+          f"{files_launches.counts}", flush=True)
+    for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
+        check(files_launches.counts[k] >= 1,
+              f"files launched {k} {files_launches.counts[k]}x")
+    total.extend(files_launches)
     del tpch_cols, tpch_batches, df_answers
     check_tpch22_cpu(torch, tpch, TPCH_CHECK_SF)
 
@@ -1829,6 +2080,7 @@ def main() -> int:
     check_tpcds_cpu(torch, tpcds, TPCDS_CHECK_SF, cpu_proc, cpu_conn)
     phase_launches = {"tpch22": tpch_launches.counts,
                       "tpch_sql": sql_launches.counts,
+                      "files": files_launches.counts,
                       "tpcds": ds_launches.counts}
 
     # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
@@ -1894,6 +2146,19 @@ def main() -> int:
     total.add(lf)
     s.stop()
     del fact, dim, q
+
+    # NCCL allocates its buffers outside PyTorch's caching allocator,
+    # whose cache may by now hold nearly the whole card (83.7e9 bytes
+    # reserved against 53e9 at the peak in a run with the files phase,
+    # where the group's first all-to-all then failed): hand the cached
+    # blocks back first
+    torch.cuda.empty_cache()
+    host = torch.cuda.host_memory_stats()
+    print(f"before NCCL: device reserved {torch.cuda.memory_reserved()} "
+          f"bytes (peak allocated {torch.cuda.max_memory_allocated()}); "
+          f"pinned host {host.get('allocated_bytes.current')} bytes (peak "
+          f"{host.get('allocated_bytes.peak')}, "
+          f"{host.get('num_host_alloc')} cudaHostAlloc calls)", flush=True)
 
     # one real process group: NCCL with one rank, against one logical
     # shard on the same data

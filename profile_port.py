@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 profile_port.py [tpch] [join] [q6] [tpcds]
+    python3 profile_port.py [tpch] [join] [q6] [tpcds] [files]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -17,12 +17,14 @@ and the q1 shape over 2^26 rows (``bench.py``'s ``gen_host`` columns) on
 one device and over 8 logical shards, and TPC-DS q67 (rollup over eight
 keys, four of them strings, then a window) and q47 (a windowed average
 and ``lag``/``lead`` over two specs) through ``session.sql`` with the
-hash path on, and prints, per run: the host wall
+hash path on, and TPC-H q1 and q6 over SF10 lineitem written as 16
+parquet files, pipeline on and off, and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
 host syncs, the host time of the string dictionary (fetching string
 columns, encoding and decoding on the host; apart from that, its
-card-side calls) and its share of the wall, the device ops
+card-side calls) and its share of the wall, the device time of the
+host-to-device copies, the device ops
 that took the most device time, and the device
 time of each hand-written kernel and of all memsets (the hash insert
 clears its table with one; PyTorch issues others), with its share of the
@@ -157,6 +159,10 @@ def profile(torch, query, label, card_line):
               f"calls, {encode['card_ms']:.3f} ms of host wall (its waits "
               f"for the card included); {encode['card_ms'] / wall:.4f} of "
               "the wall", flush=True)
+    h2d = [e for e in device if "HtoD" in e.name]
+    if h2d:
+        print(f"  host-to-device copies: {len(h2d)}, "
+              f"{busy_ms(h2d):.3f} ms of device time", flush=True)
     by_name = {}
     for e in device:
         t = by_name.setdefault(e.name, [0.0, 0])
@@ -195,7 +201,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card_line, flush=True)
-    sections = set(sys.argv[1:]) or {"tpch", "join", "q6", "tpcds"}
+    sections = set(sys.argv[1:]) or {"tpch", "join", "q6", "tpcds",
+                                     "files"}
 
     def session(enabled):
         return TpuSession({
@@ -212,6 +219,8 @@ def main() -> int:
         profile_q6(torch, F, TpuSession, card_line)
     if "tpcds" in sections:
         profile_tpcds(torch, session, card_line)
+    if "files" in sections:
+        profile_files(torch, TpuSession, tpch, card_line)
     return 0
 
 
@@ -281,6 +290,29 @@ def profile_tpcds(torch, session, card_line):
         profile(torch, lambda name=name: s.sql(tpcds.QUERIES[name]),
                 f"TPC-DS {name} SF{cs.TPCDS_SF} hash on", card_line)
     s.stop()
+
+
+def profile_files(torch, TpuSession, tpch, card_line):
+    """TPC-H q1 and q6 over SF10 lineitem written as 16 parquet files
+    through the port's writer, with the pipeline on and off."""
+    import os
+    import tempfile
+    cols = tpch.gen_table_columns(cs.TPCH_SF)
+    batch = cs.device_tables({"lineitem": cols["lineitem"]},
+                             torch.device(cs.DEVICE))
+    del cols
+    with tempfile.TemporaryDirectory(prefix="profile-files-") as tmp:
+        cs.write_tpch_parquet(batch, tmp)
+        del batch
+        for pipeline in (True, False):
+            s = TpuSession(cs.files_conf(pipeline))
+            t = tpch.read_parquet(s, tmp)
+            for name in ("q1", "q6"):
+                profile(torch, tpch.QUERIES[name](t),
+                        f"TPC-H {name} SF{cs.TPCH_SF} over parquet, "
+                        f"pipeline {'on' if pipeline else 'off'}",
+                        card_line)
+            s.stop()
 
 
 if __name__ == "__main__":

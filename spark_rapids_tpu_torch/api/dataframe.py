@@ -54,6 +54,10 @@ class DataFrame:
 
     def select(self, *cols: Union[Col, str]) -> "DataFrame":
         exprs = [_expr(c) for c in cols]
+        needs = _file_meta_needs(exprs, self.plan.schema)
+        if needs:
+            return self._with_file_meta(needs).select(*cols)
+        exprs = _expand_metadata(exprs, self.plan.schema)
         win_idx = {i for i, e in enumerate(exprs) if _contains_window(e)}
         if not win_idx:
             return DataFrame(self.session, L.Project(exprs, self.plan))
@@ -89,7 +93,19 @@ class DataFrame:
         return DataFrame(self.session, L.Project(final, wplan))
 
     def filter(self, condition: Col) -> "DataFrame":
-        return DataFrame(self.session, L.Filter(_expr(condition), self.plan))
+        cond = _expr(condition)
+        needs = _file_meta_needs([cond], self.plan.schema)
+        if needs:
+            return self._with_file_meta(needs).filter(condition)
+        return DataFrame(self.session, L.Filter(cond, self.plan))
+
+    def _with_file_meta(self, needs: set) -> "DataFrame":
+        attached = _attach_file_meta(self.plan, needs)
+        if attached is None:
+            raise ValueError(
+                "input_file_name()/_metadata are only available above a "
+                "file scan (optionally through filter/limit/sort)")
+        return DataFrame(self.session, attached)
 
     def withColumn(self, name: str, c: Col) -> "DataFrame":
         """Replace the column ``name`` in place, or append it."""
@@ -256,12 +272,32 @@ class DataFrame:
         self.session.register_view(name, self)
 
     def _execute_batches(self) -> List[ColumnarBatch]:
+        """Run the plan: distributed when the session's shard group takes
+        it, else on the session's device, through the asynchronous
+        pipeline unless ``spark.rapids.tpu.pipeline.enabled`` is off."""
+        from spark_rapids_tpu_torch.config import rapids_conf as rc
         got = try_distributed(self.session, self.plan)
         if got is not None:
             return got
         exec_plan = self.session.plan(self.plan)
         self._last_exec = exec_plan
-        return list(exec_plan.execute())
+        conf = self.session.conf
+        if not conf.get(rc.PIPELINE_ENABLED):
+            self.session.last_pipeline_stats = None
+            return list(exec_plan.execute())
+        from spark_rapids_tpu_torch.exec.pipeline import (
+            PipelineStats, pipelined)
+        stats = PipelineStats(conf.get(rc.PIPELINE_DEPTH))
+        try:
+            return list(pipelined(exec_plan.execute(), stats.depth, stats,
+                                 self.session.device))
+        finally:
+            self.session.last_pipeline_stats = stats
+
+    @property
+    def write(self):
+        from spark_rapids_tpu_torch.io.writers import DataFrameWriter
+        return DataFrameWriter(self)
 
     def to_arrow(self):
         import pyarrow as pa
@@ -283,6 +319,60 @@ class DataFrame:
     def explain(self) -> str:
         """The physical plan this DataFrame runs as."""
         return self.session.plan(self.plan).tree_string()
+
+
+def _file_meta_needs(exprs, schema) -> set:
+    """The file-metadata column groups these expressions reference that
+    the schema does not hold yet."""
+    present = {n for n, _ in schema}
+    needs = set()
+    for e in exprs:
+        for r in _references(e):
+            if r == L.FileRelation.INPUT_FILE_COL and r not in present:
+                needs.add("input_file")
+            elif (r == "_metadata" or r.startswith("_metadata.")) and \
+                    L.FileRelation.META_COLUMNS[0] not in present:
+                needs.add("metadata")
+    return needs
+
+
+def _attach_file_meta(plan: L.LogicalPlan, needs: set):
+    """The plan rebuilt with the metadata columns enabled on its
+    FileRelation leaf, or None.  The columns append to the end of the
+    scan's schema, so the bound ordinals of a Filter, Limit or Sort
+    between stay valid; any other node in between is refused (as in
+    Spark, metadata columns resolve against the scan)."""
+    import copy
+    if isinstance(plan, L.FileRelation):
+        new = copy.copy(plan)
+        new.pushed_filters = list(plan.pushed_filters)
+        new.file_meta = set(plan.file_meta) | needs
+        return new
+    if isinstance(plan, (L.Filter, L.Limit, L.Sort)):
+        child = _attach_file_meta(plan.children[0], needs)
+        if child is None:
+            return None
+        new = copy.copy(plan)
+        new.children = (child,)
+        return new
+    return None
+
+
+def _expand_metadata(exprs, schema) -> List[Expression]:
+    """A bare ``_metadata`` reference selects its four fields.  The port
+    has no struct columns: they come out as the flat columns
+    ``_metadata.file_path``, ``_metadata.file_name``,
+    ``_metadata.file_size`` and ``_metadata.file_modification_time``
+    (the JAX package's shredded layout of the struct)."""
+    out = []
+    for e in exprs:
+        if isinstance(e, UnresolvedColumn) and e.col_name == "_metadata" \
+                and "_metadata" not in {n for n, _ in schema}:
+            out.extend(UnresolvedColumn(n)
+                       for n in L.FileRelation.META_COLUMNS)
+        else:
+            out.append(e)
+    return out
 
 
 def _references(e: Expression) -> set:

@@ -6,7 +6,8 @@ dates), arithmetic (``%`` and unary minus too), ``abs``, comparisons,
 logic, null tests, casts, ``isin``, the string predicates
 (``startswith``, ``endswith``, ``contains``, ``like``),
 ``when``/``otherwise``, ``coalesce``, ``substring``, the date parts and
-date arithmetic, sort keys, the sum / avg / count / min / max
+date arithmetic, ``input_file_name`` and ``_metadata`` field access over
+file scans, sort keys, the sum / avg / count / min / max
 aggregates, ``grouping``/``grouping_id`` (rollup, cube, grouping sets),
 and window functions (``Window`` specs, ``.over``: the ranking
 functions, ``lead``/``lag`` and the ``window_*`` aggregates).
@@ -148,6 +149,16 @@ class Col:
     def like(self, pattern: str) -> "Col":
         return Col(S.Like(self.expr, pattern))
 
+    def getField(self, field: str) -> "Col":
+        """A field of a struct column.  The port has no struct columns;
+        the one struct it reads, a file scan's ``_metadata``, is held as
+        flat ``_metadata.<field>`` columns, which this names."""
+        if not isinstance(self.expr, UnresolvedColumn):
+            raise NotImplementedError(
+                "getField on a computed struct: struct columns are not "
+                "ported")
+        return Col(UnresolvedColumn(f"{self.expr.col_name}.{field}"))
+
     def between(self, lo, hi) -> "Col":
         return Col(preds.And(
             preds.GreaterThanOrEqual(self.expr, _lit_expr(lo)),
@@ -198,6 +209,13 @@ def col(name: str) -> Col:
 
 def lit(value, dtype: Optional[DataType] = None) -> Col:
     return Col(Literal(value, dtype))
+
+
+def input_file_name() -> Col:
+    """The path of the file each row was read from (resolves against the
+    file scan, which then adds the column)."""
+    from spark_rapids_tpu_torch.plan.logical import FileRelation
+    return Col(UnresolvedColumn(FileRelation.INPUT_FILE_COL))
 
 
 def when(condition: Col, value) -> "CaseBuilder":

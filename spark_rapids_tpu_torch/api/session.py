@@ -1,7 +1,8 @@
 """TpuSession: the entry point of the PyTorch engine.
 
 Counterpart of ``spark_rapids_tpu/api/session.py``.  A session owns its
-configuration and one device.  ``TpuSession(conf)`` runs on ``cuda:0``
+configuration and one device; ``session.read`` makes DataFrames over
+parquet, ORC and CSV files.  ``TpuSession(conf)`` runs on ``cuda:0``
 and raises when no CUDA device is present: it never carries on quietly on
 the CPU.  Pass ``device="cpu"`` to run on the CPU on purpose (the tests
 do); the hand-written kernels' plain versions then run instead.
@@ -43,6 +44,46 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class DataFrameReader:
+    """``session.read.parquet(path, ...)``: a DataFrame over files.  A
+    path may be a file or a directory (a hive-partitioned table root, or a
+    bucketed table's directory with its ``_bucket_spec.json``)."""
+
+    def __init__(self, session: "TpuSession"):
+        self.session = session
+
+    def option(self, key: str, value) -> "DataFrameReader":
+        """Reader options (a CSV's ``header``, ``sep``, ``nullValue`` ...)
+        are not honoured by the port's readers yet, so setting one raises
+        rather than reading the files some other way."""
+        raise NotImplementedError(
+            f"reader option {key!r} is not supported by the PyTorch "
+            f"port's readers")
+
+    def _make(self, paths, file_format) -> DataFrame:
+        from spark_rapids_tpu_torch.io.bucketing import read_spec
+        from spark_rapids_tpu_torch.io.readers import infer_file_schema
+        if isinstance(paths, str):
+            paths = [paths]
+        paths = [str(p) for p in paths]
+        if not paths:
+            raise ValueError("read needs at least one path")
+        schema = infer_file_schema(paths, file_format)
+        bucket_spec = read_spec(paths[0]) if len(paths) == 1 else None
+        rel = L.FileRelation(paths, file_format, schema,
+                             bucket_spec=bucket_spec)
+        return DataFrame(self.session, rel)
+
+    def parquet(self, *paths: str) -> DataFrame:
+        return self._make(list(paths), "parquet")
+
+    def orc(self, *paths: str) -> DataFrame:
+        return self._make(list(paths), "orc")
+
+    def csv(self, *paths: str) -> DataFrame:
+        return self._make(list(paths), "csv")
+
+
 class TpuSession:
     def __init__(self, conf: Optional[Union[RapidsConf, Dict]] = None,
                  device=None, process_group=None):
@@ -61,6 +102,9 @@ class TpuSession:
                 self.conf.get(rc.DISTRIBUTED_NUM_SHARDS), self.device)
         self.last_dist_explain = ""
         self.last_dist_stats = None
+        # the last single-device collect's pipeline counters (None when
+        # it ran without the pipeline)
+        self.last_pipeline_stats = None
         self._views: Dict[str, DataFrame] = {}
 
     def create_dataframe(self, data) -> DataFrame:
@@ -80,6 +124,10 @@ class TpuSession:
         else:
             raise TypeError(f"cannot create a DataFrame from {type(data)}")
         return DataFrame(self, L.InMemoryRelation([batch], batch.schema))
+
+    @property
+    def read(self) -> DataFrameReader:
+        return DataFrameReader(self)
 
     def range(self, start: int, end: Optional[int] = None,
               step: int = 1) -> DataFrame:

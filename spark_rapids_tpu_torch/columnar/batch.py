@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dts
-from spark_rapids_tpu_torch.columnar.column import Column, RowCount
+from spark_rapids_tpu_torch.columnar.column import (
+    Column, RowCount, stage_parts)
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 
 Schema = Sequence[Tuple[str, DataType]]
@@ -62,6 +63,13 @@ class ColumnarBatch:
     def device(self) -> torch.device:
         return next(iter(self.columns.values())).device
 
+    def device_size_bytes(self) -> int:
+        """Bytes of the batch's device buffers (capacity, not rows)."""
+        return sum(c.data.nbytes
+                   + (0 if c.offsets is None else c.offsets.nbytes)
+                   + (0 if c.validity is None else c.validity.nbytes)
+                   for c in self.columns.values())
+
     def column(self, name: str) -> Column:
         return self.columns[name]
 
@@ -95,33 +103,12 @@ class ColumnarBatch:
 
     @classmethod
     def from_arrow(cls, table, device="cpu") -> "ColumnarBatch":
-        """Columns from a pyarrow Table; arrow nulls become validity."""
-        import pyarrow as pa
-        import pyarrow.compute as pc
-        cols = {}
-        for name in table.column_names:
-            arr = table.column(name).combine_chunks()
-            if pa.types.is_dictionary(arr.type):
-                arr = arr.dictionary_decode()
-            dt = dts.from_arrow_type(arr.type)
-            if dt.is_string:
-                cols[name] = _string_column_from_arrow(arr, device)
-                continue
-            validity = None
-            if arr.null_count:
-                validity = np.asarray(pc.is_valid(arr))
-            if dt.is_date:
-                values = np.asarray(arr.cast(pa.int32()).fill_null(0))
-            elif dt.is_timestamp:
-                values = np.asarray(arr.cast(pa.timestamp("us"))
-                                    .cast(pa.int64()).fill_null(0))
-            else:
-                if arr.null_count:
-                    arr = pc.fill_null(arr, pa.scalar(
-                        False if dt.is_boolean else 0, arr.type))
-                values = arr.to_numpy(zero_copy_only=False)
-            cols[name] = Column.from_numpy(values, dtype=dt,
-                                           validity=validity, device=device)
+        """Columns from a pyarrow Table; arrow nulls become validity.
+        Each column's chunks go end to end into one staging buffer per
+        device buffer (``column.stage_parts``), without concatenating
+        them first."""
+        cols = {name: _column_from_arrow(table.column(name), device)
+                for name in table.column_names}
         return cls(cols, table.num_rows)
 
     @classmethod
@@ -159,27 +146,73 @@ class ColumnarBatch:
         return self.to_arrow().to_pandas()
 
 
-def _string_column_from_arrow(arr, device) -> Column:
-    """A string column from an arrow string array's own buffers (no
-    Python string per row); a null row becomes an empty string under a
-    false validity, as ``Column.from_strings`` makes it."""
+def _column_from_arrow(chunked, device) -> Column:
+    """One arrow column (a ChunkedArray) as a device column."""
     import pyarrow as pa
     import pyarrow.compute as pc
-    validity = np.asarray(pc.is_valid(arr)) if arr.null_count else None
+    chunks, at = list(chunked.chunks), chunked.type
+    if pa.types.is_dictionary(at):
+        chunks = [c.dictionary_decode() for c in chunks]
+        at = at.value_type
+    dt = dts.from_arrow_type(at)
+    n = sum(len(c) for c in chunks)
+    validity = None
+    if any(c.null_count for c in chunks):
+        validity = stage_parts(
+            [np.asarray(pc.is_valid(c)) if c.null_count else (len(c), True)
+             for c in chunks], np.bool_, device)
+    if dt.is_string:
+        data, offsets = _string_buffers(chunks, n, device)
+        return Column(dt, data, n, validity=validity, offsets=offsets)
+    return Column(dt, stage_parts([_fixed_width(c, dt) for c in chunks],
+                                  dt.storage, device), n, validity=validity)
+
+
+def _fixed_width(arr, dt) -> np.ndarray:
+    """An arrow chunk's values as numpy storage values (a view where arrow
+    allows); null slots hold zero."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    if dt.is_date:
+        arr = arr.cast(pa.int32())
+    elif dt.is_timestamp:
+        arr = arr.cast(pa.timestamp("us")).cast(pa.int64())
     if arr.null_count:
-        arr = pc.fill_null(arr, "")
-    n = len(arr)
-    if n == 0:
-        return Column.from_strings([], device=device)
-    bufs = arr.buffers()
-    width = np.int64 if pa.types.is_large_string(arr.type) else np.int32
-    offsets = np.frombuffer(bufs[1], dtype=width)[
-        arr.offset: arr.offset + n + 1].astype(np.int64)
-    chars = np.frombuffer(bufs[2], dtype=np.uint8) \
-        if bufs[2] is not None else np.zeros(0, dtype=np.uint8)
-    chars = chars[offsets[0]: offsets[-1]]
-    return Column.from_string_buffers(offsets - offsets[0], chars,
-                                      validity, device)
+        arr = pc.fill_null(arr, pa.scalar(False if dt.is_boolean else 0,
+                                          arr.type))
+    return arr.to_numpy(zero_copy_only=False)
+
+
+def _string_buffers(chunks, n: int, device):
+    """(chars, int32 offsets) on ``device`` of arrow string chunks, from
+    their own buffers (no Python string per row).  A null row becomes an
+    empty string, as ``Column.from_strings`` makes it."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    char_parts, offset_parts, base = [], [], 0
+    for c in chunks:
+        if c.null_count:
+            c = pc.fill_null(c, "")
+        k = len(c)
+        if not k:
+            continue
+        bufs = c.buffers()
+        width = np.int64 if pa.types.is_large_string(c.type) else np.int32
+        co = np.frombuffer(bufs[1], dtype=width)[c.offset: c.offset + k + 1]
+        if bufs[2] is not None:
+            char_parts.append(np.frombuffer(bufs[2], dtype=np.uint8)[
+                int(co[0]): int(co[-1])])
+        # rebased to this chunk's place in the column (a view when the
+        # chunk starts at its own offset 0 and at the column's start)
+        offset_parts.append(co[:-1] if base == int(co[0]) and
+                            width == np.int32 else
+                            (co[:-1] - co[0] + base).astype(np.int32))
+        base += int(co[-1] - co[0])
+        if base >= (1 << 31):
+            raise ValueError("string offsets are int32: a column holds "
+                             "less than 2 GiB of chars")
+    offsets = stage_parts(offset_parts + [(1, base)], np.int32, device)
+    return stage_parts(char_parts, np.uint8, device), offsets
 
 
 def _column_from_list(values: list, device) -> Column:

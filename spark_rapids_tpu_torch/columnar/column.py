@@ -14,6 +14,7 @@ padding that every consumer masks.
 from __future__ import annotations
 
 import datetime as _dt
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -23,6 +24,141 @@ from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 
 MIN_CAPACITY = 1024
+
+
+def _host_view(a: np.ndarray) -> torch.Tensor:
+    """A tensor over a numpy array's memory, read-only arrays (arrow's
+    buffers) included: it is only read from."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+
+STAGING_SLOT_BYTES = 64 << 20
+STAGING_SLOTS = 4
+
+
+class StagingRing:
+    """A thread's pinned staging buffers for one CUDA device, used in
+    turn: ``STAGING_SLOTS`` slots of ``STAGING_SLOT_BYTES``.  A slot is
+    refilled only after the device copy that last read it has completed
+    (its event), so pinned memory stays bounded however far the host runs
+    ahead of the card, and a slow host never waits on a new pinned
+    allocation.  Each uploading thread keeps its own ring
+    (``_staging_ring``); the blocks go back to PyTorch's caching host
+    allocator with the thread."""
+
+    def __init__(self, device: torch.device):
+        # on the CPU (the tests) the slots are plain memory and carry no
+        # events: every copy has completed when it returns
+        self.device = device
+        self.slots = [torch.empty(STAGING_SLOT_BYTES, dtype=torch.uint8,
+                                  pin_memory=device.type == "cuda")
+                      for _ in range(STAGING_SLOTS)]
+        self.events = [None] * STAGING_SLOTS
+        self.turn = 0
+
+    def upload(self, parts, out: torch.Tensor) -> None:
+        """Copy ``parts`` (see ``stage_parts``) end to end into the device
+        tensor ``out``, through the slots."""
+        item = out.element_size()
+        cap = STAGING_SLOT_BYTES // item
+        slot, fill, dst = None, 0, 0
+
+        def flush():
+            nonlocal slot, fill, dst
+            out[dst:dst + fill].copy_(slot[:fill], non_blocking=True)
+            if self.device.type == "cuda":
+                # the copy runs on the destination device's current
+                # stream, whichever device is current on this thread
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(out.device))
+                self.events[self.turn] = ev
+            self.turn = (self.turn + 1) % STAGING_SLOTS
+            dst += fill
+            slot, fill = None, 0
+
+        for p in parts:
+            n = p[0] if isinstance(p, tuple) else len(p)
+            src = None if isinstance(p, tuple) else _host_view(p)
+            pos = 0
+            while pos < n:
+                if slot is None:
+                    ev = self.events[self.turn]
+                    if ev is not None:
+                        ev.synchronize()
+                    slot = self.slots[self.turn].view(out.dtype)
+                m = min(n - pos, cap - fill)
+                if src is None:
+                    slot[fill:fill + m].fill_(p[1])
+                else:
+                    slot[fill:fill + m].copy_(src[pos:pos + m])
+                fill += m
+                pos += m
+                if fill == cap:
+                    flush()
+        if fill:
+            flush()
+
+
+_rings = threading.local()
+
+
+def _staging_ring(device: torch.device) -> StagingRing:
+    rings = getattr(_rings, "by_device", None)
+    if rings is None:
+        rings = _rings.by_device = {}
+    if device not in rings:
+        rings[device] = StagingRing(device)
+    return rings[device]
+
+
+def stage_parts(parts, np_dtype, device) -> torch.Tensor:
+    """Host parts laid end to end as one tensor on ``device``.
+
+    A part is a numpy array or ``(rows, value)`` for a run of one value.
+    Each byte is copied once on the host (``Tensor.copy_``, which splits
+    a large copy over the intra-op threads): to a CUDA device into the
+    calling thread's pinned ``StagingRing``, whose slots go to the card
+    with ``non_blocking=True`` copies on the current stream, so the host
+    goes on (decoding the next file) while they run; on the CPU into the
+    result itself.  The host time goes to the calling thread's upload
+    watcher."""
+    import time
+    from spark_rapids_tpu_torch.utils import hostsync
+    device = torch.device(device)
+    t0 = time.perf_counter_ns()
+    total = sum(p[0] if isinstance(p, tuple) else len(p) for p in parts)
+    out = torch.empty(total, dtype=dts.torch_dtype_of_numpy(np_dtype),
+                      device=device)
+    if device.type == "cuda":
+        if total:
+            _staging_ring(out.device).upload(parts, out)
+    else:
+        off = 0
+        for p in parts:
+            if isinstance(p, tuple):
+                n = p[0]
+                out[off:off + n].fill_(p[1])
+            else:
+                n = len(p)
+                if n:
+                    out[off:off + n].copy_(_host_view(p))
+            off += n
+    hostsync.note_upload(time.perf_counter_ns() - t0)
+    return out
+
+
+def to_device(host: np.ndarray, device, copy: bool = False) -> torch.Tensor:
+    """One host buffer as a tensor on ``device`` (``stage_parts``).  On
+    the CPU the tensor shares ``host`` unless ``copy`` is set or ``host``
+    is read-only."""
+    host = np.ascontiguousarray(host)
+    if torch.device(device).type == "cpu" and not copy and \
+            host.flags.writeable:
+        return torch.from_numpy(host)
+    return stage_parts([host], host.dtype, device)
 
 
 def bucket_capacity(n: int, minimum: int = MIN_CAPACITY) -> int:
@@ -167,10 +303,7 @@ class Column:
             values = values.astype("datetime64[us]").astype(np.int64)
             dtype = dtype or dts.TIMESTAMP_US
         dtype = dtype or dts.from_numpy_dtype(values.dtype)
-        host = np.ascontiguousarray(values.astype(dtype.storage, copy=False))
-        if not host.flags.writeable:  # torch tensors need writable memory
-            host = host.copy()
-        data = torch.from_numpy(host).to(device)
+        data = to_device(values.astype(dtype.storage, copy=False), device)
         return cls(dtype, data, len(values),
                    validity=_device_validity(validity, len(values), device))
 
@@ -213,10 +346,9 @@ class Column:
         if chars.shape[0] < offsets[-1]:
             raise ValueError("chars buffer shorter than the last offset")
         nrows = offsets.shape[0] - 1
-        return cls(dts.STRING, torch.from_numpy(chars.copy()).to(device),
+        return cls(dts.STRING, to_device(chars, device, copy=True),
                    nrows, validity=_device_validity(validity, nrows, device),
-                   offsets=torch.from_numpy(
-                       offsets.astype(np.int32)).to(device))
+                   offsets=to_device(offsets.astype(np.int32), device))
 
     @staticmethod
     def to_arrow(dtype: DataType, host_data: np.ndarray, host_validity,
@@ -265,4 +397,4 @@ def _device_validity(validity, nrows: int, device):
         raise ValueError("validity must match the values' shape")
     if validity.all():
         return None
-    return torch.from_numpy(np.ascontiguousarray(validity)).to(device)
+    return to_device(validity, device)

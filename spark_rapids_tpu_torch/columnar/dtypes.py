@@ -157,3 +157,8 @@ def to_arrow_type(dt: DataType):
 def torch_dtype(dt: DataType) -> torch.dtype:
     """The torch dtype of ``dt``'s device buffer."""
     return _TORCH[np.dtype(dt.storage)]
+
+
+def torch_dtype_of_numpy(dt) -> torch.dtype:
+    """The torch dtype of a numpy buffer dtype."""
+    return _TORCH[np.dtype(dt)]

@@ -123,6 +123,68 @@ BROADCAST_JOIN_THRESHOLD_ROWS = conf(
     _to_int, _positive)
 
 
+# -------------------------------------------------------------- file I/O --
+
+_READER_TYPES = ("PERFILE", "COALESCING", "MULTITHREADED", "AUTO")
+
+
+def _reader_type_ok(v):
+    return None if v in _READER_TYPES else \
+        "must be PERFILE, COALESCING, MULTITHREADED or AUTO"
+
+
+READER_BATCH_SIZE_ROWS = conf(
+    "spark.rapids.sql.reader.batchSizeRows", 1 << 20,
+    "Soft cap on rows per batch produced by file scans.", _to_int,
+    _positive)
+
+WRITER_MAX_ROWS_PER_FILE = conf(
+    "spark.rapids.sql.writer.maxRowsPerFile", 1 << 22,
+    "Max rows per output file for dataset writes.", _to_int, _positive)
+
+# per format: the scan switches (a disabled format raises at planning:
+# the port has no CPU reader to hand the scan to), the multi-file reader
+# strategy and its thread pool
+FORMAT_ENABLED, FORMAT_READ_ENABLED, READER_TYPE = {}, {}, {}
+READ_NUM_THREADS, MAX_NUM_FILES_PARALLEL = {}, {}
+for _fmt, _name in (("parquet", "parquet"), ("orc", "ORC"),
+                    ("csv", "CSV")):
+    _base = f"spark.rapids.sql.format.{_fmt}"
+    FORMAT_ENABLED[_fmt] = conf(
+        f"{_base}.enabled", True,
+        f"Use the engine's columnar {_name} scan; when false a {_name} "
+        "scan raises NotImplementedError naming this key.", _to_bool)
+    FORMAT_READ_ENABLED[_fmt] = conf(
+        f"{_base}.read.enabled", True,
+        f"Read side of the {_name} format switch.", _to_bool)
+    READER_TYPE[_fmt] = conf(
+        f"{_base}.reader.type", "AUTO",
+        f"{_name} reader strategy over several files: PERFILE, "
+        "COALESCING, MULTITHREADED or AUTO (io/multifile.py).", str,
+        _reader_type_ok)
+    READ_NUM_THREADS[_fmt] = conf(
+        f"{_base}.multiThreadedRead.numThreads", 8,
+        f"Thread-pool size of the multithreaded {_name} reader.",
+        _to_int, _positive)
+    MAX_NUM_FILES_PARALLEL[_fmt] = conf(
+        f"{_base}.multiThreadedRead.maxNumFilesParallel", 4,
+        f"Max {_name} files decoded ahead by the multithreaded reader.",
+        _to_int, _positive)
+
+PIPELINE_ENABLED = conf(
+    "spark.rapids.tpu.pipeline.enabled", True,
+    "Drive query execution through the asynchronous pipeline "
+    "(exec/pipeline.py): a worker thread pulls the operator batches "
+    "(reader decode, host->device upload, kernel launches) while the "
+    "driving thread consumes results.  Batch contents and order are "
+    "identical to the sequential pull loop.", _to_bool)
+
+PIPELINE_DEPTH = conf(
+    "spark.rapids.tpu.pipeline.depth", 2,
+    "Maximum batches in flight between the pipeline worker and the "
+    "consuming thread.", _to_int, _positive)
+
+
 class RapidsConf:
     """Immutable view over a settings dict."""
 

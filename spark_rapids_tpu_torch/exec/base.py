@@ -24,6 +24,15 @@ AGG_TIME = "computeAggTime"
 CONCAT_TIME = "concatTime"
 SORT_TIME = "sortTime"
 JOIN_TIME = "joinTime"
+# file scans (io/readers.py): host ns waiting for decoded tables, host ns
+# of their uploads, bytes arrow decoded
+DECODE_TIME = "decodeTime"
+UPLOAD_TIME = "uploadTime"
+BYTES_DECODED = "bytesDecoded"
+# the pipeline (exec/pipeline.py)
+PIPELINE_FILL_RATIO = "pipelineFillRatio"
+HOST_SYNC_COUNT = "hostSyncCount"
+UPLOAD_OVERLAP_MS = "uploadOverlapMs"
 
 
 class TpuMetric:

@@ -8,7 +8,7 @@ expression forest per batch.
 
 from __future__ import annotations
 
-from typing import Iterator, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 
@@ -17,6 +17,8 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import Column
 from spark_rapids_tpu_torch.exec.base import (
     NUM_INPUT_BATCHES, NUM_INPUT_ROWS, Schema, TpuExec)
+from spark_rapids_tpu_torch.memory.coalesce import (
+    CoalesceGoal, TargetRows, coalesce_iterator)
 from spark_rapids_tpu_torch.ops.compiler import FilterStageFn, StageFn
 from spark_rapids_tpu_torch.ops.expressions import BoundReference, Expression
 
@@ -24,12 +26,16 @@ RANGE_BATCH_ROWS = 1 << 20
 
 
 class TpuCoalesceBatchesExec(TpuExec):
-    """Accumulate undersized upstream batches until they hold at least
-    ``goal_rows`` rows, then emit them as one batch."""
+    """Accumulate undersized upstream batches and emit them concatenated,
+    up to a ``memory/coalesce.py`` goal: ``goal_rows=n`` is
+    ``goal=TargetRows(n)``."""
 
-    def __init__(self, child: TpuExec, goal_rows: int):
+    def __init__(self, child: TpuExec, goal_rows: int = 0,
+                 goal: Optional[CoalesceGoal] = None):
         super().__init__(child)
-        self.goal_rows = int(goal_rows)
+        if (goal is None) == (goal_rows <= 0):
+            raise ValueError("give exactly one of goal_rows and goal")
+        self.goal = goal if goal is not None else TargetRows(int(goal_rows))
 
     @property
     def child(self) -> TpuExec:
@@ -40,19 +46,10 @@ class TpuCoalesceBatchesExec(TpuExec):
         return self.child.schema
 
     def describe(self):
-        return f"TpuCoalesceBatchesExec[{self.goal_rows} rows]"
+        return f"TpuCoalesceBatchesExec[{self.goal}]"
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
-        from spark_rapids_tpu_torch.ops.concat import concat_batches
-        pending, rows = [], 0
-        for batch in self.child.execute():
-            pending.append(batch)
-            rows += batch.nrows
-            if rows >= self.goal_rows:
-                yield concat_batches(pending)
-                pending, rows = [], 0
-        if pending:
-            yield concat_batches(pending)
+        yield from coalesce_iterator(self.child.execute(), self.goal)
 
 
 class TpuScanExec(TpuExec):

@@ -210,6 +210,20 @@ def load(session, tables: Dict[str, pd.DataFrame]) -> Dict[str, DataFrame]:
             for name, df in tables.items()}
 
 
+def read_parquet(session, root: str) -> Dict[str, DataFrame]:
+    """DataFrames over the eight tables' parquet files, each table a
+    directory ``root/<table>`` of one or more files (passed in name order,
+    so a table of several files takes the multi-file readers)."""
+    import os
+    out = {}
+    for name in sorted(os.listdir(root)):
+        d = os.path.join(root, name)
+        files = sorted(os.path.join(d, f) for f in os.listdir(d)
+                       if f.endswith(".parquet"))
+        out[name] = session.read.parquet(*files)
+    return out
+
+
 # ------------------------------------------------ columns without pandas
 
 def _parts_matrix(parts, n: int):

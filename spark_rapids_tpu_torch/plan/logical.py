@@ -1,10 +1,11 @@
 """Logical plan nodes.
 
 Counterpart of ``spark_rapids_tpu/plan/logical.py``, cut to the nodes the
-ported slices plan: an in-memory relation, Range, Project (also the plan
-node of ``withColumnRenamed``), Filter, Aggregate, Join (equi-join keys
-and an optional residual condition), Sort, Limit, Union and Window
-(``exec/expand.py`` holds Expand, as in the JAX package).  The
+ported slices plan: an in-memory relation, a file relation, Range,
+Project (also the plan node of ``withColumnRenamed``), Filter,
+Aggregate, Join (equi-join keys and an optional residual condition),
+Sort, Limit, Union and Window (``exec/expand.py`` holds Expand, as in
+the JAX package).  The
 DataFrame API builds them and ``plan/overrides.py`` lowers them to
 physical operators.
 """
@@ -76,6 +77,45 @@ class InMemoryRelation(LogicalPlan):
     @property
     def schema(self) -> Schema:
         return self._schema
+
+
+class FileRelation(LogicalPlan):
+    """Files of one format read as a table (``session.read``).  The
+    planner's pushdown pass sets ``pushed_filters`` and
+    ``required_columns`` before each planning; the DataFrame layer sets
+    ``file_meta`` when a query references the per-file metadata
+    columns."""
+
+    INPUT_FILE_COL = "__input_file_name"
+    META_COLUMNS = ("_metadata.file_path", "_metadata.file_name",
+                    "_metadata.file_size",
+                    "_metadata.file_modification_time")
+
+    def __init__(self, paths: Sequence[str], file_format: str,
+                 schema: Schema, options: Optional[dict] = None,
+                 bucket_spec=None):
+        self.paths = list(paths)
+        self.file_format = file_format
+        self._schema = list(schema)
+        self.options = dict(options or {})
+        self.pushed_filters: List[Expression] = []
+        self.required_columns = None  # None = all
+        # subset of {"input_file", "metadata"}
+        self.file_meta = set()
+        # {"column", "num_buckets"} from the _bucket_spec.json sidecar
+        self.bucket_spec = bucket_spec
+
+    @property
+    def schema(self) -> Schema:
+        from spark_rapids_tpu_torch.columnar.dtypes import (
+            INT64, STRING, TIMESTAMP_US)
+        out = list(self._schema)
+        if "input_file" in self.file_meta:
+            out.append((self.INPUT_FILE_COL, STRING))
+        if "metadata" in self.file_meta:
+            out += list(zip(self.META_COLUMNS,
+                            (STRING, STRING, INT64, TIMESTAMP_US)))
+        return out
 
 
 class Project(LogicalPlan):

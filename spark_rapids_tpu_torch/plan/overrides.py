@@ -1,10 +1,11 @@
 """The planner: logical plan -> physical operators.
 
 Counterpart of ``spark_rapids_tpu/plan/overrides.py``, cut to the
-converters of the ported slices (in-memory relation, Range, Project,
-Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window),
-``_plan_aggregate``, the ``Limit(Sort) -> TopN`` rewrite and the fusion
-pass the JAX planner applies: a
+converters of the ported slices (in-memory and file relations, Range,
+Project, Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window),
+``_plan_aggregate``, the pushdown pass into file scans, the
+``Limit(Sort) -> TopN`` rewrite and the fusion pass the JAX planner
+applies: a
 Project/Filter chain under an Aggregate folds into the aggregate (its
 predicates become the row mask), and any other chain of two or more
 members collapses into one FusedStageExec.  There is no CPU fallback: a
@@ -19,8 +20,8 @@ from typing import List, Optional
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.basic import (
-    TpuFilterExec, TpuLocalLimitExec, TpuProjectExec, TpuRangeExec,
-    TpuScanExec, TpuUnionExec)
+    TpuCoalesceBatchesExec, TpuFilterExec, TpuLocalLimitExec,
+    TpuProjectExec, TpuRangeExec, TpuScanExec, TpuUnionExec)
 from spark_rapids_tpu_torch.exec.expand import Expand, TpuExpandExec
 from spark_rapids_tpu_torch.exec.join import TpuHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
@@ -30,7 +31,7 @@ from spark_rapids_tpu_torch.exec.fusion import (
     FusedStageExec, compose_chain, fusion_metrics)
 from spark_rapids_tpu_torch.ops.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.ops.expressions import (
-    Alias, BoundReference, Expression, substitute_bound)
+    Alias, BoundReference, Expression, UnresolvedColumn, substitute_bound)
 from spark_rapids_tpu_torch.ops.stringops import Like
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
@@ -154,6 +155,105 @@ def check_ported(plan: L.LogicalPlan) -> None:
         check_ported(child)
 
 
+def _names(exprs, schema) -> Optional[set]:
+    """Names of the child columns ``exprs`` read, or None when a
+    reference does not name a column of ``schema`` (then nothing below
+    is pruned)."""
+    names = {n for n, _ in schema}
+    out: set = set()
+
+    def walk(e):
+        if isinstance(e, (BoundReference, UnresolvedColumn)):
+            out.add(e.name)
+        for c in e.children:
+            walk(c)
+    for e in exprs:
+        walk(e)
+    return out if out <= names else None
+
+
+def _pushdown_pass(plan: L.LogicalPlan) -> None:
+    """Column pruning and filter pushdown into the plan's FileRelations,
+    set afresh on every planning (``required_columns`` back to None and
+    ``pushed_filters`` emptied where nothing applies).
+
+    As in the JAX package, filters push down until a Project or an
+    Aggregate, and a Project or Aggregate above decides the columns a
+    scan reads.  The port also prunes through a Project's unread outputs
+    and through joins (each side reads what the join's consumers, keys
+    and condition name on it), which the JAX pass does not.  A relation
+    reached twice in one plan reads the union of both requirements and
+    takes no filter unless both paths push the same ones.  The JAX pass
+    treats a cached plan node as a barrier; the port has no cache, and
+    the barrier comes with it."""
+    found = {}
+
+    def visit(node, required, filters):
+        if isinstance(node, L.FileRelation):
+            seen = found.get(id(node))
+            if seen is None:
+                found[id(node)] = [node, required, list(filters)]
+                return
+            seen[1] = None if seen[1] is None or required is None \
+                else seen[1] | required
+            if [f.cache_key() for f in seen[2]] != \
+                    [f.cache_key() for f in filters]:
+                seen[2] = []
+            return
+        if isinstance(node, L.Filter):
+            req = None
+            if required is not None:
+                cond = _names([node.condition], node.child.schema)
+                req = None if cond is None else required | cond
+            visit(node.child, req, filters + [node.condition])
+            return
+        if isinstance(node, L.Project):
+            exprs = node.exprs if required is None else \
+                [e for e in node.exprs if e.name in required]
+            visit(node.child, _names(exprs, node.child.schema), [])
+            return
+        if isinstance(node, L.Aggregate):
+            visit(node.child, _names(
+                list(node.group_exprs) + list(node.agg_exprs),
+                node.child.schema), [])
+            return
+        if isinstance(node, L.Join):
+            for side, keys in ((node.left, node.left_keys),
+                               (node.right, node.right_keys)):
+                req = None
+                if required is not None:
+                    own = _names(keys, side.schema)
+                    cond = set() if node.condition is None else _names(
+                        [node.condition],
+                        list(node.left.schema) + list(node.right.schema))
+                    if own is not None and cond is not None:
+                        names = {n for n, _ in side.schema}
+                        req = (required | own | cond) & names
+                visit(side, req, [])
+            return
+        for c in node.children:
+            visit(c, None, [])
+
+    visit(plan, None, [])
+    for node, required, filters in found.values():
+        node.required_columns = None if required is None else set(required)
+        node.pushed_filters = filters
+
+
+def _check_format_enabled(node: L.FileRelation, conf) -> None:
+    """The per-format scan switches: a disabled format raises naming its
+    key (the JAX package reads it on its CPU fallback, which the port
+    does not have)."""
+    for entries in (rc.FORMAT_ENABLED, rc.FORMAT_READ_ENABLED):
+        entry = entries.get(node.file_format)
+        if entry is None:
+            raise NotImplementedError(
+                f"file format {node.file_format!r} is not ported")
+        if not conf.get(entry):
+            raise NotImplementedError(
+                f"{node.file_format} scan disabled by {entry.key}")
+
+
 class TpuOverrides:
     """Logical plan -> TpuExec tree on one device."""
 
@@ -168,8 +268,25 @@ class TpuOverrides:
 
     def apply(self, plan: L.LogicalPlan):
         check_ported(plan)
+        _pushdown_pass(plan)
         self._chain_nodes = set()
         return self._convert(plan)
+
+    def _file_scan(self, node: L.FileRelation):
+        """The file scan, under a coalesce to ``batchSizeBytes`` where a
+        PERFILE reader emits one undersized batch per file."""
+        from spark_rapids_tpu_torch.io.readers import make_file_scan_exec
+        _check_format_enabled(node, self.conf)
+        if node.options:
+            raise NotImplementedError(
+                f"reader options {sorted(node.options)} are not supported "
+                f"by the PyTorch port's readers")
+        scan = make_file_scan_exec(node, self.conf, self.device)
+        if len(node.paths) > 1 and scan.reader_type == "PERFILE":
+            from spark_rapids_tpu_torch.memory.coalesce import TargetSize
+            return TpuCoalesceBatchesExec(
+                scan, goal=TargetSize(self.conf.get(rc.BATCH_SIZE_BYTES)))
+        return scan
 
     def _scan_rows(self, schema) -> int:
         """Rows per scanned batch: maxBatchRows, and no more than
@@ -195,6 +312,8 @@ class TpuOverrides:
         if isinstance(node, L.InMemoryRelation):
             return TpuScanExec(node.batches, node.schema,
                                self._scan_rows(node.schema))
+        if isinstance(node, L.FileRelation):
+            return self._file_scan(node)
         if isinstance(node, L.Range):
             return TpuRangeExec(node.start, node.end, node.step,
                                 self.device)

@@ -4,7 +4,9 @@ Counterpart of ``spark_rapids_tpu/utils/hostsync.py``.  Every value the
 host needs from the device on the query path (a row count, the key ranges
 that pick a group-by path, a hash-overflow flag, the final result) comes
 through :func:`fetch`, which counts one sync per call, so a run can say how
-often the host waited for the card.
+often the host waited for the card.  Host -> device uploads time
+themselves into the calling thread's watcher (:func:`watch_uploads`), as
+the pipeline's worker asks.
 """
 
 from __future__ import annotations
@@ -37,6 +39,25 @@ class HostSyncMetrics:
 
 
 host_sync_metrics = HostSyncMetrics()
+
+
+_upload_sink = threading.local()
+
+
+def watch_uploads(stats) -> None:
+    """Route this thread's upload timings into ``stats`` (any object with
+    an ``upload_overlap_ns`` attribute)."""
+    _upload_sink.sink = stats
+
+
+def unwatch_uploads() -> None:
+    _upload_sink.sink = None
+
+
+def note_upload(ns: int) -> None:
+    sink = getattr(_upload_sink, "sink", None)
+    if sink is not None:
+        sink.upload_overlap_ns += ns
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
