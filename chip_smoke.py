@@ -53,6 +53,17 @@ just before it and read just after:
   columns; at SF0.1 lineitem as ORC and as CSV equal to its parquet
   copy, a partitioned write read back through discovery and a bucketed
   write pruned to one file by an equality filter;
+- the ``sharded_tpch`` phase on 8 logical shards of the card
+  (``numShards=8``; strings travel as dictionary codes): the 22 TPC-H
+  queries as DataFrames and as SQL over the same SF10 tables, each once
+  warm and once timed, beside its single-device rows/s; then the 22 over
+  the files phase's parquet with the file list sharded (q1, q3, q6, q9,
+  q13 and q21 first; a query not started inside the phase's time budget
+  is cut and named); then TPC-DS q3, q55 and q96 at the tpcds phase's
+  scale.  Each runs distributed (its scalar subqueries too), its
+  exchanges move the rows its stage statistics count, and its answer
+  equals the single-device one; over files the scan's peak host rows
+  stay within the largest shard's footer rows;
 - the 29 TPC-DS queries (``models/tpcds.py``) through ``session.sql`` at
   scale factor 50 (store_sales 3.0e7 rows), after the TPC-H tables left
   the card: per query one warm run, then the median of 2 timed runs
@@ -69,8 +80,9 @@ just before it and read just after:
   2^26 rows, the sparse-key group-by, the fact-dim join as a shuffle
   (2^19 build rows are past the 2^16 broadcast threshold) and
   ``orderBy`` / TopN of the 2^22-row sparse table, each beside its
-  single-device twin; and the q1 shape at 2^22 rows through a one-rank
-  NCCL process group against one logical shard.
+  single-device twin; and the q1 shape at 2^22 rows and TPC-H q1 at SF1
+  (two string group keys) through a one-rank NCCL process group against
+  one logical shard (and q1 against numpy).
 
 Answers are checked against numpy / pandas oracles on the same host data.
 
@@ -78,8 +90,8 @@ Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
-in total, by phase for the tpch22, tpch_sql, files and tpcds phases, and
-by shape), and last
+in total, by phase for the tpch22, tpch_sql, files, tpcds and
+sharded_tpch phases, and by shape), and last
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -121,6 +133,12 @@ NSHARDS = 8
 HIST_FACT_ROWS = FACT_ROWS // NSHARDS   # the join's stats pass per shard
 HIST_BUCKET_ROWS = 1 << 19              # an aggregate's bucket stats pass
 PG_ROWS = 1 << 22
+PG_TPCH_SF = 1          # TPC-H q1 through the one-rank NCCL group
+# the sharded_tpch phase's file pass: these first, then the rest while
+# the phase stays inside SHARDED_BUDGET_S (a phase may take 400 s)
+SHARDED_FILES_FIRST = ("q1", "q3", "q6", "q9", "q13", "q21")
+SHARDED_BUDGET_S = 340.0
+SHARDED_TPCDS = ("q3", "q55", "q96")
 
 TRACE_PAD = 16        # device ops around the timed calls in a trace
 KERNEL_RTOL = 1e-12   # kernel vs plain float sums (another summation order)
@@ -905,6 +923,7 @@ def run_tpch_sql(torch, K, fm, tpch_sql, batches, df_answers, card_line,
         {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
     print("tpch_sql masked_multi_reduce launches: " + json.dumps(mmr),
           flush=True)
+    return rates
 
 
 def check_unported_raise(s):
@@ -960,7 +979,7 @@ def run_tpcds(torch, K, fm, tpcds, batches, card_line, total, reps=2):
     from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
     on = tpcds_session(tpch_conf(True), batches)
     off = tpcds_session(tpch_conf(False), batches)
-    rates, walls = {}, {}
+    rates, walls, answers = {}, {}, {}
     for name, text in tpcds.QUERIES.items():
         read = sql_tables(text)
         rows = sum(batches[k].nrows for k in read)
@@ -970,6 +989,7 @@ def run_tpcds(torch, K, fm, tpcds, batches, card_line, total, reps=2):
             f"tpcds {name}", reps=reps, same_bits=True,
             extra={"host_syncs": host_sync_metrics})
         walls[name] = rows / rates[name]
+        answers[name] = got
         total.add(launches)
         sql_launch_line(f"tpcds {name}", got, launches, fus, read)
         hash_off = off.sql(text).to_pandas()
@@ -984,6 +1004,7 @@ def run_tpcds(torch, K, fm, tpcds, batches, card_line, total, reps=2):
         {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
     print("tpcds median wall s: " + json.dumps(
         {k: float(f"{v:.6f}") for k, v in walls.items()}), flush=True)
+    return answers, rates
 
 
 def tpcds_cpu_answers(sf, conn):
@@ -1145,11 +1166,13 @@ def write_tpch_parquet(batches, root):
 
 
 def run_files(torch, K, fm, tpch, batches, df_answers, mem_rates,
-              card_line, total):
+              card_line, total, then=None):
     """The 22 TPC-H queries over parquet files the port wrote, against
     the in-memory tpch22 answers of this run (rows/s beside theirs,
     ``mem_rates``); pipeline on and off; the reader strategies; q6's
-    pruning; ORC, CSV, partitioned and bucketed round trips at SF0.1."""
+    pruning; ORC, CSV, partitioned and bucketed round trips at SF0.1.
+    ``then(root)``: more work over the same files (the sharded_tpch
+    phase's file pass), run before they are removed."""
     import os
     import tempfile
     from spark_rapids_tpu_torch.api.session import TpuSession
@@ -1230,6 +1253,8 @@ def run_files(torch, K, fm, tpch, batches, df_answers, mem_rates,
                           f"{up:.3f} ms")
             s.stop()
         check_small_formats(tpch, os.path.join(tmp, "small"))
+        if then is not None:
+            then(root)
 
 
 def check_small_formats(tpch, root):
@@ -1290,6 +1315,166 @@ def check_small_formats(tpch, root):
           f"files SF{FILES_CHECK_SF}: bucketBy(8, l_orderkey) then "
           f"l_orderkey == {key} reads one of {st.num_files} files and "
           f"equals pandas ({len(got)} rows) {why}")
+    s.stop()
+
+
+# ---------------------------------------------------------- sharded_tpch --
+
+def sharded_conf(base):
+    """``base`` over NSHARDS logical shards of the card."""
+    return dict(base, **{"spark.rapids.sql.distributed.numShards": NSHARDS})
+
+
+def dist_metric_objs():
+    """The sharded checks' metric objects: rows exchanged, host syncs."""
+    from spark_rapids_tpu_torch.parallel.shuffle import shuffle_metrics
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    return {"shuffle": shuffle_metrics, "host_syncs": host_sync_metrics}
+
+
+class DistLog:
+    """While active, every distributed execution's verdict and stage
+    statistics: a SQL statement's scalar subqueries run as queries of
+    their own while it is built, and exchange rows too."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.api import dataframe
+        self._mod, self._real = dataframe, dataframe.try_distributed
+        self.runs = []
+
+        def logged(session, plan):
+            got = self._real(session, plan)
+            self.runs.append((session.last_dist_explain,
+                              list(session.last_dist_stats or [])))
+            return got
+        dataframe.try_distributed = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.try_distributed = self._real
+
+
+def sharded_query(torch, K, fm, s, label, query, rows, want, card_line,
+                  single_rate, launches, reps=1):
+    """One query of the sharded_tpch phase: a warm run (its launches are
+    the main path's) and ``reps`` timed runs.  It and any scalar
+    subquery ran distributed, its exchanges moved the rows the stage
+    statistics counted, and its answer equals ``want`` (keys, counts,
+    strings and order exactly, floats within QUERY_RTOL).  Returns its
+    rows/s (of the warm run when ``reps`` is 0)."""
+    with DistLog() as log:
+        got, lq, mq, rate = drive(torch, K, fm, query, rows, card_line,
+                                  f"{label} (warm run)", reps=0,
+                                  extra=dist_metric_objs())
+    explains = [e for e, _ in log.runs]
+    check(explains and all(e == "distributed" for e in explains),
+          f"{label}: ran distributed ({len(explains)} executions: "
+          f"{sorted(set(explains))})")
+    moved = mq["shuffle"]["rowsMoved"]
+    counted = sum(exchanged_rows(st) for _, st in log.runs)
+    check(moved == counted,
+          f"{label}: rows exchanged {moved} == sum(partition counts) "
+          f"{counted} ({mq['shuffle']['exchanges']} exchanges, "
+          f"{mq['host_syncs']} host syncs)")
+    ok, why = frames_match(got.reset_index(drop=True),
+                           want.reset_index(drop=True), QUERY_RTOL)
+    check(ok, f"{label}: equals the single-device answer (floats within "
+          f"rel {QUERY_RTOL}) {why}")
+    launches.add(lq)
+    if reps:
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            (query() if callable(query) else query).to_pandas()
+            walls.append(time.perf_counter() - t0)
+        rate = rows / float(np.median(walls))
+    ratio = f"{rate / single_rate:.4f}" if single_rate else "n/a"
+    print(f"rows/s {label}: {rate:.6e} over {NSHARDS} shards "
+          f"({'median of ' + str(reps) + ' runs' if reps else 'warm run'}"
+          f"), single device {single_rate:.6e} (ratio {ratio}); host syncs "
+          f"{mq['host_syncs']}; launches "
+          + ", ".join(f"{k} {lq[k]}" for k in K.launches.NAMES)
+          + f"; rows exchanged {moved} on {card_line}", flush=True)
+    return rate
+
+
+def run_sharded_tpch(torch, K, fm, tpch, tpch_sql, batches, df_answers,
+                     df_rates, sql_rates, card_line, launches):
+    """The sharded_tpch phase in memory: the 22 TPC-H queries as
+    DataFrames and as SQL over the tpch22 tables on NSHARDS logical
+    shards, each against the single-device answer of this run."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    s = TpuSession(sharded_conf(tpch_conf(True)))
+    tables = {k: s.create_dataframe(b) for k, b in batches.items()}
+    tpch_sql.register(s, tables)
+    rates = {}
+    for name, query in tpch.QUERIES.items():
+        read = ReadTables(tables)
+        q = query(read)
+        rows = sum(batches[k].nrows for k in read.read)
+        rates[f"df {name}"] = sharded_query(
+            torch, K, fm, s, f"sharded_tpch {name}", q, rows,
+            df_answers[name], card_line, df_rates[name], launches)
+    for name, text in tpch_sql.QUERIES.items():
+        rows = sum(batches[k].nrows for k in sql_tables(text))
+        rates[f"sql {name}"] = sharded_query(
+            torch, K, fm, s, f"sharded_tpch sql {name}",
+            lambda text=text: s.sql(text), rows,
+            tpch_sql.dataframe_form(name, df_answers[name]), card_line,
+            sql_rates[name], launches)
+    s.stop()
+    print(f"sharded_tpch rows/s over {NSHARDS} shards on {card_line}: "
+          + json.dumps({k: float(f"{v:.6e}") for k, v in rates.items()}),
+          flush=True)
+
+
+def run_sharded_files(torch, K, fm, tpch, root, batches, df_answers,
+                      card_line, launches, deadline):
+    """The sharded_tpch phase over the files phase's parquet: the 22
+    queries with the file list sharded over NSHARDS logical shards (each
+    shard reads its own files), SHARDED_FILES_FIRST first; a query not
+    started by ``deadline`` (perf_counter seconds) is cut and named."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    s = TpuSession(sharded_conf(files_conf(True)))
+    tables = tpch.read_parquet(s, root)
+    order = list(SHARDED_FILES_FIRST) + [
+        q for q in tpch.QUERIES if q not in SHARDED_FILES_FIRST]
+    cut = []
+    for name in order:
+        if time.perf_counter() > deadline:
+            cut.append(name)
+            continue
+        read = ReadTables(tables)
+        q = tpch.QUERIES[name](read)
+        rows = sum(batches[k].nrows for k in read.read)
+        label = f"sharded_tpch files {name}"
+        sharded_query(torch, K, fm, s, label, q, rows, df_answers[name],
+                      card_line, 0.0, launches, reps=0)
+        st = s.last_scan_stats
+        check(st is not None and st["sharded_files"]
+              and st["peak_host_rows"] <= st["shard_bound_rows"],
+              f"{label}: the file list sharded ({st and st['files']} files "
+              f"in {st and st['scans']} scans, {st and st['total_rows']} "
+              f"rows); peak host rows {st and st['peak_host_rows']} <= the "
+              f"largest shard's footer rows "
+              f"{st and st['shard_bound_rows']}")
+    s.stop()
+    print(f"sharded_tpch files: {len(order) - len(cut)} of {len(order)} "
+          f"queries run; cut for the phase's time: {cut}", flush=True)
+
+
+def run_sharded_tpcds(torch, K, fm, batches, answers, rates, card_line,
+                      launches):
+    """The sharded_tpch phase's TPC-DS queries on NSHARDS logical shards,
+    each against the tpcds phase's single-device answer."""
+    from spark_rapids_tpu_torch.models import tpcds
+    s = tpcds_session(sharded_conf(tpch_conf(True)), batches)
+    for name in SHARDED_TPCDS:
+        text = tpcds.QUERIES[name]
+        rows = sum(batches[k].nrows for k in sql_tables(text))
+        sharded_query(torch, K, fm, s, f"sharded_tpch tpcds {name}",
+                      lambda text=text: s.sql(text), rows, answers[name],
+                      card_line, rates[name], launches, reps=0)
     s.stop()
 
 
@@ -1774,10 +1959,7 @@ def main() -> int:
     del hp, hm, bp, bm
 
     # 3. the main path through TpuSession on CUDA
-    from spark_rapids_tpu_torch.parallel.shuffle import shuffle_metrics
-    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
-    dist_metrics = {"shuffle": shuffle_metrics,
-                    "host_syncs": host_sync_metrics}
+    dist_metrics = dist_metric_objs()
     dist_conf = {"spark.rapids.sql.distributed.numShards": NSHARDS}
     total = PathLaunches(K.launches.NAMES)
     s = TpuSession({})
@@ -2025,8 +2207,8 @@ def main() -> int:
     from spark_rapids_tpu_torch.models import tpch_sql
     sql_launches = PathLaunches(K.launches.NAMES)
     t0 = time.perf_counter()
-    run_tpch_sql(torch, K, fm, tpch_sql, tpch_batches, df_answers,
-                 card_line, sql_launches)
+    sql_rates = run_tpch_sql(torch, K, fm, tpch_sql, tpch_batches,
+                             df_answers, card_line, sql_launches)
     print(f"tpch_sql phase {time.perf_counter() - t0:.3f} s; launches "
           f"{sql_launches.counts}", flush=True)
     for k in ("hash_insert", "hash_probe"):
@@ -2034,14 +2216,41 @@ def main() -> int:
               f"tpch_sql launched {k} {sql_launches.counts[k]}x")
     total.extend(sql_launches)
 
+    # the sharded_tpch phase, in three passes: the 44 queries in memory
+    # here, the 22 over the files phase's parquet inside that phase, and
+    # three TPC-DS queries after the tpcds phase
+    sharded_launches = PathLaunches(K.launches.NAMES)
+    sharded_s = {}
+    t0 = time.perf_counter()
+    run_sharded_tpch(torch, K, fm, tpch, tpch_sql, tpch_batches, df_answers,
+                     mem_rates, sql_rates, card_line, sharded_launches)
+    sharded_s["in memory"] = time.perf_counter() - t0
+    print(f"sharded_tpch in memory {sharded_s['in memory']:.3f} s; "
+          f"launches {sharded_launches.counts}", flush=True)
+
+    def sharded_files(root):
+        t_files = time.perf_counter()
+        # keep time for the TPC-DS pass
+        deadline = t_files + SHARDED_BUDGET_S - 40.0 - sharded_s["in memory"]
+        run_sharded_files(torch, K, fm, tpch, root, tpch_batches,
+                          df_answers, card_line, sharded_launches, deadline)
+        sharded_s["files"] = time.perf_counter() - t_files
+        print(f"sharded_tpch files {sharded_s['files']:.3f} s", flush=True)
+
     # the 22 queries over parquet files the port writes from the same
     # tables, against this run's in-memory answers
     files_launches = PathLaunches(K.launches.NAMES)
     t0 = time.perf_counter()
+    launches_before = dict(sharded_launches.counts)
     run_files(torch, K, fm, tpch, tpch_batches, df_answers, mem_rates,
-              card_line, files_launches)
-    print(f"files phase {time.perf_counter() - t0:.3f} s; launches "
-          f"{files_launches.counts}", flush=True)
+              card_line, files_launches, then=sharded_files)
+    files_s = time.perf_counter() - t0 - sharded_s["files"]
+    print(f"files phase {files_s:.3f} s; launches "
+          f"{files_launches.counts}; then the sharded_tpch file pass "
+          f"launches " + json.dumps({k: sharded_launches.counts[k]
+                                     - launches_before[k]
+                                     for k in K.launches.NAMES}),
+          flush=True)
     for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
         check(files_launches.counts[k] >= 1,
               f"files launched {k} {files_launches.counts[k]}x")
@@ -2069,19 +2278,32 @@ def main() -> int:
           "bytes; rows " + ", ".join(
               f"{k} {b.nrows}" for k, b in ds_batches.items()), flush=True)
     ds_launches = PathLaunches(K.launches.NAMES)
-    run_tpcds(torch, K, fm, tpcds, ds_batches, card_line, ds_launches)
+    ds_answers, ds_rates = run_tpcds(torch, K, fm, tpcds, ds_batches,
+                                     card_line, ds_launches)
     for k in ("hash_insert", "hash_probe"):
         check(ds_launches.counts[k] >= 1,
               f"tpcds launched {k} {ds_launches.counts[k]}x")
     total.extend(ds_launches)
-    del ds_batches
     print(f"tpcds phase (SF{TPCDS_SF}) {time.perf_counter() - t_phase:.3f}"
           f" s; launches {ds_launches.counts}", flush=True)
+    t0 = time.perf_counter()
+    run_sharded_tpcds(torch, K, fm, ds_batches, ds_answers, ds_rates,
+                      card_line, sharded_launches)
+    sharded_s["tpcds"] = time.perf_counter() - t0
+    del ds_batches, ds_answers
+    print(f"sharded_tpch phase {sum(sharded_s.values()):.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sharded_s.items())
+          + f"); launches {sharded_launches.counts}", flush=True)
+    for k in ("masked_multi_reduce", "partition_histogram"):
+        check(sharded_launches.counts[k] >= 1,
+              f"sharded_tpch launched {k} {sharded_launches.counts[k]}x")
+    total.extend(sharded_launches)
     check_tpcds_cpu(torch, tpcds, TPCDS_CHECK_SF, cpu_proc, cpu_conn)
     phase_launches = {"tpch22": tpch_launches.counts,
                       "tpch_sql": sql_launches.counts,
                       "files": files_launches.counts,
-                      "tpcds": ds_launches.counts}
+                      "tpcds": ds_launches.counts,
+                      "sharded_tpch": sharded_launches.counts}
 
     # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
     fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)
@@ -2169,6 +2391,14 @@ def main() -> int:
     s = TpuSession({"spark.rapids.sql.distributed.numShards": 1})
     want_pg = make_q1(F, s.create_dataframe(pg_data)).to_pandas()
     want_pg_stats = dict(s.last_dist_stats)["aggregate"]
+    # TPC-H q1 at SF1: two string group keys, as dictionary codes
+    pg_cols = tpch.gen_table_columns(PG_TPCH_SF)
+    pg_li = device_tables({"lineitem": pg_cols["lineitem"]}, device)
+    want_pg_q1 = tpch.q1({"lineitem": s.create_dataframe(
+        pg_li["lineitem"])}).to_pandas()
+    check(s.last_dist_explain == "distributed",
+          f"TPC-H q1 SF{PG_TPCH_SF} on one logical shard ran distributed "
+          f"({s.last_dist_explain!r})")
     s.stop()
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -2182,8 +2412,31 @@ def main() -> int:
                 PG_ROWS, card_line, label, extra=dist_metrics)
             check_dist(s, label, lp, mp_)
             pst = dict(s.last_dist_stats)["aggregate"]
+            q1_label = f"TPC-H q1 SF{PG_TPCH_SF} over a one-rank NCCL group"
+            got_q1, lq1, mq1, _ = drive(
+                torch, K, fm, tpch.q1({"lineitem": s.create_dataframe(
+                    pg_li["lineitem"])}), pg_li["lineitem"].nrows,
+                card_line, q1_label, extra=dist_metrics)
+            check_dist(s, q1_label, lq1, mq1)
         finally:
             dist.destroy_process_group()
+    ok, why = frames_match(got_q1, want_pg_q1, PATH_RTOL)
+    check(ok, f"{q1_label}: answer equals one logical shard's (floats "
+          f"within rel {PATH_RTOL}) {why}")
+    want_o = tpch_q1_oracle(pg_cols)
+    check(got_q1["l_returnflag"].tolist() == want_o["l_returnflag"]
+          and got_q1["l_linestatus"].tolist() == want_o["l_linestatus"]
+          and got_q1["count_order"].tolist()
+          == want_o["count_order"].tolist()
+          and all(np.allclose(got_q1[c].to_numpy(), want_o[c],
+                              rtol=QUERY_RTOL, atol=0)
+                  for c in ("sum_qty", "sum_base_price", "sum_disc_price",
+                            "sum_charge", "avg_qty", "avg_price",
+                            "avg_disc")),
+          f"{q1_label}: groups, order and counts equal numpy, sums within "
+          f"rel {QUERY_RTOL}")
+    total.add(lq1)
+    del pg_cols, pg_li
     check(all(np.array_equal(pst[k], want_pg_stats[k])
               for k in ("bucket_counts", "bucket_map", "partition_counts")),
           f"{label}: stage statistics equal one logical shard's")

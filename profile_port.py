@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python3 profile_port.py [tpch] [join] [q6] [tpcds] [files]
+    python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -18,7 +18,9 @@ one device and over 8 logical shards, and TPC-DS q67 (rollup over eight
 keys, four of them strings, then a window) and q47 (a windowed average
 and ``lag``/``lead`` over two specs) through ``session.sql`` with the
 hash path on, and TPC-H q1 and q6 over SF10 lineitem written as 16
-parquet files, pipeline on and off, and prints, per run: the host wall
+parquet files, pipeline on and off, and (``sharded_tpch``, only when asked
+for) TPC-H q1 and q9 at SF10 on one device and over 8 logical shards, and
+prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
 host syncs, the host time of the string dictionary (fetching string
@@ -71,9 +73,11 @@ class DictTime:
 
     FETCH = ("host_strings",)
     ENCODE = ("dict_encode_stable", "ordered_dict_encode", "rank_encode",
-              "decode")
-    CARD = ("string_sort_keys",)
-    CARD_METHODS = ("_encode_device", "_decode_device")
+              "decode", "ordered_dict_table")
+    CARD = ("string_sort_keys", "encode_sorted")
+    CARD_METHODS = ("_encode_device", "_decode_device", "sorted")
+    # the sharded path's dictionaries (SortedDictionary)
+    SORTED_METHODS = ("bounds", "decode", "positions_in")
 
     def __init__(self):
         self.reset()
@@ -100,10 +104,12 @@ class DictTime:
         for name in self.CARD:
             setattr(dictionary, name, self._timed(
                 getattr(dictionary, name), "card_ms", "card_calls"))
-        for name in self.CARD_METHODS:
-            setattr(dictionary.StableDictionary, name, self._timed(
-                getattr(dictionary.StableDictionary, name), "card_ms",
-                "card_calls"))
+        for cls, names in ((dictionary.StableDictionary, self.CARD_METHODS),
+                           (dictionary.SortedDictionary,
+                            self.SORTED_METHODS)):
+            for name in names:
+                setattr(cls, name, self._timed(getattr(cls, name),
+                                               "card_ms", "card_calls"))
         self._wrapped = True
 
     def _timed(self, fn, field, count):
@@ -221,6 +227,8 @@ def main() -> int:
         profile_tpcds(torch, session, card_line)
     if "files" in sections:
         profile_files(torch, TpuSession, tpch, card_line)
+    if "sharded_tpch" in sys.argv[1:]:
+        return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
 
 
@@ -313,6 +321,31 @@ def profile_files(torch, TpuSession, tpch, card_line):
                         f"pipeline {'on' if pipeline else 'off'}",
                         card_line)
             s.stop()
+
+
+def profile_sharded(torch, TpuSession, tpch, card_line) -> int:
+    """TPC-H q1 (two string group keys) and q9 (a five-way join and a
+    LIKE over p_name) at SF10, on one device and over 8 logical shards
+    (the sharded_tpch phase's sessions); 1 when a sharded run fell
+    back."""
+    batches = cs.device_tables(tpch.gen_table_columns(cs.TPCH_SF),
+                               torch.device(cs.DEVICE))
+    for conf, where in ((cs.tpch_conf(True), "one device"),
+                        (cs.sharded_conf(cs.tpch_conf(True)),
+                         f"over {cs.NSHARDS} shards")):
+        s = TpuSession(conf)
+        t = {name: s.create_dataframe(b) for name, b in batches.items()}
+        for name in ("q1", "q9"):
+            profile(torch, tpch.QUERIES[name](t),
+                    f"TPC-H {name} SF{cs.TPCH_SF}, {where}", card_line)
+            if conf is not None and s.shards is not None and \
+                    s.last_dist_explain != "distributed":
+                print(f"profile_port: {name} fell back: "
+                      f"{s.last_dist_explain}", file=sys.stderr)
+                return 1
+        s.stop()
+        del t
+    return 0
 
 
 if __name__ == "__main__":

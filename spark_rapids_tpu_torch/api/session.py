@@ -102,6 +102,9 @@ class TpuSession:
                 self.conf.get(rc.DISTRIBUTED_NUM_SHARDS), self.device)
         self.last_dist_explain = ""
         self.last_dist_stats = None
+        # the sharded file scan's counters of the last distributed query
+        # (None when no file scan was sharded)
+        self.last_scan_stats = None
         # the last single-device collect's pipeline counters (None when
         # it ran without the pipeline)
         self.last_pipeline_stats = None

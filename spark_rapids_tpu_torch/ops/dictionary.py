@@ -13,7 +13,9 @@ host through :func:`host_strings` in one counted sync
 * :func:`ordered_dict_encode`: order-preserving codes plus the sorted
   distinct values (string min/max);
 * :func:`dict_encode_stable`: codes stable across batches, the first
-  appearance of a value fixing its code (group-by and join keys).
+  appearance of a value fixing its code (group-by and join keys);
+* :func:`ordered_dict_table`: :func:`ordered_dict_encode` with the sorted
+  values as a string column's offsets and chars instead of a list.
 
 Arrow's hash dictionary encode and its sort over the distinct values do
 the work where pyarrow is present, as in the JAX package; the byte-matrix
@@ -24,6 +26,13 @@ path is the fallback.
 the strings are at most ``MAX_PACKED_BYTES`` long: a string becomes its
 bytes packed eight to an int64 word plus its length, which compare as
 the strings do, exactly.
+
+:class:`SortedDictionary` is the sharded path's dictionary: a column's
+distinct values in Spark's string order, held as a string column on the
+device, which the codes index.  :func:`encode_sorted` makes the codes and
+the dictionary of one column (on the card up to ``MAX_PACKED_BYTES``,
+else through :func:`ordered_dict_table`); :meth:`StableDictionary.sorted`
+turns first-seen codes shared across batches into the same.
 """
 
 from __future__ import annotations
@@ -159,24 +168,60 @@ def ordered_dict_encode(col: HostStrings) -> Tuple[np.ndarray, List[str]]:
     """(codes int64, sorted distinct values): an order-preserving
     dictionary encode (code order is Spark's string order).  Null rows
     get code 0; callers keep the validity."""
+    codes, offs, chars = ordered_dict_table(col)
+    return codes, [chars[offs[i]:offs[i + 1]].tobytes().decode("utf-8")
+                   for i in range(len(offs) - 1)]
+
+
+def _arrow_buffers(arr) -> Tuple[np.ndarray, np.ndarray]:
+    """(offsets int64 from 0, chars uint8) of an arrow string array."""
+    n = len(arr)
+    bufs = arr.buffers()
+    offs = np.frombuffer(bufs[1], dtype=np.int32)[
+        arr.offset: arr.offset + n + 1].astype(np.int64)
+    chars = np.frombuffer(bufs[2], dtype=np.uint8) \
+        if bufs[2] is not None else np.zeros(0, dtype=np.uint8)
+    if n:
+        chars = chars[int(offs[0]): int(offs[-1])]
+        offs = offs - offs[0]
+    return offs, chars
+
+
+def ordered_dict_table(col: HostStrings
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(codes int64, offsets int64, chars uint8): the codes of
+    :func:`ordered_dict_encode` and its sorted distinct values as a string
+    column's buffers, made without a Python object per value (arrow's
+    sort and take; the byte-matrix path without pyarrow).  Null rows get
+    code 0."""
     n = col.nrows
+    empty = (np.zeros(1, dtype=np.int64), np.zeros(0, dtype=np.uint8))
     if n == 0:
-        return np.zeros(0, dtype=np.int64), []
+        return (np.zeros(0, dtype=np.int64),) + empty
     enc = _arrow_dictionary(col)
     if enc is not None:
         import pyarrow.compute as pc
         inverse, dictionary = enc
         k = len(dictionary)
         if k == 0:
-            return np.zeros(n, dtype=np.int64), []
+            return (np.zeros(n, dtype=np.int64),) + empty
         order = np.asarray(pc.sort_indices(dictionary))
         rank = np.empty(k, dtype=np.int64)
         rank[order] = np.arange(k, dtype=np.int64)
-        return rank[inverse], dictionary.take(order).to_pylist()
-    mat, _ = row_byte_matrix(col)
-    uniq, inverse = _unique_rows(mat)
-    return (inverse.astype(np.int64),
-            [_unique_bytes(u).decode("utf-8") for u in uniq])
+        codes = np.where(col.valid, rank[inverse], 0)
+        return (codes,) + _arrow_buffers(dictionary.take(order))
+    mat, valid = row_byte_matrix(col)
+    uniq, inverse = _unique_rows(mat[valid])
+    codes = np.zeros(n, dtype=np.int64)
+    codes[valid] = inverse
+    width = mat.shape[1] - 4
+    lens = np.zeros(len(uniq), dtype=np.int64)
+    for i in range(4):
+        lens = (lens << 8) | uniq[:, width + i].astype(np.int64)
+    offs = np.zeros(len(uniq) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offs[1:])
+    keep = np.arange(width)[None, :] < lens[:, None]
+    return codes, offs, uniq[:, :width][keep]
 
 
 def dict_encode_stable(col: HostStrings, codes: Dict[Optional[str], int],
@@ -436,6 +481,40 @@ class StableDictionary:
                 torch.cat([self.lengths, new_len])
         return out
 
+    def sorted(self, device) -> Tuple["object", "SortedDictionary"]:
+        """(rank, dictionary): each code's position among the known values
+        in Spark's string order (int64 on ``device``) and those values as
+        a :class:`SortedDictionary`; ``rank[codes]`` are the codes of
+        :func:`ordered_dict_encode` over every row encoded so far.  The
+        null value must not be among them (encode with ``null_code``)."""
+        import torch
+        from spark_rapids_tpu_torch.columnar import dtypes as dts
+        from spark_rapids_tpu_torch.ops.expressions import ColVal
+        known = len(self)
+        if not known:
+            return (torch.zeros(0, dtype=torch.int64, device=device),
+                    SortedDictionary.empty(device))
+        if self.host_codes is not None:
+            if any(v is None for v in self.host_values):
+                raise ValueError("a dictionary holding the null value has "
+                                 "no sorted form")
+            import pyarrow as pa
+            import pyarrow.compute as pc
+            arr = pa.array(self.host_values, type=pa.string())
+            order = np.asarray(pc.sort_indices(arr))
+            rank = np.empty(known, dtype=np.int64)
+            rank[order] = np.arange(known, dtype=np.int64)
+            return (torch.from_numpy(rank).to(device),
+                    SortedDictionary.from_host(*_arrow_buffers(
+                        arr.take(order)), device=device))
+        width = int(self.words.shape[1])
+        keys = [ColVal(dts.INT64, self.words[:, k]) for k in range(width)] \
+            + [ColVal(dts.INT64, self.lengths)]
+        live = torch.ones(known, dtype=torch.bool, device=device)
+        rank, first = _groups(keys, live)
+        return rank, SortedDictionary.from_colval(_in_chunks(
+            known, lambda lo, hi: self.decode(first[lo:hi])))
+
     def _to_host(self) -> None:
         """Move the known values to the host dictionary, in code order."""
         known = len(self)
@@ -478,11 +557,17 @@ class StableDictionary:
         if validity is not None:
             lengths = torch.where(validity, lengths,
                                   torch.zeros_like(lengths))
-        flat = _unpack_bytes(self.words).reshape(-1)
         row_bytes = 8 * int(self.words.shape[1])
+        if idx.shape[0] < self.words.shape[0]:
+            # unpack only the rows asked for
+            flat = _unpack_bytes(self.words[idx]).reshape(-1)
+            starts = torch.arange(idx.shape[0], device=idx.device) * \
+                row_bytes
+        else:
+            flat = _unpack_bytes(self.words).reshape(-1)
+            starts = idx * row_bytes
         total = int(hostsync.fetch(lengths.sum()))
-        chars, offsets = build_strings(lengths, idx * row_bytes, flat,
-                                       total)
+        chars, offsets = build_strings(lengths, starts, flat, total)
         return ColVal(dts.STRING, chars, valid, offsets)
 
 
@@ -490,13 +575,7 @@ def string_table(values: List[Optional[str]]):
     """(offsets int64, chars uint8, validity bool) of a list of str or
     None, built by arrow."""
     import pyarrow as pa
-    n = len(values)
-    arr = pa.array(values, type=pa.string())
-    bufs = arr.buffers()
-    offs = np.frombuffer(bufs[1], dtype=np.int32)[
-        arr.offset: arr.offset + n + 1].astype(np.int64)
-    chars = np.frombuffer(bufs[2], dtype=np.uint8) \
-        if bufs[2] is not None else np.zeros(0, dtype=np.uint8)
+    offs, chars = _arrow_buffers(pa.array(values, type=pa.string()))
     valid = np.array([v is not None for v in values], dtype=np.bool_)
     return offs, chars, valid
 
@@ -527,3 +606,217 @@ def decode(values: List[Optional[str]], codes, validity=None):
     out = selection.gather([table], idx)[0]
     return ColVal(dts.STRING, out.values,
                   combine_validity(out.validity, validity), out.offsets)
+
+
+class SortedDictionary:
+    """A string column's distinct non-null values in Spark's string order
+    (UTF-8 byte order), held on a device as a string column: ``chars``
+    (uint8) and ``offsets`` (int64, ``K + 1``).  Code ``i`` is the
+    ``i``-th value, so codes compare as their strings do.  The sharded
+    path keeps one per encoded column: the JAX package keeps a Python list
+    there, which at SF10 (1.5e7 values of ``o_comment``) would cost
+    minutes per query."""
+
+    def __init__(self, chars, offsets):
+        self.chars = chars
+        self.offsets = offsets
+        self.size = int(offsets.shape[0]) - 1
+
+    @classmethod
+    def empty(cls, device) -> "SortedDictionary":
+        import torch
+        return cls(torch.zeros(0, dtype=torch.uint8, device=device),
+                   torch.zeros(1, dtype=torch.int64, device=device))
+
+    @classmethod
+    def from_host(cls, offsets: np.ndarray, chars: np.ndarray,
+                  device) -> "SortedDictionary":
+        import torch
+        return cls(torch.from_numpy(np.ascontiguousarray(chars)).to(device),
+                   torch.from_numpy(np.ascontiguousarray(
+                       offsets.astype(np.int64))).to(device))
+
+    @classmethod
+    def from_colval(cls, c) -> "SortedDictionary":
+        """From a string ``ColVal`` already sorted, distinct, non-null."""
+        import torch
+        return cls(c.values, c.offsets.to(torch.int64))
+
+    @property
+    def device(self):
+        return self.chars.device
+
+    def __len__(self) -> int:
+        return self.size
+
+    def column(self):
+        """The values as a string ``ColVal`` (``K`` rows, all valid)."""
+        import torch
+        from spark_rapids_tpu_torch.columnar import dtypes as dts
+        from spark_rapids_tpu_torch.ops.expressions import ColVal
+        return ColVal(dts.STRING, self.chars, None,
+                      self.offsets.to(torch.int32))
+
+    def to_pylist(self) -> List[str]:
+        """The values on the host (one counted fetch)."""
+        if not self.size:
+            return []
+        offs, chars = hostsync.fetch(self.offsets, self.chars)
+        return [chars[offs[i]:offs[i + 1]].tobytes().decode("utf-8")
+                for i in range(self.size)]
+
+    def bounds(self, literals) -> List[Tuple[int, int]]:
+        """Per string ``s``: (values < s, values <= s), counted by the
+        engine's string comparisons on the device, in one counted fetch.
+        ``[lo, hi)`` are the codes equal to ``s`` (empty when absent)."""
+        import torch
+        from spark_rapids_tpu_torch.ops import stringops
+        from spark_rapids_tpu_torch.ops.expressions import (
+            EmitContext, Literal)
+        literals = list(literals)
+        if not literals:
+            return []
+        if not self.size:
+            return [(0, 0) for _ in literals]
+        k = self.size
+        col = self.column()
+        ctx = EmitContext([col], k, k, self.device)
+        counts = []
+        for s in literals:
+            lit = Literal(s).emit(ctx)
+            counts.append(stringops.string_lt(col, lit, ctx).sum())
+            counts.append(stringops.string_le(col, lit, ctx).sum())
+        got = [int(v) for v in hostsync.fetch(torch.stack(counts))]
+        return [(got[2 * i], got[2 * i + 1]) for i in range(len(literals))]
+
+    def codes_of(self, literals) -> List[int]:
+        """Each string's code, or -1 where the dictionary lacks it."""
+        return [lo if hi > lo else -1 for lo, hi in self.bounds(literals)]
+
+    def decode(self, codes, validity=None):
+        """String ``ColVal`` of the values at ``codes`` (gathered on the
+        codes' device); rows whose ``validity`` is False decode to null."""
+        import torch
+        from spark_rapids_tpu_torch.columnar import dtypes as dts
+        from spark_rapids_tpu_torch.ops import selection
+        from spark_rapids_tpu_torch.ops.expressions import (
+            ColVal, combine_validity)
+        n = int(codes.shape[0])
+        device = codes.device
+        if not self.size:
+            return ColVal(dts.STRING,
+                          torch.zeros(0, dtype=torch.uint8, device=device),
+                          torch.zeros(n, dtype=torch.bool, device=device),
+                          torch.zeros(n + 1, dtype=torch.int32,
+                                      device=device))
+        idx = codes.to(torch.int64).clamp(0, self.size - 1)
+        out = selection.gather([self.column()], idx)[0]
+        return ColVal(dts.STRING, out.values,
+                      combine_validity(out.validity, validity), out.offsets)
+
+    def positions_in(self, other: "SortedDictionary"):
+        """int64 ``[K]`` on the device: each value's code in ``other``, or
+        -1 where ``other`` lacks it.  On the card while both hold strings
+        of at most ``MAX_PACKED_BYTES``: one sort of both sets of packed
+        words, ``other`` first, so a value's group starts at its code
+        there; else through the host."""
+        import torch
+        device = self.device
+        if not self.size:
+            return torch.zeros(0, dtype=torch.int64, device=device)
+        if not other.size:
+            return torch.full((self.size,), -1, dtype=torch.int64,
+                              device=device)
+        mine, theirs = self.column(), other.column()
+        maxlen = int(hostsync.fetch(torch.stack([
+            (d.offsets[1:] - d.offsets[:-1]).max() for d in (self, other)
+        ])).max())
+        if maxlen > MAX_PACKED_BYTES:
+            pos = {v: i for i, v in enumerate(other.to_pylist())}
+            return torch.tensor([pos.get(v, -1) for v in self.to_pylist()],
+                                dtype=torch.int64, device=device)
+        from spark_rapids_tpu_torch.columnar import dtypes as dts
+        from spark_rapids_tpu_torch.ops.expressions import ColVal
+        width = max(1, -(-maxlen // 8))
+        parts = []
+        for c, n in ((theirs, other.size), (mine, self.size)):
+            chars, starts, lengths, _ = _string_parts(c, n)
+            parts.append((pack_words(chars, starts, lengths, width),
+                          lengths))
+        words = torch.cat([parts[0][0], parts[1][0]])
+        lengths = torch.cat([parts[0][1], parts[1][1]])
+        keys = [ColVal(dts.INT64, words[:, k]) for k in range(width)] + \
+            [ColVal(dts.INT64, lengths)]
+        total = other.size + self.size
+        group, first = _groups(keys, torch.ones(total, dtype=torch.bool,
+                                                device=device))
+        head = first[group[other.size:]]
+        return torch.where(head < other.size, head,
+                           torch.full_like(head, -1))
+
+
+def encode_sorted(c, nrows: int):
+    """(codes, dictionary) of the first ``nrows`` rows of a string
+    ``ColVal`` or ``Column``: int64 codes on the column's device (null
+    rows 0, their validity the caller's) and the rows' distinct values as
+    a :class:`SortedDictionary` on that device, equal to
+    :func:`ordered_dict_encode`'s.  Strings of at most ``MAX_PACKED_BYTES``
+    encode on the device: one sort of the packed words (the first step of
+    :class:`StableDictionary`) numbers the distinct values in string
+    order, and the dictionary gathers each group's first row (three
+    counted fetches: the longest string, the number of values and their
+    chars).  Longer strings encode on the host
+    (:func:`ordered_dict_table`)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dts
+    from spark_rapids_tpu_torch.ops import selection
+    from spark_rapids_tpu_torch.ops.expressions import ColVal
+    chars, starts, lengths, validity = _string_parts(c, nrows)
+    device = starts.device
+    if nrows == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=device),
+                SortedDictionary.empty(device))
+    maxlen = max_length(c, nrows)
+    if maxlen > MAX_PACKED_BYTES:
+        codes, offs, chs = ordered_dict_table(host_strings(c, nrows))
+        return (torch.from_numpy(codes).to(device),
+                SortedDictionary.from_host(offs, chs, device))
+    width = max(1, -(-maxlen // 8))
+    words = pack_words(chars, starts, lengths, width)
+    keys = [ColVal(dts.INT64, words[:, k]) for k in range(width)] + \
+        [ColVal(dts.INT64, lengths)]
+    live = validity if validity is not None else \
+        torch.ones(nrows, dtype=torch.bool, device=device)
+    group, first = _groups(keys, live)
+    k = int(hostsync.fetch((first < nrows).sum()))
+    codes = torch.where(live, group, torch.zeros_like(group))
+    if k == 0:
+        return codes, SortedDictionary.empty(device)
+    col = ColVal(dts.STRING, chars, None, c.offsets[: nrows + 1])
+    values = _in_chunks(k, lambda lo, hi: selection.gather(
+        [col], first[lo:hi])[0])
+    return codes, SortedDictionary.from_colval(values)
+
+
+# rows a dictionary's strings are gathered in at a time: a string gather
+# holds int64 intermediates the size of its chars, which for 1.5e7
+# distinct 48-byte values (TPC-H o_comment at SF10) would be tens of GB
+_CHUNK_ROWS = 1 << 22
+
+
+def _in_chunks(n: int, gather):
+    """One string column (all valid, int64 offsets) of ``n`` rows made by
+    ``gather(lo, hi)`` over row ranges of at most ``_CHUNK_ROWS``; each
+    part's chars are exactly its rows' bytes."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import dtypes as dts
+    from spark_rapids_tpu_torch.ops.expressions import ColVal
+    parts = [gather(lo, min(n, lo + _CHUNK_ROWS))
+             for lo in range(0, n, _CHUNK_ROWS)]
+    offsets = [parts[0].offsets[:1].to(torch.int64)]
+    base = 0
+    for p in parts:
+        offsets.append(p.offsets[1:].to(torch.int64) + base)
+        base += int(p.values.shape[0])
+    return ColVal(dts.STRING, torch.cat([p.values for p in parts]), None,
+                  torch.cat(offsets))

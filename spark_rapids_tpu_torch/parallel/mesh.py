@@ -95,9 +95,9 @@ def _check_fixed_width(shards: Sequence[Shard]) -> None:
     for s in shards:
         for c in s:
             if c.offsets is not None:
-                raise NotImplementedError(
-                    "string columns do not travel on the sharded path "
-                    "(dictionary encoding is not ported)")
+                raise ValueError(
+                    "a string column reached the exchange: the sharded "
+                    "path moves strings only as dictionary codes")
 
 
 class LocalShards(ShardGroup):

@@ -70,9 +70,14 @@ class LogicalPlan:
 
 
 class InMemoryRelation(LogicalPlan):
+    """Batches already on a device.  The planner's pushdown pass sets
+    ``required_columns`` (the columns the plan reads, None = all); only the
+    sharded scan reads it, to encode and move no other column."""
+
     def __init__(self, batches: Sequence[ColumnarBatch], schema: Schema):
         self.batches = list(batches)
         self._schema = list(schema)
+        self.required_columns = None
 
     @property
     def schema(self) -> Schema:

@@ -175,7 +175,10 @@ def _names(exprs, schema) -> Optional[set]:
 def _pushdown_pass(plan: L.LogicalPlan) -> None:
     """Column pruning and filter pushdown into the plan's FileRelations,
     set afresh on every planning (``required_columns`` back to None and
-    ``pushed_filters`` emptied where nothing applies).
+    ``pushed_filters`` emptied where nothing applies).  An
+    InMemoryRelation gets its ``required_columns`` the same way (no
+    filters): the sharded scan encodes and moves only those columns, and
+    the single-device scan does not read them.
 
     As in the JAX package, filters push down until a Project or an
     Aggregate, and a Project or Aggregate above decides the columns a
@@ -189,7 +192,7 @@ def _pushdown_pass(plan: L.LogicalPlan) -> None:
     found = {}
 
     def visit(node, required, filters):
-        if isinstance(node, L.FileRelation):
+        if isinstance(node, (L.FileRelation, L.InMemoryRelation)):
             seen = found.get(id(node))
             if seen is None:
                 found[id(node)] = [node, required, list(filters)]
@@ -237,7 +240,8 @@ def _pushdown_pass(plan: L.LogicalPlan) -> None:
     visit(plan, None, [])
     for node, required, filters in found.values():
         node.required_columns = None if required is None else set(required)
-        node.pushed_filters = filters
+        if isinstance(node, L.FileRelation):
+            node.pushed_filters = filters
 
 
 def _check_format_enabled(node: L.FileRelation, conf) -> None:

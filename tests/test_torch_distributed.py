@@ -547,14 +547,25 @@ def test_stages_expressions_and_limit_match_jax(lineitem, fused):
     pd.testing.assert_frame_equal(got, want)
 
 
+def _string_union(F, df):
+    """A union over a string column: the fallback the sharded path keeps
+    (the children's dictionaries would need aligning)."""
+    return df.filter(F.col("v") > 3.0).union(df.filter(F.col("v") <= 3.0)) \
+        .orderBy("v")
+
+
 def test_string_scan_falls_back_with_reason():
+    """String scans distribute since dictionary codes travel on the shard
+    group; a union over strings still falls back, with the JAX package's
+    reason, and answers as the single device does."""
     data = {"s": ["a", "b", None, "a"] * 8, "v": np.arange(32.0)}
     ts = TpuSession(MESH_CONF, device="cpu")
-    got = _sparse_agg_by(TF, ts.create_dataframe(data)).to_pandas()
-    assert ts.last_dist_explain.startswith("fallback:")
-    assert "string" in ts.last_dist_explain
+    got = _string_union(TF, ts.create_dataframe(data)).to_pandas()
+    assert ts.last_dist_explain == (
+        "fallback: union over string columns needs dictionary alignment "
+        "(not yet distributed)")
     single = TpuSession({}, device="cpu")
-    want = _sparse_agg_by(TF, single.create_dataframe(data)).to_pandas()
+    want = _string_union(TF, single.create_dataframe(data)).to_pandas()
     pd.testing.assert_frame_equal(got, want)
 
 
@@ -565,7 +576,7 @@ def test_fallback_clears_stage_statistics(lineitem):
     _q1(TF, ts.create_dataframe(lineitem)).to_pandas()
     assert ts.last_dist_stats
     data = {"s": ["a", "b"] * 8, "v": np.arange(16.0)}
-    _sparse_agg_by(TF, ts.create_dataframe(data)).to_pandas()
+    _string_union(TF, ts.create_dataframe(data)).to_pandas()
     assert ts.last_dist_explain.startswith("fallback:")
     assert ts.last_dist_stats is None
 

@@ -579,14 +579,18 @@ def test_reader_error_raises_on_the_driving_thread(psess, tmp_path):
 
 
 def test_sharded_planner_falls_back_on_files(psess, tmp_path):
-    """The sharded planner has no file-scan lowering yet: it falls back
-    to the single device and says why."""
+    """The sharded planner no longer falls back on files: the file list
+    shards over the group, each shard reads its own files, and the answer
+    is the single device's."""
     paths = _write_files(tmp_path)
     s = TpuSession({"spark.rapids.sql.distributed.numShards": 4},
                    device="cpu")
     q = s.read.parquet(*paths).groupBy("grp").agg(F.sum("x").alias("sx"))
     got = q.orderBy("grp").to_pandas()
-    assert "FileRelation" in s.last_dist_explain
+    assert s.last_dist_explain == "distributed"
+    st = s.last_scan_stats
+    assert st["sharded_files"] and st["files"] == len(paths)
+    assert st["peak_host_rows"] <= st["shard_bound_rows"] < st["total_rows"]
     want = psess.read.parquet(*paths).groupBy("grp").agg(
         F.sum("x").alias("sx")).orderBy("grp").to_pandas()
     same(want, got)
