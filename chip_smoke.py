@@ -72,6 +72,26 @@ just before it and read just after:
   bit for bit, the answer equals a hash-off run's, and all 29 at SF1 on
   the card equal the engine on the CPU (computed meanwhile in a spawned
   process of its own);
+- the ``memory`` phase, after the files phase over its parquet (M1-M4)
+  and inside the tpcds phase on its tables (M5): M1 the out-of-core
+  sort of SF10 lineitem (60,000,000 rows, every column) by
+  (l_extendedprice desc, l_orderkey, l_linenumber) at default memory,
+  sorted within and across its output batches, its keys equal to numpy's
+  ``lexsort`` (computed on a thread meanwhile), an order-free checksum of
+  every column equal to the input's; M2 the same sort of lineitem's
+  first 8 input batches under a 256 MiB spill budget with a 1 GiB host
+  tier, reaching host and disk with no integrity failure, equal batch
+  for batch, bit for bit, to M1's sort of those batches at default
+  memory; M3 the 22 TPC-H queries under the budget, once each, equal to
+  the tpch22 answers, q18 spilling and tree-merging, and q1 and q18 over the
+  parquet with the pipeline's batches registered; M4 a real
+  ``torch.OutOfMemoryError`` in q1's aggregate over 2^26-row batches
+  under ``torch.cuda.set_per_process_memory_fraction`` recovered by
+  retry and split, then injected OOMs through project/filter,
+  aggregate, join and sort at SF10, each equal to the uninjected run; M5
+  TPC-DS q47 and q67 in more than one window chunk, and q67 again under
+  the budget with its sorts spilling and the same answer.  Its launches
+  are ``launches_by_phase["memory"]``;
 - the fact-dim hash join (2^26 fact rows against 2^19 dim rows, then a
   group-by on the key), hash path on (``hash_insert`` + ``hash_probe`` in
   every probe batch) and off;
@@ -90,8 +110,8 @@ Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
-in total, by phase for the tpch22, tpch_sql, files, tpcds and
-sharded_tpch phases, and by shape), and last
+in total, by phase for the tpch22, tpch_sql, files, tpcds,
+sharded_tpch and memory phases, and by shape), and last
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
 device, or without the rest of the repository beside it, it fails.
@@ -1849,6 +1869,482 @@ def drive(torch, K, fm, query, rows, card_line, label, reps=3,
     return result, launches, fusion, rows / wall
 
 
+# ----------------------------------------------------------- memory phase --
+
+MEMORY_BUDGET = 256 << 20   # M2-M5's device spill budget (SF100 cut to SF10)
+MEMORY_HOST = 1 << 30       # the host tier (the reference's default)
+OOM_BATCH_ROWS = 1 << 26    # M4: q1's aggregate over 2^26-row batches
+OOM_HEADROOM = 0.55         # M4: the cap leaves this share of its peak
+M2_BATCHES = 8              # M2 sorts lineitem's first 8 input batches
+M5_QUERIES = ("q47", "q67")
+M5_BUDGET_QUERY = "q67"     # M5's run under the spill budget
+SORT_KEYS = ("l_extendedprice", "l_orderkey", "l_linenumber")
+CHECK_SLICE_ROWS = 1 << 22  # the input checksum's slices
+# wrap-around int64 mixing constants (splitmix64's, as signed values)
+_MIX1 = -7046029254386353131
+_MIX2 = -4658895280553007687
+_MIX3 = -7723592293110705685
+NULL_WORD = 0x5EED
+
+
+def memory_conf(base):
+    """``base`` under the phase's spill budget and host tier."""
+    return dict(base, **{
+        "spark.rapids.memory.tpu.deviceLimitBytes": MEMORY_BUDGET,
+        "spark.rapids.memory.host.spillStorageSize": MEMORY_HOST})
+
+
+def mix(x):
+    """A wrap-around int64 mix of each element (splitmix64's finaliser
+    with arithmetic shifts)."""
+    x = x * _MIX1
+    x = x ^ (x >> 31)
+    x = x * _MIX2
+    return x ^ (x >> 29)
+
+
+def row_words(torch, col, n):
+    """One int64 per row of a column's first n rows, from its bits: a
+    float's bits, an integer's value, a string's chars with their places
+    (a hash of the row), a null a word of its own; no host sync."""
+    dev = col.data.device
+    if col.offsets is not None:
+        off = col.offsets[:n + 1].to(torch.int64)
+        chars = col.data.to(torch.int64)
+        j = torch.arange(chars.shape[0], device=dev)
+        row = (torch.searchsorted(off, j, right=True) - 1).clamp(
+            0, max(n - 1, 0))
+        inside = (j >= off[0]) & (j < off[n])
+        m = mix((chars + 1) * _MIX3 + (j - off[row]) * _MIX1)
+        h = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+            0, row, torch.where(inside, m, torch.zeros_like(m)))
+        w = mix(h + (off[1:] - off[:-1]) * _MIX2)
+    else:
+        v = col.data[:n]
+        if v.dtype == torch.float64:
+            w = v.contiguous().view(torch.int64)
+        elif v.dtype == torch.float32:
+            w = v.contiguous().view(torch.int32).to(torch.int64)
+        else:
+            w = v.to(torch.int64)
+    if col.validity is not None:
+        w = torch.where(col.validity[:n], w,
+                        torch.full_like(w, NULL_WORD))
+    return w
+
+
+def batch_sums(torch, batch):
+    """On the card: per column the sum of its rows' mixed words (order
+    free: a permutation of the rows keeps it), and the batch's sum of
+    words mixed with their row numbers (order bound)."""
+    n = batch.nrows
+    dev = batch.device
+    place = mix(torch.arange(n, device=dev) + 1)
+    cols, ordered = [], torch.zeros((), dtype=torch.int64, device=dev)
+    for i, c in enumerate(batch.columns.values()):
+        w = mix(row_words(torch, c, n) + (i + 1) * 1000003)
+        cols.append(w.sum())
+        ordered = ordered + mix(w ^ place).sum()
+    return torch.stack(cols), ordered
+
+
+def table_sums(torch, batch):
+    """``batch_sums``' column sums of a whole table, a slice at a time."""
+    from spark_rapids_tpu_torch.exec.basic import slice_batch
+    n = batch.nrows
+    total = None
+    for part in slice_batch(batch, list(range(0, n, CHECK_SLICE_ROWS))
+                            + [n]):
+        cs, _ = batch_sums(torch, part)
+        total = cs if total is None else total + cs
+    return total
+
+
+def exec_metric(plan, name):
+    """A metric summed over a physical plan's operators."""
+    got = plan.metrics[name].value if name in plan.metrics else 0
+    return got + sum(exec_metric(c, name) for c in plan.children)
+
+
+class LexsortOracle:
+    """numpy's lexsort of lineitem's three sort keys, on a thread of its
+    own (numpy lets go of the GIL while it sorts), started as soon as the
+    host columns exist."""
+
+    def __init__(self, lineitem_cols):
+        import threading
+        self.cols = {k: np.asarray(lineitem_cols[k][1]) for k in SORT_KEYS}
+        self.keys = None
+        self.seconds = None
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self):
+        t0 = time.perf_counter()
+        price, okey, line = (self.cols[k] for k in SORT_KEYS)
+        idx = np.lexsort((line, okey, -price))
+        self.keys = [price[idx], okey[idx], line[idx]]
+        self.seconds = time.perf_counter() - t0
+
+    def result(self):
+        self._t.join()
+        return self.keys
+
+
+def memory_sort(torch, K, fm, F, lineitem, conf, label, keys_out=None):
+    """``lineitem.orderBy(l_extendedprice desc, l_orderkey,
+    l_linenumber)`` through ``TpuSession(conf)``, consumed batch by
+    batch: (rows, column sums, [(rows, ordered sum)] per batch, seconds,
+    launches, session, plan); the key columns go to ``keys_out``."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    s = TpuSession(conf, device=DEVICE)
+    q = s.create_dataframe(lineitem).orderBy(
+        F.col("l_extendedprice").desc(), F.col("l_orderkey"),
+        F.col("l_linenumber"))
+    K.launches.reset()
+    fm.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = s.plan(q.plan)
+    col_sums, ordered, sizes, keys = None, [], [], []
+    for b in plan.execute():
+        cs, od = batch_sums(torch, b)
+        col_sums = cs if col_sums is None else col_sums + cs
+        ordered.append(od)
+        sizes.append(b.nrows)
+        if keys_out is not None:
+            keys.append([b.column(k).data[:b.nrows].clone()
+                         for k in SORT_KEYS])
+        del b
+    torch.cuda.synchronize()
+    s.memory_catalog.wait_for_writes()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.launches.snapshot(),
+                    by_shape=K.launches.shape_snapshot())
+    ordered = torch.stack(ordered).cpu().numpy().tolist()
+    if keys_out is not None:
+        keys_out.extend(torch.cat([k[i] for k in keys]).cpu().numpy()
+                        for i in range(len(SORT_KEYS)))
+    print(f"memory {label}: {sum(sizes)} rows in {len(sizes)} batches, "
+          f"{seconds:.3f} s; outOfCoreRuns "
+          f"{exec_metric(plan, 'outOfCoreRuns')}, outOfCoreMergeSteps "
+          f"{exec_metric(plan, 'outOfCoreMergeSteps')}; catalog "
+          f"{s.memory_catalog.stats()}", flush=True)
+    return (sum(sizes), col_sums.cpu().numpy(), list(zip(sizes, ordered)),
+            seconds, launches, s, plan)
+
+
+def run_memory_sorts(torch, K, fm, F, lineitem, lexsort, total):
+    """M1 (default memory): the out-of-core sort of lineitem, sorted,
+    complete, a permutation of its input.  M2 (the 256 MiB budget): the
+    same sort of lineitem's first ``M2_BATCHES`` input batches, bit for
+    bit M1's sort of them at default memory, batch by batch."""
+    from spark_rapids_tpu_torch.exec.basic import slice_batch
+    n = lineitem.nrows
+    t0 = time.perf_counter()
+    want_sums = table_sums(torch, lineitem).cpu().numpy()
+    print(f"memory M1: input checksums in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    keys = []
+    rows, sums, per_batch, s1, l1, sess, plan = memory_sort(
+        torch, K, fm, F, lineitem, tpch_conf(True), "M1 (default memory)",
+        keys)
+    total.add(l1)
+    check(exec_metric(plan, "outOfCoreRuns") > 1
+          and exec_metric(plan, "outOfCoreMergeSteps") > 1
+          and len(per_batch) > 1,
+          f"memory M1: the sort of {n} rows took the out-of-core merge "
+          f"({exec_metric(plan, 'outOfCoreRuns')} runs, "
+          f"{exec_metric(plan, 'outOfCoreMergeSteps')} merge steps, "
+          f"{len(per_batch)} output batches)")
+    sess.stop()
+    check(rows == n, f"memory M1: {rows} rows out of {n}")
+    price, okey, line = keys
+    t0 = time.perf_counter()
+    later = (price[1:] < price[:-1]) | ((price[1:] == price[:-1]) & (
+        (okey[1:] > okey[:-1]) | ((okey[1:] == okey[:-1])
+                                  & (line[1:] >= line[:-1]))))
+    check(bool(later.all()),
+          "memory M1: every output batch and every batch boundary sorted "
+          "by (l_extendedprice desc, l_orderkey, l_linenumber)")
+    want = lexsort.result()
+    check(all(np.array_equal(a, b) for a, b in zip(keys, want)),
+          f"memory M1: the three key columns equal numpy's lexsort of "
+          f"them (lexsort {lexsort.seconds:.3f} s on the host, compared in "
+          f"{time.perf_counter() - t0:.3f} s)")
+    del keys, price, okey, line, later, want
+    check(np.array_equal(sums, want_sums),
+          f"memory M1: the order-free checksum of all "
+          f"{len(lineitem.columns)} columns (strings too) equals the "
+          "input's: the output is a permutation of the input")
+    m = min(n, M2_BATCHES * BATCH_ROWS)
+    head = slice_batch(lineitem, [0, m])[0]
+    rows1, _, per_batch1, s1h, l1h, sess1, _ = memory_sort(
+        torch, K, fm, F, head, tpch_conf(True),
+        f"M1 over the first {m} rows (default memory)")
+    total.add(l1h)
+    sess1.stop()
+    rows2, _, per_batch2, s2, l2, sess2, _ = memory_sort(
+        torch, K, fm, F, head, memory_conf(tpch_conf(True)),
+        f"M2 over the first {m} rows (spill budget {MEMORY_BUDGET} bytes)")
+    total.add(l2)
+    st = sess2.memory_catalog.stats()
+    check(st["spilled_to_host_total"] > 0 and st["spilled_to_disk_total"] > 0
+          and st["integrity_failures"] == 0,
+          f"memory M2: spilled {st['spilled_to_host_total']} bytes to the "
+          f"host and {st['spilled_to_disk_total']} to disk "
+          f"({st['disk_file_bytes_total']} bytes of frames), restored "
+          f"{st['restored_from_host_total']} from the host and "
+          f"{st['restored_from_disk_total']} from disk, no integrity "
+          "failure")
+    print(f"memory M2 times: host copies {st['spill_to_host_ns'] / 1e6:.3f}"
+          f" ms, checksums {st['checksum_ns'] / 1e6:.3f} ms, frame encode "
+          f"{st['serialize_ns'] / 1e6:.3f} ms, disk writes "
+          f"{st['disk_write_ns'] / 1e6:.3f} ms, disk reads "
+          f"{st['disk_read_ns'] / 1e6:.3f} ms, restores "
+          f"{st['restore_ns'] / 1e6:.3f} ms (host thread time)", flush=True)
+    sess2.stop()
+    check(rows2 == rows1 == m and per_batch2 == per_batch1,
+          f"memory M2: {len(per_batch2)} output batches equal M1's over the "
+          f"same {m} rows batch for batch, bit for bit (row counts and "
+          "per-batch checksums)")
+    print(f"memory M1 + M2: {s1 + s1h + s2:.3f} s (M1 {s1:.3f}, M1 over "
+          f"{m} rows {s1h:.3f}, M2 {s2:.3f})", flush=True)
+    return s1 + s1h + s2
+
+
+def run_memory_tpch(torch, K, fm, tpch, batches, df_answers, root, total):
+    """M3: the 22 TPC-H queries in memory under the spill budget, once
+    each, equal to the tpch22 answers; q1 and q18 over the files phase's
+    parquet with the pipeline on."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    s = TpuSession(memory_conf(tpch_conf(True)), device=DEVICE)
+    tables = {k: s.create_dataframe(b) for k, b in batches.items()}
+    cat = s.memory_catalog
+    spilled, merged = [], []
+    for name, query in tpch.QUERIES.items():
+        K.launches.reset()
+        fm.reset()
+        t0 = time.perf_counter()
+        q = query(tables)
+        got = q.to_pandas()
+        first = time.perf_counter() - t0
+        total.add(dict(K.launches.snapshot(),
+                       by_shape=K.launches.shape_snapshot()))
+        ms = s.last_memory_stats
+        steps = exec_metric(q._last_exec, "treeMergeSteps")
+        runs = exec_metric(q._last_exec, "outOfCoreRuns")
+        print(f"memory M3 {name}: {first:.3f} s; spilled {ms['spilledToHostBytes']} bytes to the host, "
+              f"{ms['spilledToDiskBytes']} to disk; tree merge steps "
+              f"{steps}; out-of-core runs {runs}; retries "
+              f"{ms['retryCount']}", flush=True)
+        if ms["spilledToHostBytes"]:
+            spilled.append(name)
+        if steps:
+            merged.append(name)
+        ok, why = frames_match(got, df_answers[name], QUERY_RTOL)
+        check(ok, f"memory M3 {name}: under the {MEMORY_BUDGET}-byte budget "
+              f"equals the tpch22 answer (floats within rel {QUERY_RTOL}) "
+              f"{why}")
+    print(f"memory M3: spilled {spilled}; tree-merged {merged}; catalog "
+          f"{cat.stats()}", flush=True)
+    check("q18" in spilled and "q18" in merged,
+          "memory M3: q18 spilled and tree-merged")
+    s.stop()
+    sf = TpuSession(memory_conf(files_conf(True)), device=DEVICE)
+    ftables = tpch.read_parquet(sf, root)
+    for name in ("q1", "q18"):
+        K.launches.reset()
+        got = tpch.QUERIES[name](ftables).to_pandas()
+        total.add(dict(K.launches.snapshot(),
+                       by_shape=K.launches.shape_snapshot()))
+        st = sf.last_pipeline_stats
+        ok, why = frames_match(got, df_answers[name], QUERY_RTOL)
+        check(ok and st.registered == st.batches > 0,
+              f"memory M3 {name} over parquet, pipeline on, under the "
+              f"budget: equals the in-memory answer; the pipeline "
+              f"registered {st.registered} of {st.batches} in-flight "
+              f"batches; spilled {sf.last_memory_stats} {why}")
+    sf.stop()
+
+
+def run_memory_oom(torch, K, tpch, batches, total):
+    """M4: a real ``torch.OutOfMemoryError`` in q1's aggregate under a
+    capped allocator, recovered by spill, retry and split."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.memory import retry as R
+    li = batches["lineitem"]
+    q1_cols = ("l_returnflag", "l_linestatus", "l_quantity",
+               "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+    narrow = ColumnarBatch({k: li.columns[k] for k in q1_cols}, li.nrows)
+    conf = dict(tpch_conf(True), **{
+        "spark.rapids.sql.tpu.maxBatchRows": OOM_BATCH_ROWS,
+        "spark.rapids.tpu.pipeline.enabled": False})
+    s = TpuSession(conf, device=DEVICE)
+    q = tpch.q1({"lineitem": s.create_dataframe(narrow)})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = q.to_pandas()
+    peak = torch.cuda.max_memory_allocated() - base
+    card = torch.cuda.get_device_properties(0).total_memory
+    cap = base + int(OOM_HEADROOM * peak)
+    torch.cuda.empty_cache()
+    R.retry_metrics.reset()
+    K.launches.reset()
+    torch.cuda.set_per_process_memory_fraction(cap / card)
+    t0 = time.perf_counter()
+    try:
+        got = q.to_pandas()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    seconds = time.perf_counter() - t0
+    total.add(dict(K.launches.snapshot(),
+                   by_shape=K.launches.shape_snapshot()))
+    snap = R.retry_metrics.snapshot()
+    print(f"memory M4: q1 over {OOM_BATCH_ROWS}-row batches took {peak} "
+          f"bytes past the {base} resident; capped at {cap} of {card} "
+          f"bytes it ran in {seconds:.3f} s with retry_metrics {snap}",
+          flush=True)
+    check(snap["retryCount"] >= 1 and snap["splitAndRetryCount"] >= 1,
+          f"memory M4: the caching allocator's torch.OutOfMemoryError was "
+          f"recovered by with_retry ({snap['retryCount']} retries, "
+          f"{snap['splitAndRetryCount']} splits)")
+    ok, why = frames_match(got, want, QUERY_RTOL)
+    check(ok, f"memory M4: the recovered q1 equals the uncapped run (floats "
+          f"within rel {QUERY_RTOL}) {why}")
+    s.stop()
+
+
+def run_memory_injected(torch, K, F, batches, total):
+    """M4's injected OOMs (``inject_oom``, the shapes of the retry tests)
+    through project/filter, aggregate, join and sort at SF10, each equal
+    to the uninjected run; the pipeline is off, so the injection and the
+    operators share this thread."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.memory import retry as R
+    s = TpuSession(dict(tpch_conf(True), **{
+        "spark.rapids.tpu.pipeline.enabled": False}), device=DEVICE)
+    t = {k: s.create_dataframe(b) for k, b in batches.items()}
+
+    def on_card(df):
+        """(rows, column sums, per-batch ordered sums) of the plan."""
+        rows, sums, ordered = 0, None, []
+        for b in s.plan(df.plan).execute():
+            cs, od = batch_sums(torch, b)
+            rows += b.nrows
+            sums = cs if sums is None else sums + cs
+            ordered.append((b.nrows, od))
+        return rows, sums.cpu().numpy(), [
+            (n, int(o)) for n, o in ordered]
+
+    cases = [
+        ("project/filter", 2, 0, "sums", t["lineitem"].filter(
+            F.col("l_quantity") > 20).select(
+            (F.col("l_orderkey") * 2 + 1).alias("x2"),
+            F.col("l_extendedprice"), F.col("l_shipmode"))),
+        ("aggregate", 2, 0, "frame", t["lineitem"].groupBy(
+            "l_returnflag", "l_linestatus").agg(
+            F.sum("l_extendedprice").alias("s"),
+            F.count("l_quantity").alias("c"))),
+        ("join", 2, 1, "sums", t["orders"].join(
+            t["customer"], F.col("o_custkey") == F.col("c_custkey"))),
+        ("sort", 1, 0, "ordered", t["orders"].orderBy("o_totalprice",
+                                                      "o_orderkey")),
+    ]
+    for label, num, skip, how, df in cases:
+        R.clear_injected_oom()
+        K.launches.reset()
+        want = df.to_pandas() if how == "frame" else on_card(df)
+        total.add(dict(K.launches.snapshot(),
+                       by_shape=K.launches.shape_snapshot()))
+        R.retry_metrics.reset()
+        R.inject_oom(num, skip=skip)
+        try:
+            got = df.to_pandas() if how == "frame" else on_card(df)
+        finally:
+            R.clear_injected_oom()
+        snap = R.retry_metrics.snapshot()
+        if how == "frame":
+            ok, why = frames_match(got, want, QUERY_RTOL)
+        else:
+            ok = got[0] == want[0] and np.array_equal(got[1], want[1]) and (
+                how != "ordered" or got[2] == want[2])
+            why = f"{got[0]} rows vs {want[0]}"
+        check(ok and snap["retryCount"] >= 1,
+              f"memory M4 {label} at SF{TPCH_SF} with {num} injected OOMs "
+              f"(skip {skip}): the uninjected answer "
+              f"({'bit for bit, batch by batch' if how == 'ordered' else 'rows and checksums' if how == 'sums' else f'floats within rel {QUERY_RTOL}'}); "
+              f"retry_metrics {snap} {why}")
+    s.stop()
+
+
+def run_memory_windows(torch, K, fm, batches, total):
+    """M5: TPC-DS q47 and q67 (windows over their sorts) run chunked,
+    and ``M5_BUDGET_QUERY`` again under the spill budget, with the same
+    answer."""
+    from spark_rapids_tpu_torch.models import tpcds
+    answers = {}
+    for budget in (False, True):
+        conf = memory_conf(tpch_conf(True)) if budget else tpch_conf(True)
+        s = tpcds_session(conf, batches)
+        for name in (M5_BUDGET_QUERY,) if budget else M5_QUERIES:
+            K.launches.reset()
+            t0 = time.perf_counter()
+            df = s.sql(tpcds.QUERIES[name])
+            got = df.to_pandas()
+            seconds = time.perf_counter() - t0
+            total.add(dict(K.launches.snapshot(),
+                           by_shape=K.launches.shape_snapshot()))
+            chunks = exec_metric(df._last_exec, "windowChunks")
+            runs = exec_metric(df._last_exec, "outOfCoreRuns")
+            ms = s.last_memory_stats
+            label = f"memory M5 tpcds {name}" + (
+                f" under the {MEMORY_BUDGET}-byte budget" if budget else "")
+            print(f"{label}: {seconds:.3f} s, {len(got)} rows, window chunks "
+                  f"{chunks}, out-of-core runs {runs}, {ms}", flush=True)
+            if not budget:
+                check(chunks > 1, f"{label}: the window ran {chunks} chunks")
+                answers[name] = got
+            else:
+                check(ms["spilledToHostBytes"] > 0
+                      and got.equals(answers[name]),
+                      f"{label}: its sorts spilled "
+                      f"{ms['spilledToHostBytes']} bytes and the answer "
+                      "equals the unbudgeted run's bit for bit")
+        s.stop()
+
+
+def run_memory_phase(torch, K, fm, F, tpch, batches, df_answers, root,
+                     lexsort, launches):
+    """M1-M4 of the memory phase, with the spill catalog's and the retry
+    counters' totals."""
+    from spark_rapids_tpu_torch.memory.retry import retry_metrics
+    t0 = time.perf_counter()
+    run_memory_sorts(torch, K, fm, F, batches["lineitem"], lexsort,
+                     launches)
+    t1 = time.perf_counter()
+    run_memory_tpch(torch, K, fm, tpch, batches, df_answers, root, launches)
+    t2 = time.perf_counter()
+    retry_metrics.reset()
+    run_memory_oom(torch, K, tpch, batches, launches)
+    run_memory_injected(torch, K, F, batches, launches)
+    print(f"memory phase M1-M4: M1 + M2 {t1 - t0:.3f} s, M3 {t2 - t1:.3f} "
+          f"s, M4 {time.perf_counter() - t2:.3f} s; launches "
+          f"{launches.counts}", flush=True)
+
+
+def check_memory_launches(launches, seconds):
+    print(f"memory phase {sum(seconds.values()):.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+          + f"); launches {launches.counts}", flush=True)
+    for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
+        check(launches.counts[k] >= 1,
+              f"memory launched {k} {launches.counts[k]}x")
+
+
 def main() -> int:
     try:
         import torch
@@ -2126,6 +2622,8 @@ def main() -> int:
     tpch_cols = tpch.gen_table_columns(TPCH_SF)
     print(f"TPC-H SF{TPCH_SF}: all eight tables generated in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    # the memory phase's oracle, sorting on the host meanwhile
+    lexsort = LexsortOracle(tpch_cols["lineitem"])
     t0 = time.perf_counter()
     tpch_batches = device_tables(tpch_cols, device)
     torch.cuda.synchronize()
@@ -2237,14 +2735,26 @@ def main() -> int:
         sharded_s["files"] = time.perf_counter() - t_files
         print(f"sharded_tpch files {sharded_s['files']:.3f} s", flush=True)
 
+    # the memory phase (M1-M4), after the files phase over its parquet
+    memory_launches = PathLaunches(K.launches.NAMES)
+    memory_s = {}
+
+    def after_files(root):
+        sharded_files(root)
+        t_mem = time.perf_counter()
+        run_memory_phase(torch, K, fm, F, tpch, tpch_batches, df_answers,
+                         root, lexsort, memory_launches)
+        memory_s["M1-M4"] = time.perf_counter() - t_mem
+
     # the 22 queries over parquet files the port writes from the same
     # tables, against this run's in-memory answers
     files_launches = PathLaunches(K.launches.NAMES)
     t0 = time.perf_counter()
     launches_before = dict(sharded_launches.counts)
     run_files(torch, K, fm, tpch, tpch_batches, df_answers, mem_rates,
-              card_line, files_launches, then=sharded_files)
-    files_s = time.perf_counter() - t0 - sharded_s["files"]
+              card_line, files_launches, then=after_files)
+    files_s = time.perf_counter() - t0 - sharded_s["files"] \
+        - memory_s["M1-M4"]
     print(f"files phase {files_s:.3f} s; launches "
           f"{files_launches.counts}; then the sharded_tpch file pass "
           f"launches " + json.dumps({k: sharded_launches.counts[k]
@@ -2255,7 +2765,7 @@ def main() -> int:
         check(files_launches.counts[k] >= 1,
               f"files launched {k} {files_launches.counts[k]}x")
     total.extend(files_launches)
-    del tpch_cols, tpch_batches, df_answers
+    del tpch_cols, tpch_batches, df_answers, lexsort
     check_tpch22_cpu(torch, tpch, TPCH_CHECK_SF)
 
     # TPC-DS at SF50 (half the rows of SF10's lineitem in the fact
@@ -2286,6 +2796,12 @@ def main() -> int:
     total.extend(ds_launches)
     print(f"tpcds phase (SF{TPCDS_SF}) {time.perf_counter() - t_phase:.3f}"
           f" s; launches {ds_launches.counts}", flush=True)
+    # the memory phase's M5, on the tpcds phase's tables
+    t0 = time.perf_counter()
+    run_memory_windows(torch, K, fm, ds_batches, memory_launches)
+    memory_s["M5"] = time.perf_counter() - t0
+    check_memory_launches(memory_launches, memory_s)
+    total.extend(memory_launches)
     t0 = time.perf_counter()
     run_sharded_tpcds(torch, K, fm, ds_batches, ds_answers, ds_rates,
                       card_line, sharded_launches)
@@ -2303,7 +2819,8 @@ def main() -> int:
                       "tpch_sql": sql_launches.counts,
                       "files": files_launches.counts,
                       "tpcds": ds_launches.counts,
-                      "sharded_tpch": sharded_launches.counts}
+                      "sharded_tpch": sharded_launches.counts,
+                      "memory": memory_launches.counts}
 
     # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
     fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)

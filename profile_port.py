@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
+                            [memory]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -20,7 +21,12 @@ and ``lag``/``lead`` over two specs) through ``session.sql`` with the
 hash path on, and TPC-H q1 and q6 over SF10 lineitem written as 16
 parquet files, pipeline on and off, and (``sharded_tpch``, only when asked
 for) TPC-H q1 and q9 at SF10 on one device and over 8 logical shards, and
-prints, per run: the host wall
+(``memory``, only when asked for) the memory phase's out-of-core sort of
+SF10 lineitem at default memory and under the 256 MiB spill budget (its
+batches consumed on the card, not collected) and TPC-H q18 under that
+budget, with the host time the spill catalog spent copying to the host,
+checksumming, encoding frames, writing and reading disk and restoring,
+and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
 host syncs, the host time of the string dictionary (fetching string
@@ -127,19 +133,26 @@ class DictTime:
 dict_time = DictTime()
 
 
-def profile(torch, query, label, card_line):
+SPILL_TIMES = ("spill_to_host_ns", "checksum_ns", "serialize_ns",
+               "disk_write_ns", "disk_read_ns", "restore_ns")
+
+
+def profile(torch, query, label, card_line, run=None, catalog=None):
     """``query``: a DataFrame, or a function that builds one (a SQL
     statement, built anew in the traced run: its scalar subqueries run
-    there)."""
+    there); ``run`` replaces the collect; with ``catalog``, the spill
+    catalog's host times of the traced run are printed too."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
 
-    def run():
-        return (query() if callable(query) else query).to_pandas()
+    if run is None:
+        def run():
+            return (query() if callable(query) else query).to_pandas()
     run()  # warm
     torch.cuda.synchronize()
     host_sync_metrics.reset()
     dict_time.reset()
+    spill0 = catalog.stats() if catalog is not None else None
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -154,6 +167,16 @@ def profile(torch, query, label, card_line):
     print(f"{label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, idle "
           f"share {1 - busy / wall:.4f}, {len(device)} device ops, "
           f"{syncs} host syncs on {card_line}", flush=True)
+    if catalog is not None:
+        st = catalog.stats()
+        print("  spill catalog (host thread ms): " + ", ".join(
+            f"{k[:-3]} {(st[k] - spill0[k]) / 1e6:.3f}"
+            for k in SPILL_TIMES) + "; bytes to the host "
+            f"{st['spilled_to_host_total'] - spill0['spilled_to_host_total']}"
+            f" (copied {st['host_copy_bytes_total'] - spill0['host_copy_bytes_total']}),"
+            f" to disk {st['spilled_to_disk_total'] - spill0['spilled_to_disk_total']}"
+            f" (frames {st['disk_file_bytes_total'] - spill0['disk_file_bytes_total']})",
+            flush=True)
     if encode["calls"]:
         print(f"  host dictionary: {encode['calls']} calls, fetch "
               f"{encode['fetch_ms']:.3f} ms (waits for the card included), "
@@ -227,9 +250,39 @@ def main() -> int:
         profile_tpcds(torch, session, card_line)
     if "files" in sections:
         profile_files(torch, TpuSession, tpch, card_line)
+    if "memory" in sys.argv[1:]:
+        profile_memory(torch, F, TpuSession, tpch, card_line)
     if "sharded_tpch" in sys.argv[1:]:
         return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
+
+
+def profile_memory(torch, F, TpuSession, tpch, card_line):
+    """The memory phase's sort of SF10 lineitem (every column, 60,000,000
+    rows) at default memory and under the spill budget, its batches
+    consumed on the card, and TPC-H q18 under the budget."""
+    batches = cs.device_tables(tpch.gen_table_columns(cs.TPCH_SF),
+                               torch.device(cs.DEVICE))
+    for conf, where in ((cs.tpch_conf(True), "default memory"),
+                        (cs.memory_conf(cs.tpch_conf(True)),
+                         f"spill budget {cs.MEMORY_BUDGET} bytes")):
+        s = TpuSession(conf)
+        q = s.create_dataframe(batches["lineitem"]).orderBy(
+            F.col("l_extendedprice").desc(), F.col("l_orderkey"),
+            F.col("l_linenumber"))
+
+        def consume(q=q, s=s):
+            for b in s.plan(q.plan).execute():
+                del b
+        profile(torch, q, f"sort of lineitem SF{cs.TPCH_SF}, {where}",
+                card_line, run=consume, catalog=s.memory_catalog)
+        s.stop()
+    s = TpuSession(cs.memory_conf(cs.tpch_conf(True)))
+    t = {name: s.create_dataframe(b) for name, b in batches.items()}
+    profile(torch, tpch.QUERIES["q18"](t),
+            f"TPC-H q18 SF{cs.TPCH_SF}, spill budget {cs.MEMORY_BUDGET} "
+            "bytes", card_line, catalog=s.memory_catalog)
+    s.stop()
 
 
 def profile_tpch(torch, tpch, session, card_line):

@@ -19,6 +19,7 @@ from typing import List, Optional, Union
 from spark_rapids_tpu_torch.api.functions import Col, SortKey, _expr
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.exec.window import WindowExpression
+from spark_rapids_tpu_torch.memory.retry import retry_metrics
 from spark_rapids_tpu_torch.ops import predicates as preds
 from spark_rapids_tpu_torch.ops.expressions import (
     Alias, Expression, UnresolvedColumn)
@@ -282,17 +283,30 @@ class DataFrame:
         exec_plan = self.session.plan(self.plan)
         self._last_exec = exec_plan
         conf = self.session.conf
-        if not conf.get(rc.PIPELINE_ENABLED):
-            self.session.last_pipeline_stats = None
-            return list(exec_plan.execute())
-        from spark_rapids_tpu_torch.exec.pipeline import (
-            PipelineStats, pipelined)
-        stats = PipelineStats(conf.get(rc.PIPELINE_DEPTH))
+        # the planner bound the operators to this session's catalog
+        cat = self.session.memory_catalog
+        host0, disk0 = cat.spilled_to_host_total, cat.spilled_to_disk_total
+        retry0 = retry_metrics.snapshot_local()
         try:
-            return list(pipelined(exec_plan.execute(), stats.depth, stats,
-                                 self.session.device))
+            if not conf.get(rc.PIPELINE_ENABLED):
+                self.session.last_pipeline_stats = None
+                return list(exec_plan.execute())
+            from spark_rapids_tpu_torch.exec.pipeline import (
+                PipelineStats, pipelined)
+            stats = PipelineStats(conf.get(rc.PIPELINE_DEPTH))
+            try:
+                return list(pipelined(exec_plan.execute(), stats.depth,
+                                      stats, self.session.device, cat))
+            finally:
+                self.session.last_pipeline_stats = stats
         finally:
-            self.session.last_pipeline_stats = stats
+            # this query's share of the session's spill counters and of
+            # this thread's OOM recoveries
+            retry1 = retry_metrics.snapshot_local()
+            self.session.last_memory_stats = {
+                "spilledToHostBytes": cat.spilled_to_host_total - host0,
+                "spilledToDiskBytes": cat.spilled_to_disk_total - disk0,
+                **{k: retry1[k] - retry0[k] for k in retry1}}
 
     @property
     def write(self):

@@ -14,6 +14,19 @@ shards on the session's device (``LocalShards``); ``process_group=g``
 makes one shard per rank of an initialised ``torch.distributed`` group
 (``ProcessGroupShards``), where every rank builds the same DataFrame,
 scans its own block of rows and collects the whole result.
+
+Memory (``_init_memory``): each session owns a spill catalog
+(``session.memory_catalog``, ``memory/spill.py``), which the planner
+binds to every operator it builds for the session, and an admission
+semaphore (``session.semaphore``).  The device budget is
+``spark.rapids.memory.tpu.deviceLimitBytes`` when set, else sized from
+the card (``torch.cuda.mem_get_info``) as the JAX package sizes it from
+its device: less the reserve, times ``allocFraction``, at most
+``maxAllocFraction`` of what is left, and session start fails below
+``minAllocFraction`` of the card.  On ``device="cpu"`` no CUDA call runs:
+the same sizing applies to a device of ``CPU_DEVICE_BYTES`` (16 GiB, the
+JAX package's fallback).  ``stop()`` closes the catalog (its live handles
+and spill files).
 """
 
 from __future__ import annotations
@@ -84,13 +97,18 @@ class DataFrameReader:
         return self._make(list(paths), "csv")
 
 
+CPU_DEVICE_BYTES = 16 << 30
+
+
 class TpuSession:
     def __init__(self, conf: Optional[Union[RapidsConf, Dict]] = None,
                  device=None, process_group=None):
         self.conf = conf if isinstance(conf, RapidsConf) else \
             RapidsConf(conf)
         self.device = resolve_device(device)
-        self.overrides = TpuOverrides(self.conf, self.device)
+        self._init_memory()
+        self.overrides = TpuOverrides(self.conf, self.device,
+                                      self.memory_catalog)
         self.stopped = False
         # distributed execution: the shard group, the planner's verdict
         # on the last query and its operators' stage statistics
@@ -108,7 +126,44 @@ class TpuSession:
         # the last single-device collect's pipeline counters (None when
         # it ran without the pipeline)
         self.last_pipeline_stats = None
+        # the last single-device collect's spill bytes (to host, to
+        # disk) and OOM retries and splits (memory/retry.retry_metrics)
+        self.last_memory_stats = None
         self._views: Dict[str, DataFrame] = {}
+
+    def _init_memory(self) -> None:
+        """The spill catalog and the admission semaphore
+        (GpuDeviceManager.initializeGpuAndMemory's sizing contract,
+        GpuDeviceManager.scala:170-245)."""
+        from spark_rapids_tpu_torch import native
+        from spark_rapids_tpu_torch.memory.spill import (
+            SpillableBatchCatalog, TpuSemaphore)
+        conf = self.conf
+        budget = conf.get(rc.DEVICE_MEMORY_LIMIT)
+        if not budget:
+            if self.device.type == "cuda":
+                _, total = torch.cuda.mem_get_info(self.device)
+            else:
+                total = CPU_DEVICE_BYTES
+            usable = max(total - conf.get(rc.MEM_RESERVE), 0)
+            budget = min(int(usable * conf.get(rc.MEM_POOL_FRACTION)),
+                         int(usable * conf.get(rc.MEM_MAX_ALLOC_FRACTION)))
+            least = int(total * conf.get(rc.MEM_MIN_ALLOC_FRACTION))
+            if budget < least:
+                raise ValueError(
+                    f"device spill budget {budget} bytes is below "
+                    f"minAllocFraction of the device ({least}); lower "
+                    "spark.rapids.memory.tpu.reserve, raise allocFraction, "
+                    "or lower minAllocFraction")
+        self.memory_catalog = SpillableBatchCatalog(
+            device_budget=budget,
+            host_budget=conf.get(rc.HOST_SPILL_STORAGE_SIZE),
+            frame_codec=native.codec_level(
+                conf.get(rc.SHUFFLE_COMPRESSION_CODEC)),
+            disk_write_threads=conf.get(rc.SPILL_DISK_WRITE_THREADS),
+            integrity_check=conf.get(rc.SPILL_INTEGRITY_ENABLED),
+            max_retries=conf.get(rc.OOM_RETRY_MAX))
+        self.semaphore = TpuSemaphore(conf.get(rc.CONCURRENT_TPU_TASKS))
 
     def create_dataframe(self, data) -> DataFrame:
         """A DataFrame over a dict of numpy arrays (or lists with None
@@ -168,4 +223,8 @@ class TpuSession:
         return self.overrides.apply(logical)
 
     def stop(self) -> None:
+        """Stop the session and sweep its spill tiers: live handles
+        close, orphaned spill files go, and the catalog's own directory
+        is removed."""
         self.stopped = True
+        self.memory_catalog.close()

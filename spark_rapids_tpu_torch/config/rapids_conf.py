@@ -42,8 +42,16 @@ def _to_int(s: str) -> int:
     return int(s)
 
 
+def _to_float(s: str) -> float:
+    return float(s)
+
+
 def _positive(v):
     return None if v > 0 else "must be positive"
+
+
+def _fraction(v):
+    return None if 0.0 <= v <= 1.0 else "must be in [0, 1]"
 
 
 _REGISTRY: Dict[str, ConfEntry] = {}
@@ -183,6 +191,107 @@ PIPELINE_DEPTH = conf(
     "spark.rapids.tpu.pipeline.depth", 2,
     "Maximum batches in flight between the pipeline worker and the "
     "consuming thread.", _to_int, _positive)
+
+
+# ---------------------------------------------------------------- memory --
+# the spill catalog (memory/spill.py), OOM retry (memory/retry.py) and the
+# operators that hold state (exec/sort.py, exec/aggregate.py,
+# exec/window.py), sized by api/session.py
+
+SORT_OOC_THRESHOLD = conf(
+    "spark.rapids.sql.sort.outOfCoreThresholdBytes", 256 << 20,
+    "Total input bytes above which a sort of several batches takes the "
+    "windowed out-of-core merge (sorted spillable runs, bounded merge "
+    "windows) instead of one concatenated device sort.", _to_int,
+    _positive)
+
+SORT_OOC_WINDOW_ROWS = conf(
+    "spark.rapids.sql.sort.outOfCoreWindowRows", 1 << 16,
+    "Rows pulled from each sorted run per merge step of the out-of-core "
+    "sort; bounds the merge working set to about 2 * runs * window "
+    "rows.", _to_int, _positive)
+
+AGG_MERGE_CHUNK_ROWS = conf(
+    "spark.rapids.sql.agg.mergeChunkRows", 1 << 22,
+    "Partial-aggregate batches merge in chunks of at most this many rows "
+    "(a tree reduction) instead of one concatenation of every partial, "
+    "so the merge working set stays bounded.", _to_int, _positive)
+
+CONCURRENT_TPU_TASKS = conf(
+    "spark.rapids.sql.concurrentTpuTasks", 1,
+    "Number of tasks that may issue work to the device concurrently "
+    "(the session's admission semaphore).", _to_int, _positive)
+
+MEM_POOL_FRACTION = conf(
+    "spark.rapids.memory.tpu.allocFraction", 0.9,
+    "Fraction of device memory that spillable batches may hold before "
+    "the catalog spills them.", _to_float, _fraction)
+
+MEM_MIN_ALLOC_FRACTION = conf(
+    "spark.rapids.memory.tpu.minAllocFraction", 0.25,
+    "Minimum fraction of device memory the spill budget must reach; "
+    "session start fails when the reserve and the limits squeeze it "
+    "below this.", _to_float, _fraction)
+
+MEM_MAX_ALLOC_FRACTION = conf(
+    "spark.rapids.memory.tpu.maxAllocFraction", 1.0,
+    "Ceiling on the fraction of device memory the spill budget may "
+    "claim, applied after the reserve is subtracted.", _to_float,
+    _fraction)
+
+MEM_RESERVE = conf(
+    "spark.rapids.memory.tpu.reserve", 640 << 20,
+    "Bytes of device memory held back from the spill budget for the "
+    "runtime and kernels' scratch.", _to_int,
+    lambda v: None if v >= 0 else "must be >= 0")
+
+HOST_SPILL_STORAGE_SIZE = conf(
+    "spark.rapids.memory.host.spillStorageSize", 1 << 30,
+    "Bytes of host memory used as the first spill tier before disk.",
+    _to_int, _positive)
+
+SPILL_DISK_WRITE_THREADS = conf(
+    "spark.rapids.memory.spill.diskWriteThreads", 2,
+    "Concurrent writer threads that demote host-tier batches to disk; "
+    "the native pager releases the GIL, so writes overlap.", _to_int,
+    _positive)
+
+DEVICE_MEMORY_LIMIT = conf(
+    "spark.rapids.memory.tpu.deviceLimitBytes", 0,
+    "Device budget in bytes for spillable batches; 0 = the device's "
+    "memory less the reserve, times allocFraction.", _to_int,
+    lambda v: None if v >= 0 else "must be >= 0")
+
+SHUFFLE_COMPRESSION_CODEC = conf(
+    "spark.rapids.shuffle.compression.codec", "lz4",
+    "Codec of host frames (the spill catalog's disk tier): none, zrle "
+    "(zero runs only), lz4 (zrle and the LZ4-class lzb, the smaller per "
+    "buffer; zstd accepted as an alias).", str,
+    lambda v: None if v in ("none", "zrle", "lz4", "zstd")
+    else "unknown codec")
+
+WINDOW_BATCH_ROWS = conf(
+    "spark.rapids.sql.window.batchRows", 1 << 20,
+    "Target rows per window-operator chunk when its input arrives sorted "
+    "(the planner puts a sort under every partitioned window).  Chunks "
+    "end at partition boundaries; a partition larger than this streams "
+    "with running state carried across chunks when every function of "
+    "the operator has a running frame, and otherwise grows the chunk.",
+    _to_int, _positive)
+
+OOM_RETRY_MAX = conf(
+    "spark.rapids.memory.oomRetry.maxRetries", 2,
+    "Spill-and-retry attempts per device OOM before splitting or "
+    "failing (memory/retry.py).", _to_int,
+    lambda v: None if v >= 0 else "must be >= 0")
+
+SPILL_INTEGRITY_ENABLED = conf(
+    "spark.rapids.memory.spill.integrityCheck.enabled", True,
+    "Verify a crc32 checksum, computed when a batch leaves the device, "
+    "on every HOST and DISK tier restore; a mismatch drops the batch and "
+    "raises SpillCorruptionError, never returning wrong bytes.  Disk "
+    "spill files are always written atomically (temp file, fsync, "
+    "rename).", _to_bool)
 
 
 class RapidsConf:

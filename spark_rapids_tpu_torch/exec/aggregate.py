@@ -1,9 +1,16 @@
 """Hash-aggregate physical operator: partial -> merge -> finalize.
 
 Counterpart of ``spark_rapids_tpu/exec/aggregate.py``.  Per input batch the
-*update* aggregation runs (with a fused upstream filter as its row mask);
-the partial batches then concatenate on the device and one *merge*
-aggregation re-reduces them and finalizes.
+*update* aggregation runs (with a fused upstream filter as its row mask),
+under ``memory/retry.with_retry``; each partial batch is registered in the
+spill catalog.  While the partials hold more than
+``spark.rapids.sql.agg.mergeChunkRows`` rows, a tree merge re-reduces
+them a group at a time into still-partial batches (each compacted to its
+live rows, then registered), so the device never holds every partial at
+once; then the partials concatenate and one *merge* aggregation
+re-reduces them and finalizes.  A tree merge adds float partials in
+another grouping than the one-concatenation merge, so its sums may differ
+from that path's in the last bits; they are the same on every run.
 
 Grouped stages take the JAX package's ladder: probe the key ranges (one
 counted fetch), then the dense coded directory when the key space fits,
@@ -36,6 +43,8 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import RowCount, bucket_capacity
 from spark_rapids_tpu_torch.exec.base import (
     AGG_TIME, CONCAT_TIME, NUM_INPUT_BATCHES, NUM_INPUT_ROWS, Schema, TpuExec)
+from spark_rapids_tpu_torch.memory.retry import (
+    with_retry, with_retry_no_split)
 from spark_rapids_tpu_torch.exec.fusion import fusion_metrics
 from spark_rapids_tpu_torch.ops import aggregates as agg
 from spark_rapids_tpu_torch.ops import dictionary
@@ -46,6 +55,10 @@ from spark_rapids_tpu_torch.ops.expressions import (
     ColVal, EmitContext, Expression, fold_conjuncts)
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
 from spark_rapids_tpu_torch.utils import hostsync
+
+
+# merge steps of the tree merge (0 when the partials fit one chunk)
+TREE_MERGE_STEPS = "treeMergeSteps"
 
 
 def _head(c: ColVal, n: int) -> ColVal:
@@ -78,12 +91,15 @@ class TpuHashAggregateExec(TpuExec):
                  agg_exprs: Sequence[Tuple[str, AggregateExpression]],
                  child: TpuExec, device,
                  pre_filter: Optional[Sequence[Expression]] = None,
-                 hash_table_slots: Optional[int] = None):
+                 hash_table_slots: Optional[int] = None,
+                 merge_chunk_rows: int = 1 << 22):
         """``pre_filter``: the fused upstream Filter conjuncts, bottom-first;
         they become the update stage's row mask (no compaction at all).
         ``hash_table_slots``: size of the hash group-by table, or None when
-        the hash path is off."""
+        the hash path is off.  ``merge_chunk_rows``: the tree merge's
+        chunk."""
         super().__init__(child)
+        self.merge_chunk_rows = int(merge_chunk_rows)
         self.group_exprs = list(group_exprs)
         self.agg_exprs = list(agg_exprs)
         self.device = device
@@ -94,7 +110,7 @@ class TpuHashAggregateExec(TpuExec):
                           for i, e in enumerate(self.group_exprs)
                           if e.dtype.is_string}
         for name in (NUM_INPUT_ROWS, NUM_INPUT_BATCHES, AGG_TIME,
-                     CONCAT_TIME):
+                     CONCAT_TIME, TREE_MERGE_STEPS):
             self._register_metric(name)
         self._in_dtypes = [dt for _, dt in child.schema]
         self._buf_specs: List[agg.BufferSpec] = []
@@ -231,9 +247,9 @@ class TpuHashAggregateExec(TpuExec):
         return out_keys, out_bufs, n
 
     # ----------------------------------------------------------- merge stage
-    def _merge(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
-        with self.timer(CONCAT_TIME):
-            merged = concat_batches(partials)
+    def _merge_reduce(self, merged: ColumnarBatch):
+        """(keys, buffers, n) of the merge aggregation of concatenated
+        partials, still in the partial layout."""
         nkeys = len(self.group_exprs)
         cols = batch_to_colvals(merged, [dt for _, dt in
                                          self._partial_schema])
@@ -244,8 +260,12 @@ class TpuHashAggregateExec(TpuExec):
         capacity = merged.capacity
         mask = agg._row_mask(nrows, capacity, self.device) if keys \
             else None
-        key_out, buf_out, n = self._reduce(keys, merge_inputs, nrows,
-                                           capacity, mask)
+        return self._reduce(keys, merge_inputs, nrows, capacity, mask)
+
+    def _merge(self, partials: List[ColumnarBatch]) -> ColumnarBatch:
+        with self.timer(CONCAT_TIME):
+            merged = concat_batches(partials)
+        key_out, buf_out, n = self._merge_reduce(merged)
         if self._encoders:
             n = int(RowCount.wrap(n))
             key_out = [self._encoders[i].decode(_head(k, n).values)
@@ -265,18 +285,89 @@ class TpuHashAggregateExec(TpuExec):
         cols = colvals_to_columns(outs, n, capacity)
         return ColumnarBatch(dict(zip([nm for nm, _ in schema], cols)), n)
 
-    def do_execute(self) -> Iterator[ColumnarBatch]:
-        partials = []
+    def _tallied(self) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute():
             self.metrics[NUM_INPUT_ROWS] += batch.row_count
             self.metrics[NUM_INPUT_BATCHES] += 1
-            with self.timer(AGG_TIME):
-                partials.append(self._partial(batch))
-        if not partials:
-            if self.group_exprs:
-                return
-            # a keyless aggregate of no rows is one row (sum null, count 0)
-            partials = [empty_batch(self._partial_schema, self.device)]
-        with self.timer(AGG_TIME):
-            yield self._merge(partials)
+            yield batch
 
+    def _update(self, batch: ColumnarBatch) -> ColumnarBatch:
+        with self.timer(AGG_TIME):
+            return self._partial(batch)
+
+    def _tree_merge(self, handles, catalog):
+        """Merge partial handles a group at a time (at least two, up to a
+        chunk of rows, in registration order) until their rows fit one
+        ``merge_chunk_rows`` chunk; each step's output is compacted to its
+        live rows and registered at the end of the list."""
+        chunk = self.merge_chunk_rows
+        if len(handles) > 1 and \
+                sum(h.nrows_bound for h in handles) > chunk:
+            # the sizing needs the counts: one fetch for all of them
+            RowCount.materialize_all([h.row_count for h in handles])
+        while len(handles) > 1 and \
+                sum(h.nrows_bound for h in handles) > chunk:
+            group, rows = [], 0
+            while handles and (len(group) < 2 or
+                               rows + handles[0].nrows <= chunk):
+                h = handles.pop(0)
+                group.append(h)
+                rows += h.nrows
+                if rows >= chunk and len(group) >= 2:
+                    break
+
+            def step():
+                with self.timer(CONCAT_TIME):
+                    merged = concat_batches([h.materialize()
+                                             for h in group])
+                with self.timer(AGG_TIME):
+                    key_out, buf_out, n = self._merge_reduce(merged)
+                    # the compaction sizes the registration: a counted
+                    # sync when the count is on the device
+                    n = int(RowCount.wrap(n))
+                    outs = [_compact(c, n) for c in key_out + buf_out]
+                return self._batch(self._partial_schema, outs, n)
+
+            out = with_retry_no_split(step, catalog=catalog)
+            for h in group:
+                h.close()
+            handles.append(catalog.register(out))
+            self.metrics[TREE_MERGE_STEPS] += 1
+        return handles
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        catalog = self.spill_catalog()
+        handles = []
+        try:
+            for partial in with_retry(self._tallied(), self._update,
+                                      catalog=catalog):
+                handles.append(catalog.register(partial))
+            if not handles and self.group_exprs:
+                return
+            if handles:
+                handles = self._tree_merge(handles, catalog)
+            else:
+                # a keyless aggregate of no rows is one row (sum null,
+                # count 0)
+                handles = [catalog.register(
+                    empty_batch(self._partial_schema, self.device))]
+
+            def merge():
+                partials = [h.materialize() for h in handles]
+                with self.timer(AGG_TIME):
+                    return self._merge(partials)
+
+            out = with_retry_no_split(merge, catalog=catalog)
+        finally:
+            for h in handles:
+                h.close()
+        yield out
+
+
+def _compact(c: ColVal, n: int) -> ColVal:
+    """The first ``n`` rows of a fixed-width output as a copy of their
+    own, so the longer buffer can go (strings are already exact)."""
+    if c.offsets is not None or c.values.dim() == 0:
+        return c
+    return ColVal(c.dtype, c.values[:n].clone(),
+                  None if c.validity is None else c.validity[:n].clone())

@@ -99,6 +99,11 @@ class MetricTimer:
 class TpuExec:
     """Base physical operator."""
 
+    # the spill catalog the operator's state registers in: the session's,
+    # set by the planner (``plan/overrides.TpuOverrides``); an operator
+    # built outside a session uses ``memory/spill.default_catalog()``
+    catalog = None
+
     def __init__(self, *children: "TpuExec"):
         self.children: Tuple[TpuExec, ...] = tuple(children)
         self.metrics: Dict[str, TpuMetric] = {}
@@ -107,6 +112,12 @@ class TpuExec:
 
     def _register_metric(self, name: str) -> TpuMetric:
         return self.metrics.setdefault(name, TpuMetric(name))
+
+    def spill_catalog(self):
+        if self.catalog is None:
+            from spark_rapids_tpu_torch.memory.spill import default_catalog
+            return default_catalog()
+        return self.catalog
 
     def timer(self, name: str) -> MetricTimer:
         return MetricTimer(self.metrics[name])

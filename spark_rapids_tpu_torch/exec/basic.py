@@ -3,7 +3,8 @@ coalesce, limit.
 
 Counterpart of ``spark_rapids_tpu/exec/basic.py``.  Project and filter
 each own a stage function (``ops/compiler.py``) that evaluates their whole
-expression forest per batch.
+expression forest per batch, under ``memory/retry.with_retry``: a device
+OOM spills the catalog and retries, then splits the batch in half.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from spark_rapids_tpu_torch.exec.base import (
     NUM_INPUT_BATCHES, NUM_INPUT_ROWS, Schema, TpuExec)
 from spark_rapids_tpu_torch.memory.coalesce import (
     CoalesceGoal, TargetRows, coalesce_iterator)
+from spark_rapids_tpu_torch.memory.retry import with_retry
 from spark_rapids_tpu_torch.ops.compiler import FilterStageFn, StageFn
 from spark_rapids_tpu_torch.ops.expressions import BoundReference, Expression
 
@@ -49,7 +51,8 @@ class TpuCoalesceBatchesExec(TpuExec):
         return f"TpuCoalesceBatchesExec[{self.goal}]"
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
-        yield from coalesce_iterator(self.child.execute(), self.goal)
+        yield from coalesce_iterator(self.child.execute(), self.goal,
+                                     catalog=self.spill_catalog())
 
 
 class TpuScanExec(TpuExec):
@@ -73,17 +76,25 @@ class TpuScanExec(TpuExec):
             if n <= self.max_rows:
                 yield b
                 continue
-            starts = list(range(0, n, self.max_rows))
-            bounds = _string_bounds(b, starts + [n])
-            for i, off in enumerate(starts):
-                m = min(self.max_rows, n - off)
-                cols = {name: _slice(c, off, m, bounds.get(name), i)
-                        for name, c in b.columns.items()}
-                yield ColumnarBatch(cols, m)
+            yield from slice_batch(b, list(range(0, n, self.max_rows)) + [n])
 
     def describe(self):
         rows = sum(b.nrows for b in self.batches)
         return f"TpuScanExec[{rows} rows, {self.max_rows} per batch]"
+
+
+def slice_batch(batch: ColumnarBatch, row_bounds) -> list:
+    """The rows between consecutive ``row_bounds`` of a batch, as batches
+    of views (a string slice's offsets rebased to its chars: one counted
+    fetch for every string column)."""
+    bounds = _string_bounds(batch, row_bounds)
+    out = []
+    for i in range(len(row_bounds) - 1):
+        off, m = row_bounds[i], row_bounds[i + 1] - row_bounds[i]
+        cols = {name: _slice(c, off, m, bounds.get(name), i)
+                for name, c in batch.columns.items()}
+        out.append(ColumnarBatch(cols, m))
+    return out
 
 
 def _string_bounds(batch: ColumnarBatch, row_bounds):
@@ -201,9 +212,11 @@ class TpuProjectExec(TpuExec):
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         names = [e.name for e in self.exprs]
-        for batch in self.child.execute():
-            yield ColumnarBatch(dict(zip(names, self._fn(batch))),
-                                batch.row_count)
+        yield from with_retry(
+            self.child.execute(),
+            lambda batch: ColumnarBatch(dict(zip(names, self._fn(batch))),
+                                        batch.row_count),
+            catalog=self.spill_catalog())
 
     def describe(self):
         return f"TpuProjectExec[{', '.join(e.name for e in self.exprs)}]"
@@ -231,12 +244,16 @@ class TpuFilterExec(TpuExec):
     def schema(self) -> Schema:
         return self.child.schema
 
-    def do_execute(self) -> Iterator[ColumnarBatch]:
-        names = [n for n, _ in self.schema]
+    def _tallied(self):
         for batch in self.child.execute():
             self.metrics[NUM_INPUT_ROWS] += batch.row_count
             self.metrics[NUM_INPUT_BATCHES] += 1
-            cols, n = self._fn(batch)
+            yield batch
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        names = [n for n, _ in self.schema]
+        for cols, n in with_retry(self._tallied(), self._fn,
+                                  catalog=self.spill_catalog()):
             if n:
                 yield ColumnarBatch(dict(zip(names, cols)), n)
 

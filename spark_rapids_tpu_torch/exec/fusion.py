@@ -19,6 +19,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.exec.base import (NUM_INPUT_BATCHES,
                                               NUM_INPUT_ROWS, Schema,
                                               TpuExec)
+from spark_rapids_tpu_torch.memory.retry import with_retry
 from spark_rapids_tpu_torch.ops.compiler import FilterStageFn, StageFn
 from spark_rapids_tpu_torch.ops.expressions import (BoundReference,
                                                     Expression,
@@ -114,15 +115,24 @@ class FusedStageExec(TpuExec):
                 f"{len(self.exprs)} cols"
                 + (", filtered" if self.conds else "") + "]")
 
-    def do_execute(self) -> Iterator[ColumnarBatch]:
-        names = [e.name for e in self.exprs]
+    def _tallied(self) -> Iterator[ColumnarBatch]:
         for batch in self.child.execute():
             self.metrics[NUM_INPUT_ROWS] += batch.row_count
             self.metrics[NUM_INPUT_BATCHES] += 1
-            if not self.conds:
-                yield ColumnarBatch(dict(zip(names, self._fn(batch))),
-                                    batch.row_count)
-                continue
-            cols, n = self._fn(batch)
+            yield batch
+
+    def do_execute(self) -> Iterator[ColumnarBatch]:
+        """One stage call per batch, under ``with_retry`` (a device OOM
+        spills the catalog, then splits the batch)."""
+        names = [e.name for e in self.exprs]
+        catalog = self.spill_catalog()
+        if not self.conds:
+            yield from with_retry(
+                self._tallied(),
+                lambda b: ColumnarBatch(dict(zip(names, self._fn(b))),
+                                        b.row_count), catalog=catalog)
+            return
+        for cols, n in with_retry(self._tallied(), self._fn,
+                                  catalog=catalog):
             if n:
                 yield ColumnarBatch(dict(zip(names, cols)), n)

@@ -22,10 +22,14 @@ encode through one dictionary, so code equality is string equality, and
 the codes (int64, nulls kept null) join as integers on every path.
 
 A residual (non-equi) condition is a filter the planner puts over an
-inner join (``plan/overrides.py``).  Not ported yet: the build side's spill
-and retry (``memory/coalesce.py``, ``memory/retry.py``): the build is one
-``concat_batches`` of its child's output.  Host syncs per probe batch:
-the overflow flag of a hash phase A and the output total, each one
+inner join (``plan/overrides.py``).  Memory: the build side goes through
+``memory/coalesce.coalesce_iterator`` with ``RequireSingleBatch`` (its
+pending batches registered in the spill catalog, their concatenation
+under ``with_retry_no_split``); each probe batch's phase A runs under
+``with_retry`` (a device OOM spills, then splits the probe batch: the
+build-matched flags of a full join OR together across the halves), and
+each emitted chunk under ``with_retry_no_split``.  Host syncs per probe
+batch: the overflow flag of a hash phase A and the output total, each one
 counted fetch, plus one for the chars of gathered string columns.
 """
 
@@ -40,11 +44,14 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import Column, bucket_capacity
 from spark_rapids_tpu_torch.exec.base import JOIN_TIME, Schema, TpuExec
 from spark_rapids_tpu_torch.exec.fusion import fusion_metrics
+from spark_rapids_tpu_torch.memory.coalesce import (
+    RequireSingleBatch, coalesce_iterator)
+from spark_rapids_tpu_torch.memory.retry import (
+    with_retry, with_retry_no_split)
 from spark_rapids_tpu_torch.ops import dictionary
 from spark_rapids_tpu_torch.ops import joins as J
 from spark_rapids_tpu_torch.ops import selection
 from spark_rapids_tpu_torch.ops.compiler import StageFn
-from spark_rapids_tpu_torch.ops.concat import concat_batches
 from spark_rapids_tpu_torch.ops.expressions import ColVal, Expression
 from spark_rapids_tpu_torch.utils import hostsync
 
@@ -136,12 +143,13 @@ class TpuHashJoinExec(TpuExec):
             else (self._lkey_fn, self._rkey_fn)
         self._encoders = [dictionary.StableDictionary()
                           for _ in self.left_keys]
-        build_batches = list(build_exec.execute())
-        build = concat_batches(build_batches) if build_batches else None
+        catalog = self.spill_catalog()
+        build = self._build_side(build_exec, catalog)
         if build is None or build.capacity == 0:
             # one padding row keeps every phase-A tensor non-empty
             build = empty_batch(build_exec.schema, self.device, capacity=1)
-        build_keys = self._keys(build, build_fn)
+        build_keys = with_retry_no_split(lambda: self._keys(build, build_fn),
+                                         catalog=catalog)
         build_payload = _to_colvals(build)
         build_rows = build.nrows
         # the hash gate sizes the table from the bucketed build capacity,
@@ -165,10 +173,11 @@ class TpuHashJoinExec(TpuExec):
                 return None
             return m
 
-        for batch in probe_exec.execute():
+        def match_one(batch):
+            nonlocal b_matched_acc
             n = batch.nrows
             if n == 0:
-                continue
+                return batch, None
             with self.timer(JOIN_TIME):
                 probe_keys = self._keys(batch, probe_fn)
                 m = match_hash(probe_keys, n)
@@ -178,23 +187,36 @@ class TpuHashJoinExec(TpuExec):
                     bm = m["build_matched"]
                     b_matched_acc = bm if b_matched_acc is None else \
                         b_matched_acc | bm
+            return batch, m
+
+        for batch, m in with_retry(probe_exec.execute(), match_one,
+                                   catalog=catalog):
+            if m is None:
+                continue
+            n = batch.nrows
             if self.join_type in ("semi", "anti"):
                 with self.timer(JOIN_TIME):
-                    out = self._emit_semi_anti(batch, m, n)
+                    out = with_retry_no_split(
+                        lambda: self._emit_semi_anti(batch, m, n),
+                        catalog=catalog)
                 if out is not None:
                     yield out
                 continue
             with self.timer(JOIN_TIME):
-                _, starts, ends, total = J.join_out_starts(
-                    m["probe_count"], n, outer)
+                _, starts, ends, total = with_retry_no_split(
+                    lambda: J.join_out_starts(m["probe_count"], n, outer),
+                    catalog=catalog)
                 total = int(hostsync.fetch(total))
             # chunks stream one at a time: peak memory stays bounded by
-            # max_output_rows
+            # max_output_rows; a chunk is already that bound, so an OOM
+            # spills and retries it whole
             for off in range(0, total, self.max_output_rows):
                 n_out = min(self.max_output_rows, total - off)
                 with self.timer(JOIN_TIME):
-                    out = self._emit_chunk(batch, build_payload, m, starts,
-                                           ends, off, n_out)
+                    out = with_retry_no_split(
+                        lambda: self._emit_chunk(batch, build_payload, m,
+                                                 starts, ends, off, n_out),
+                        catalog=catalog)
                 yield out
         if self.join_type == "full":
             if b_matched_acc is None:
@@ -203,10 +225,26 @@ class TpuHashJoinExec(TpuExec):
                                             dtype=torch.bool,
                                             device=self.device)
             with self.timer(JOIN_TIME):
-                out = self._emit_unmatched_build(build_rows, build_payload,
-                                                 b_matched_acc)
+                out = with_retry_no_split(
+                    lambda: self._emit_unmatched_build(
+                        build_rows, build_payload, b_matched_acc),
+                    catalog=catalog)
             if out is not None:
                 yield out
+
+    @staticmethod
+    def _build_side(build_exec: TpuExec, catalog
+                    ) -> Optional[ColumnarBatch]:
+        """The whole build side as one batch (None when it has none):
+        its batches wait in the spill catalog until the concatenation,
+        the join's largest allocation, which the coalesce runs under
+        ``with_retry_no_split``."""
+        coalesced = coalesce_iterator(build_exec.execute(),
+                                      RequireSingleBatch(), catalog=catalog)
+        try:
+            return next(coalesced, None)
+        finally:
+            coalesced.close()
 
     def _emit_chunk(self, probe_batch, build_payload, m, starts, ends,
                     offset, n_out) -> ColumnarBatch:
@@ -286,10 +324,9 @@ class TpuHashJoinExec(TpuExec):
         return ColumnarBatch(out_cols, n_out)
 
     def _execute_cross(self) -> Iterator[ColumnarBatch]:
-        right_batches = list(self.right.execute())
-        if not right_batches:
+        build = self._build_side(self.right, self.spill_catalog())
+        if build is None:
             return
-        build = concat_batches(right_batches)
         bn = build.nrows
         build_payload = _to_colvals(build)
         for batch in self.left.execute():

@@ -7,15 +7,18 @@ upload, kernel launches) while the driving thread drains the batches
 already made.
 
 * ``depth`` bounds the queue (``spark.rapids.tpu.pipeline.depth``): the
-  worker blocks on a full queue, the consumer on an empty one.  The JAX
-  package also registers every in-flight batch in its spill catalog; the
-  port has no spill catalog yet, so ``depth`` alone bounds what is in
-  flight.
+  worker blocks on a full queue, the consumer on an empty one.  Every
+  in-flight batch is registered in the spill catalog at
+  ``ACTIVE_ON_DECK_PRIORITY`` before it enters the queue, so a stalled
+  consumer's batches can still leave the device under pressure; the
+  consumer restores and closes each one as it takes it.
+* The worker counts for the driving thread in ``memory/retry``'s
+  ``retry_metrics`` (and takes its injected OOMs).
 * An exception on the worker re-raises on the driving thread with its
   original traceback.
 * Closing the returned generator early (LIMIT, an error in the consumer)
-  stops the worker at its next queue put, drops what it had queued and
-  joins the thread.
+  stops the worker at its next queue put, closes the registrations it
+  had queued and joins the thread.
 * The batches, and their order, are those of the sequential loop.
 
 Streams: the worker runs with the session's device current (a new
@@ -63,6 +66,8 @@ class PipelineStats:
         self.upload_overlap_ns = 0
         self.host_sync_count = 0
         self.wait_ns = 0
+        # batches the worker registered in the spill catalog
+        self.registered = 0
 
     @property
     def fill_ratio(self) -> float:
@@ -95,13 +100,19 @@ def _put(q: "queue.Queue", stop: threading.Event, item) -> bool:
 
 def pipelined(source: Iterator[ColumnarBatch], depth: int,
               stats: Optional[PipelineStats] = None,
-              device: Optional[torch.device] = None
-              ) -> Iterator[ColumnarBatch]:
+              device: Optional[torch.device] = None,
+              catalog=None) -> Iterator[ColumnarBatch]:
     """Drive ``source`` from a worker thread with ``depth`` batches of
     lookahead; yields the same batches in the same order.  The worker
-    runs with ``device`` current when it is a CUDA device."""
+    runs with ``device`` current when it is a CUDA device and registers
+    its batches in ``catalog`` (the default catalog when None)."""
+    from spark_rapids_tpu_torch.memory.retry import retry_metrics
+    from spark_rapids_tpu_torch.memory.spill import (
+        ACTIVE_ON_DECK_PRIORITY, SpillableHandle, default_catalog)
     from spark_rapids_tpu_torch.utils import hostsync
 
+    catalog = catalog or default_catalog()
+    owner = threading.get_ident()
     depth = max(int(depth), 1)
     stats = stats or PipelineStats(depth)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -114,11 +125,19 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
 
     def worker() -> None:
         hostsync.watch_uploads(stats)
+        retry_metrics.adopt(owner)
         try:
             with on_device:
                 try:
                     for batch in source:
-                        if not _put(q, stop, batch):
+                        item = batch
+                        if isinstance(batch, ColumnarBatch):
+                            item = catalog.register(batch,
+                                                    ACTIVE_ON_DECK_PRIORITY)
+                            stats.registered += 1
+                        del batch
+                        if not _put(q, stop, item):
+                            _close(item)
                             break
                     else:
                         _put(q, stop, _DONE)
@@ -129,6 +148,7 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
         except BaseException as exc:  # noqa: BLE001 - re-raised below
             _put(q, stop, exc)
         finally:
+            retry_metrics.release()
             hostsync.unwatch_uploads()
 
     t = threading.Thread(target=worker, name="torch-pipeline", daemon=True)
@@ -145,8 +165,16 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
             if isinstance(item, BaseException):
                 # the worker's exception, its traceback intact
                 raise item
+            if isinstance(item, SpillableHandle):
+                handle = item
+                try:
+                    item = handle.materialize()
+                finally:
+                    # a dequeued handle is out of the drain's reach
+                    handle.close()
             stats.batches += 1
             yield item
+            del item
     finally:
         stop.set()
         while t.is_alive():
@@ -158,8 +186,16 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
 
 
 def _drain(q: "queue.Queue") -> None:
+    """Empty the queue, closing the registrations in it."""
     while True:
         try:
-            q.get_nowait()
+            item = q.get_nowait()
         except queue.Empty:
             return
+        _close(item)
+
+
+def _close(item) -> None:
+    from spark_rapids_tpu_torch.memory.spill import SpillableHandle
+    if isinstance(item, SpillableHandle):
+        item.close()

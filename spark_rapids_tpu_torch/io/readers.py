@@ -310,8 +310,11 @@ class TpuFileScanExec(TpuExec):
             yield from self._simple_scan()
             return
         from spark_rapids_tpu_torch.io.multifile import iter_file_tables
+        # None: every column, which lets the reader take whole files
+        columns = None if len(self.columns) == len(self._schema) \
+            else self.columns
         for table in self._timed(iter_file_tables(
-                self.paths, self.file_format, self.columns,
+                self.paths, self.file_format, columns,
                 self.arrow_filter, self.reader_type, self.batch_rows,
                 self.num_threads, self.max_files_parallel)):
             self.metrics[NUM_INPUT_BATCHES] += 1

@@ -79,7 +79,8 @@ def aggregate_outputs(group_exprs, agg_out_exprs):
 
 
 def _plan_aggregate(group_exprs, agg_out_exprs, child_exec, device,
-                    pre_filter=None, hash_table_slots=None):
+                    pre_filter=None, hash_table_slots=None,
+                    merge_chunk_rows=1 << 22):
     """The aggregate exec, plus a result projection when outputs combine
     aggregates in larger expressions (sum(a) / sum(b), ...)."""
     nkeys = len(group_exprs)
@@ -90,11 +91,13 @@ def _plan_aggregate(group_exprs, agg_out_exprs, child_exec, device,
             group_exprs,
             [(name, a) for (name, _), a in zip(out_named, agg_list)],
             child_exec, device, pre_filter=pre_filter,
-            hash_table_slots=hash_table_slots)
+            hash_table_slots=hash_table_slots,
+            merge_chunk_rows=merge_chunk_rows)
     agg_exec = TpuHashAggregateExec(
         group_exprs, [(f"_a{i}", a) for i, a in enumerate(agg_list)],
         child_exec, device, pre_filter=pre_filter,
-        hash_table_slots=hash_table_slots)
+        hash_table_slots=hash_table_slots,
+        merge_chunk_rows=merge_chunk_rows)
     proj = [BoundReference(i, dt, name=n)
             for i, (n, dt) in enumerate(agg_exec.schema[:nkeys])]
     proj += [Alias(rewritten, name) for name, rewritten in out_named]
@@ -259,11 +262,13 @@ def _check_format_enabled(node: L.FileRelation, conf) -> None:
 
 
 class TpuOverrides:
-    """Logical plan -> TpuExec tree on one device."""
+    """Logical plan -> TpuExec tree on one device, its operators bound to
+    ``catalog`` (the session's spill catalog)."""
 
-    def __init__(self, conf: rc.RapidsConf, device):
+    def __init__(self, conf: rc.RapidsConf, device, catalog=None):
         self.conf = conf
         self.device = device
+        self.catalog = catalog
         self.fusion_enabled = conf.get(rc.FUSION_ENABLED)
         self.hash_enabled = conf.get(rc.PALLAS_HASH_ENABLED)
         self.hash_table_slots = conf.get(rc.PALLAS_HASH_TABLE_SLOTS) \
@@ -274,7 +279,17 @@ class TpuOverrides:
         check_ported(plan)
         _pushdown_pass(plan)
         self._chain_nodes = set()
-        return self._convert(plan)
+        return self._bind(self._convert(plan))
+
+    def _bind(self, root):
+        """Every operator of the tree registers its state in, and
+        recovers from a device OOM through, this planner's catalog."""
+        stack = [root]
+        while stack:
+            node = stack.pop()
+            node.catalog = self.catalog
+            stack.extend(node.children)
+        return root
 
     def _file_scan(self, node: L.FileRelation):
         """The file scan, under a coalesce to ``batchSizeBytes`` where a
@@ -288,9 +303,9 @@ class TpuOverrides:
         scan = make_file_scan_exec(node, self.conf, self.device)
         if len(node.paths) > 1 and scan.reader_type == "PERFILE":
             from spark_rapids_tpu_torch.memory.coalesce import TargetSize
-            return TpuCoalesceBatchesExec(
-                scan, goal=TargetSize(self.conf.get(rc.BATCH_SIZE_BYTES)))
-        return scan
+            return self._bind(TpuCoalesceBatchesExec(
+                scan, goal=TargetSize(self.conf.get(rc.BATCH_SIZE_BYTES))))
+        return self._bind(scan)
 
     def _scan_rows(self, schema) -> int:
         """Rows per scanned batch: maxBatchRows, and no more than
@@ -332,9 +347,10 @@ class TpuOverrides:
         if isinstance(node, L.Filter):
             return TpuFilterExec(node.condition, children[0])
         if isinstance(node, L.Aggregate):
-            return _plan_aggregate(node.group_exprs, node.agg_exprs,
-                                   children[0], self.device,
-                                   hash_table_slots=self.hash_table_slots)
+            return _plan_aggregate(
+                node.group_exprs, node.agg_exprs, children[0], self.device,
+                hash_table_slots=self.hash_table_slots,
+                merge_chunk_rows=self.conf.get(rc.AGG_MERGE_CHUNK_ROWS))
         if isinstance(node, L.Join):
             join_type = node.join_type
             if node.condition is not None and not node.left_keys:
@@ -351,23 +367,32 @@ class TpuOverrides:
                 return TpuFilterExec(node.condition, join)
             return join
         if isinstance(node, L.Sort):
-            return TpuSortExec(node.orders, children[0])
+            return self._sort(node.orders, children[0])
         if isinstance(node, L.Limit):
             return TpuLocalLimitExec(node.n, children[0])
         raise NotImplementedError(
             f"{type(node).__name__} is not ported to the PyTorch engine")
 
+    def _sort(self, orders, child_exec) -> TpuSortExec:
+        return TpuSortExec(
+            orders, child_exec,
+            ooc_threshold_bytes=self.conf.get(rc.SORT_OOC_THRESHOLD),
+            ooc_window_rows=self.conf.get(rc.SORT_OOC_WINDOW_ROWS))
+
     def _window_one_spec(self, window_exprs, child_exec):
         """One window operator over one spec; with partition or order
         keys, a sort on (partition keys ascending, order keys) under it,
-        as Spark plans WindowExec over a SortExec."""
+        as Spark plans WindowExec over a SortExec: the sort brings the
+        out-of-core merge, and the window then streams chunks
+        (``presorted``)."""
         spec = window_exprs[0][1].spec
         if spec.partition_exprs or spec.orders:
             orders = [(e, False, True) for e in spec.partition_exprs] + \
                 list(spec.orders)
-            return TpuWindowExec(window_exprs,
-                                 TpuSortExec(orders, child_exec),
-                                 self.device)
+            return TpuWindowExec(
+                window_exprs, self._sort(orders, child_exec), self.device,
+                presorted=True,
+                batch_rows=self.conf.get(rc.WINDOW_BATCH_ROWS))
         return TpuWindowExec(window_exprs, child_exec, self.device)
 
     def _window(self, node: L.Window, child_exec):
@@ -451,6 +476,7 @@ class TpuOverrides:
             return None
         fusion_metrics.bump("fusedStages")
         fusion_metrics.bump("fusedOperators", hops + 1)
-        return _plan_aggregate(group, aggs, self._convert(cur), self.device,
-                               pre_filter=conds or None,
-                               hash_table_slots=self.hash_table_slots)
+        return _plan_aggregate(
+            group, aggs, self._convert(cur), self.device,
+            pre_filter=conds or None, hash_table_slots=self.hash_table_slots,
+            merge_chunk_rows=self.conf.get(rc.AGG_MERGE_CHUNK_ROWS))
