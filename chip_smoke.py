@@ -36,12 +36,25 @@ just before it and read just after:
   counts, strings and order exactly, floats within 1e-9 relative), q1
   equals a numpy oracle, and all 22 at SF0.1 on the card equal the
   engine on the CPU;
+- the ``fallback`` phase over the same tables and against the tpch22
+  answers (order included): F1 all 22 with
+  ``spark.rapids.sql.exec.Sort=false`` (every Sort in the CPU
+  fallback, in pandas), F2 q2, q9, q14, q16 and q20 with
+  ``spark.rapids.sql.expression.Like=false`` (the nodes holding a LIKE,
+  read from each plan), F3 the official text of q13 (its residual left
+  join in the fallback: 15M orders, 1.5M customers), each plan's
+  ``CpuFallbackExec`` nodes exactly the expected ones, with wall, host
+  syncs and the fallback nodes' host ms in pandas and in each transfer;
+  F4 the 22 planned, not run, under the cost-based optimizer (built-in
+  weights): tagging and planning host ms per query and the regions it
+  reverts;
 - the same 22 queries as SQL text (``models/tpch_sql.py``) through
   ``session.sql`` over the same tables, hash on, each once after its
   DataFrame form: launches, host syncs and rows/s per query, and each
-  answer equal to the DataFrame form's; an unported SQL function, a
-  residual on a left join and a RANGE frame with offsets each raise
-  ``NotImplementedError`` naming it;
+  answer equal to the DataFrame form's; an unported SQL function raises
+  ``NotImplementedError`` naming it, and a residual on a left join and
+  a RANGE frame with offsets raise strict test mode's ``RuntimeError``
+  naming the node and the reason;
 - the ``files`` phase: the same SF10 tables written as parquet through
   ``DataFrame.write.parquet`` (lineitem and orders as 16 files each),
   then the 22 queries over ``session.read.parquet`` with the pipeline on
@@ -105,12 +118,15 @@ just before it and read just after:
   one logical shard (and q1 against numpy).
 
 Answers are checked against numpy / pandas oracles on the same host data.
+The single-device tpch22, tpch_sql, files, memory and tpcds phases plan
+in strict test mode (``spark.rapids.sql.test.enabled``): a node of
+theirs that would fall back to the CPU fails the run.
 
 Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
-in total, by phase for the tpch22, tpch_sql, files, tpcds,
+in total, by phase for the tpch22, fallback, tpch_sql, files, tpcds,
 sharded_tpch and memory phases, and by shape), and last
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
@@ -819,9 +835,13 @@ def tpch_q1_oracle(cols):
 
 
 def tpch_conf(hash_on: bool):
+    """The conf of the single-device TPC-H, TPC-DS, files and memory
+    phases: 2^22-row batches, the hash path on or off, and strict test
+    mode, so a plan node that would fall back to the CPU fails the run."""
     return {"spark.rapids.sql.tpu.maxBatchRows": BATCH_ROWS,
             "spark.rapids.tpu.pallas.hash.enabled": hash_on,
-            "spark.rapids.tpu.pallas.hash.tableSlots": str(HASH_SLOTS)}
+            "spark.rapids.tpu.pallas.hash.tableSlots": str(HASH_SLOTS),
+            "spark.rapids.sql.test.enabled": True}
 
 
 def table_bytes(batches) -> int:
@@ -947,29 +967,38 @@ def run_tpch_sql(torch, K, fm, tpch_sql, batches, df_answers, card_line,
 
 
 def check_unported_raise(s):
-    """On the card as on the CPU, what the port does not run raises
-    ``NotImplementedError`` naming it: an SQL function, a residual
-    condition on a join that is not inner, a window frame."""
+    """On the card as on the CPU, an unported SQL function raises
+    ``NotImplementedError`` naming it; a residual condition on a join
+    that is not inner and a window frame the card does not run are
+    tagged off the device, and the session's strict test mode raises
+    naming the node and the reason instead of falling back."""
     from spark_rapids_tpu_torch.api import functions as F
     nation, region = s.table("nation"), s.table("region")
     cases = {
-        "upper": lambda: s.sql("SELECT upper(n_name) FROM nation"),
-        "left join": lambda: nation.join(
-            region, on=(F.col("n_regionkey") == F.col("r_regionkey"))
-            & (F.col("n_nationkey") > F.col("r_regionkey")), how="left"),
-        "range frames": lambda: nation.select(F.window_sum(
-            "n_nationkey").over(F.Window.partitionBy("n_regionkey")
-                                .orderBy("n_nationkey")
-                                .rangeBetween(-2, 2)).alias("w")),
+        "upper": (NotImplementedError, "upper", lambda: s.sql(
+            "SELECT upper(n_name) FROM nation")),
+        "left join": (RuntimeError, "Join fell back to CPU in strict test "
+                      "mode: non-equi join conditions", lambda: nation.join(
+                          region, on=(F.col("n_regionkey")
+                                      == F.col("r_regionkey"))
+                          & (F.col("n_nationkey") > F.col("r_regionkey")),
+                          how="left")),
+        "range frames": (RuntimeError, "Window fell back to CPU in strict "
+                         "test mode: expression WindowExpression cannot run "
+                         "on the device: range frames", lambda: nation.select(
+                             F.window_sum("n_nationkey").over(
+                                 F.Window.partitionBy("n_regionkey")
+                                 .orderBy("n_nationkey")
+                                 .rangeBetween(-2, 2)).alias("w"))),
     }
-    for what, build in cases.items():
+    for what, (kind, text, build) in cases.items():
         try:
             build().collect()
             raised = ""
-        except NotImplementedError as exc:
+        except kind as exc:
             raised = str(exc)
-        check(what in raised, f"unported {what!r} raises "
-              f"NotImplementedError on the card: {raised!r}")
+        check(text in raised, f"unported {what!r} raises "
+              f"{kind.__name__} on the card: {raised!r}")
 
 
 def tpcds_device_tables(data, device):
@@ -1110,6 +1139,211 @@ def check_tpch22_cpu(torch, tpch, sf):
           f"{time.perf_counter() - t0:.3f} s", flush=True)
     card.stop()
     cpu.stop()
+
+
+# -------------------------------------------------------------- fallback --
+
+# F2: the queries whose LIKE sits over part (q9's predicate is a
+# Contains, so it keeps every node on the card)
+FALLBACK_LIKE_QUERIES = ("q2", "q9", "q14", "q16", "q20")
+
+
+def logical_nodes(plan):
+    stack, out = [plan], []
+    while stack:
+        node = stack.pop()
+        out.append(node)
+        stack.extend(node.children)
+    return out
+
+
+def fallback_nodes(exec_plan):
+    """The CpuFallbackExec nodes of a physical plan."""
+    from spark_rapids_tpu_torch.exec.fallback import CpuFallbackExec
+    stack, out = [exec_plan], []
+    while stack:
+        node = stack.pop()
+        if isinstance(node, CpuFallbackExec):
+            out.append(node)
+        stack.extend(node.children)
+    return out
+
+
+def like_holders(plan):
+    """Type names of the logical nodes whose own expressions hold a
+    LIKE: those that fall back when ``spark.rapids.sql.expression.Like``
+    is off."""
+    from spark_rapids_tpu_torch.ops.stringops import Like
+    from spark_rapids_tpu_torch.plan.overrides import _node_expressions
+
+    def has_like(e):
+        return isinstance(e, Like) or any(has_like(c) for c in e.children)
+    return sorted(type(n).__name__ for n in logical_nodes(plan)
+                  if any(has_like(e) for e in _node_expressions(n)))
+
+
+def fallback_run(torch, K, fm, s, label, q, rows, want, want_nodes,
+                 card_line, total):
+    """One query of the fallback phase: its plan's CpuFallbackExec nodes
+    are exactly ``want_nodes``; one run through the engine (launches,
+    host syncs, wall); the answer equals ``want`` under the tpch22
+    phase's comparison, order included.  Returns (wall s, host syncs,
+    the fallback nodes' host ms in pandas, to host and to the device)."""
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    got_nodes = sorted(type(n.node).__name__
+                       for n in fallback_nodes(s.plan(q.plan)))
+    check(got_nodes == sorted(want_nodes),
+          f"{label}: CpuFallbackExec nodes {got_nodes}, expected "
+          f"{sorted(want_nodes)}")
+    got, launches, fus, rate = drive(
+        torch, K, fm, q, rows, card_line, label, reps=0,
+        extra={"host_syncs": host_sync_metrics})
+    total.add(launches)
+    wall = rows / rate
+    nodes = fallback_nodes(q._last_exec)
+    pandas_ms = sum(n.host_ns() for n in nodes) / 1e6
+    to_host_ms = sum(n.metrics["toHostTime"].value for n in nodes) / 1e6
+    to_dev_ms = sum(n.metrics["toDeviceTime"].value for n in nodes) / 1e6
+    print(f"{label}: fallback nodes {got_nodes}; wall {wall * 1e3:.3f} ms; "
+          f"host syncs {fus['host_syncs']}; in the fallback {pandas_ms:.3f}"
+          f" ms pandas, {to_host_ms:.3f} ms to the host, {to_dev_ms:.3f} ms"
+          " to the card; launches " + ", ".join(
+              f"{k} {launches[k]}" for k in K.launches.NAMES), flush=True)
+    ok, why = frames_match(got, want, QUERY_RTOL)
+    check(ok, f"{label}: equals the tpch22 answer (floats within rel "
+          f"{QUERY_RTOL}, order included) {why}")
+    return wall, fus["host_syncs"], pandas_ms, to_host_ms, to_dev_ms
+
+
+def official_q13(F, t):
+    """TPC-H q13 as its text has it, the residual on the outer join, with
+    the columns pruned as Spark's optimizer prunes them."""
+    c = t["customer"].select("c_custkey")
+    o = t["orders"].select("o_orderkey", "o_custkey", "o_comment")
+    j = c.join(o, on=(F.col("c_custkey") == F.col("o_custkey"))
+               & ~F.col("o_comment").like("%special%requests%"),
+               how="left")
+    per_cust = j.groupBy("c_custkey").agg(
+        F.count(F.col("o_orderkey")).alias("c_count"))
+    return (per_cust.groupBy("c_count").agg(F.count().alias("custdist"))
+            .orderBy(F.col("custdist").desc(), F.col("c_count").desc()))
+
+
+def run_fallback(torch, K, fm, tpch, batches, df_answers, card_line, total):
+    """The fallback phase over the tpch22 phase's SF10 tables and answers:
+    F1 every Sort in pandas, F2 every LIKE over part in pandas, F3 the
+    official q13 join in pandas, F4 the 22 plans under the cost-based
+    optimizer (planned, not run), with tagging and planning host times."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.config.rapids_conf import RapidsConf
+    from spark_rapids_tpu_torch.plan import logical as L
+    from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
+    summary = {}
+
+    def tables_of(s):
+        return {k: s.create_dataframe(b) for k, b in batches.items()}
+
+    # F1: spark.rapids.sql.exec.Sort=false, the 22 queries
+    t0 = time.perf_counter()
+    # strict test mode stays on: allowedNonTpu names the nodes a part
+    # expects on the CPU
+    s = TpuSession(dict(tpch_conf(True), **{
+        "spark.rapids.sql.exec.Sort": False,
+        "spark.rapids.sql.test.allowedNonTpu": "Sort"}))
+    t = tables_of(s)
+    for name, query in tpch.QUERIES.items():
+        read = ReadTables(t)
+        q = query(read)
+        rows = sum(batches[k].nrows for k in read.read)
+        # every Sort of the plan (none in the keyless q6, q14, q17, q19)
+        want = ["Sort"] * sum(isinstance(n, L.Sort)
+                              for n in logical_nodes(q.plan))
+        summary[f"F1 {name}"] = fallback_run(
+            torch, K, fm, s, f"fallback F1 {name}", q, rows,
+            df_answers[name], want, card_line, total)
+    s.stop()
+    summary["F1"] = time.perf_counter() - t0
+
+    # F2: spark.rapids.sql.expression.Like=false, the LIKE-over-part ones
+    t0 = time.perf_counter()
+    s = TpuSession(dict(tpch_conf(True), **{
+        "spark.rapids.sql.expression.Like": False,
+        "spark.rapids.sql.test.allowedNonTpu": "Filter,Aggregate"}))
+    t = tables_of(s)
+    hash_launches = {"hash_insert": 0, "hash_probe": 0}
+    for name in FALLBACK_LIKE_QUERIES:
+        read = ReadTables(t)
+        q = tpch.QUERIES[name](read)
+        rows = sum(batches[k].nrows for k in read.read)
+        want = like_holders(q.plan)
+        print(f"fallback F2 {name}: LIKE held by {want} (from the plan)",
+              flush=True)
+        part = PathLaunches(K.launches.NAMES)
+        summary[f"F2 {name}"] = fallback_run(
+            torch, K, fm, s, f"fallback F2 {name}", q, rows,
+            df_answers[name], want, card_line, part)
+        total.extend(part)
+        for k in hash_launches:
+            hash_launches[k] += part.counts[k]
+    check(all(v >= 1 for v in hash_launches.values()),
+          f"fallback F2: the joins above and beside the CPU nodes ran the "
+          f"hash kernels ({hash_launches})")
+    s.stop()
+    summary["F2"] = time.perf_counter() - t0
+
+    # F3: the official q13 join (15M orders build, 1.5M customers probe)
+    t0 = time.perf_counter()
+    s = TpuSession(dict(tpch_conf(True), **{
+        "spark.rapids.sql.test.allowedNonTpu": "Join"}))
+    t = tables_of(s)
+    q = official_q13(F, t)
+    rows = batches["customer"].nrows + batches["orders"].nrows
+    f3 = PathLaunches(K.launches.NAMES)
+    summary["F3 q13"] = fallback_run(
+        torch, K, fm, s, "fallback F3 official q13", q, rows,
+        df_answers["q13"], ["Join"], card_line, f3)
+    plan = q._last_exec.tree_string()
+    check(plan.count("TpuHashAggregateExec") == 2
+          and plan.splitlines()[0].startswith("TpuSortExec"),
+          "fallback F3: both group-bys and the sort ran on the card")
+    total.extend(f3)
+    s.stop()
+    summary["F3"] = time.perf_counter() - t0
+
+    # F4: the optimizer, planning only, under its built-in weights
+    t0 = time.perf_counter()
+    s = TpuSession(tpch_conf(True))
+    t = tables_of(s)
+    tagger = TpuOverrides(RapidsConf(tpch_conf(True)), s.device)
+    cbo = TpuOverrides(RapidsConf(dict(tpch_conf(True), **{
+        "spark.rapids.sql.optimizer.enabled": True})), s.device)
+    from spark_rapids_tpu_torch.plan.cbo import weights_calibrated
+    print(f"fallback F4: optimizer weights calibrated for cuda: "
+          f"{weights_calibrated('cuda')} (the built-in ratio table)",
+          flush=True)
+    times = {}
+    for name, query in tpch.QUERIES.items():
+        q = query(t)   # a scalar subquery runs here, on the card
+        t1 = time.perf_counter()
+        tagger.tag(q.plan)
+        t2 = time.perf_counter()
+        cbo.tag(q.plan)
+        t3 = time.perf_counter()
+        s.plan(q.plan)
+        t4 = time.perf_counter()
+        times[name] = ((t2 - t1) * 1e3, (t3 - t2) * 1e3, (t4 - t3) * 1e3)
+        print(f"fallback F4 {name}: tagging {times[name][0]:.3f} ms, "
+              f"tagging and optimizer {times[name][1]:.3f} ms, whole "
+              f"planning {times[name][2]:.3f} ms (host); optimizer "
+              f"reverts {cbo.last_cbo}", flush=True)
+    s.stop()
+    summary["F4"] = time.perf_counter() - t0
+    print("fallback F4 host ms per query (tagging, tagging+optimizer, "
+          "planning) on " + card_line + ": " + json.dumps(
+              {k: [round(x, 3) for x in v] for k, v in times.items()}),
+          flush=True)
+    return summary
 
 
 # ----------------------------------------------------------------- files --
@@ -2701,6 +2935,19 @@ def main() -> int:
               f"tpch22 launched {k} {tpch_launches.counts[k]}x")
     total.extend(tpch_launches)
 
+    # the fallback phase over the same tables, against the tpch22 answers
+    fallback_launches = PathLaunches(K.launches.NAMES)
+    t0 = time.perf_counter()
+    fb = run_fallback(torch, K, fm, tpch, tpch_batches, df_answers,
+                      card_line, fallback_launches)
+    print(f"fallback phase {time.perf_counter() - t0:.3f} s ("
+          + ", ".join(f"{k} {fb[k]:.3f} s" for k in ("F1", "F2", "F3", "F4"))
+          + f"); launches {fallback_launches.counts}", flush=True)
+    for k in ("hash_insert", "hash_probe"):
+        check(fallback_launches.counts[k] >= 1,
+              f"fallback launched {k} {fallback_launches.counts[k]}x")
+    total.extend(fallback_launches)
+
     # the same 22 queries as SQL text through session.sql, each once
     from spark_rapids_tpu_torch.models import tpch_sql
     sql_launches = PathLaunches(K.launches.NAMES)
@@ -2816,6 +3063,7 @@ def main() -> int:
     total.extend(sharded_launches)
     check_tpcds_cpu(torch, tpcds, TPCDS_CHECK_SF, cpu_proc, cpu_conn)
     phase_launches = {"tpch22": tpch_launches.counts,
+                      "fallback": fallback_launches.counts,
                       "tpch_sql": sql_launches.counts,
                       "files": files_launches.counts,
                       "tpcds": ds_launches.counts,

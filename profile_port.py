@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
-                            [memory]
+                            [memory] [fallback]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -26,6 +26,11 @@ SF10 lineitem at default memory and under the 256 MiB spill budget (its
 batches consumed on the card, not collected) and TPC-H q18 under that
 budget, with the host time the spill catalog spent copying to the host,
 checksumming, encoding frames, writing and reading disk and restoring,
+and (``fallback``, only when asked for) ``chip_smoke.py``'s fallback
+phase over the SF10 tables against their 22 answers, then one trace each
+of TPC-H q10 with its Sort in the CPU fallback, q14 with its LIKE-holding
+aggregate there and the official q13 join there, with the fallback
+nodes' host time in pandas and in each transfer,
 and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
@@ -252,9 +257,58 @@ def main() -> int:
         profile_files(torch, TpuSession, tpch, card_line)
     if "memory" in sys.argv[1:]:
         profile_memory(torch, F, TpuSession, tpch, card_line)
+    if "fallback" in sys.argv[1:]:
+        profile_fallback(torch, F, TpuSession, tpch, card_line)
     if "sharded_tpch" in sys.argv[1:]:
         return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
+
+
+def profile_fallback(torch, F, TpuSession, tpch, card_line):
+    """``chip_smoke.py``'s fallback phase (its checks included) over the
+    SF10 tables, then traces of one query of each of its parts."""
+    from spark_rapids_tpu_torch.exec.fusion import fusion_metrics as fm
+    from spark_rapids_tpu_torch.ops import kernels as K
+    batches = cs.device_tables(tpch.gen_table_columns(cs.TPCH_SF),
+                               torch.device(cs.DEVICE))
+    s = TpuSession(cs.tpch_conf(True))
+    t = {name: s.create_dataframe(b) for name, b in batches.items()}
+    t0 = time.perf_counter()
+    answers = {name: q(t).to_pandas() for name, q in tpch.QUERIES.items()}
+    print(f"the 22 answers on the card in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    s.stop()
+    total = cs.PathLaunches(K.launches.NAMES)
+    t0 = time.perf_counter()
+    fb = cs.run_fallback(torch, K, fm, tpch, batches, answers, card_line,
+                         total)
+    print(f"fallback phase {time.perf_counter() - t0:.3f} s ("
+          + ", ".join(f"{k} {fb[k]:.3f} s" for k in ("F1", "F2", "F3",
+                                                     "F4"))
+          + f"); launches {total.counts}", flush=True)
+    parts = (("F1 TPC-H q10, Sort in pandas",
+              {"spark.rapids.sql.exec.Sort": False},
+              lambda t: tpch.QUERIES["q10"](t)),
+             ("F2 TPC-H q14, its LIKE-holding aggregate in pandas",
+              {"spark.rapids.sql.expression.Like": False},
+              lambda t: tpch.QUERIES["q14"](t)),
+             ("F3 official TPC-H q13, its join in pandas", {},
+              lambda t: cs.official_q13(F, t)))
+    for label, keys, build in parts:
+        s = TpuSession(dict(cs.tpch_conf(True), **keys, **{
+            "spark.rapids.sql.test.enabled": False}))
+        q = build({name: s.create_dataframe(b)
+                   for name, b in batches.items()})
+        profile(torch, q, f"{label} SF{cs.TPCH_SF}", card_line)
+        for n in cs.fallback_nodes(q._last_exec):
+            print(f"  {n.describe()}: pandas {n.host_ns() / 1e6:.3f} ms, "
+                  f"to the host {n.metrics['toHostTime'].value / 1e6:.3f} "
+                  "ms, to the card "
+                  f"{n.metrics['toDeviceTime'].value / 1e6:.3f} ms, "
+                  f"waiting on its children "
+                  f"{n.metrics['childTime'].value / 1e6:.3f} ms (the "
+                  "traced run)", flush=True)
+        s.stop()
 
 
 def profile_memory(torch, F, TpuSession, tpch, card_line):

@@ -331,8 +331,19 @@ class DataFrame:
         return list(zip(*cols)) if cols else []
 
     def explain(self) -> str:
-        """The physical plan this DataFrame runs as."""
-        return self.session.plan(self.plan).tree_string()
+        """The physical plan this DataFrame runs as (on one device), then
+        the logical plan and the planner's tagging: each node marked
+        ``*`` runs on the device, each marked ``!`` falls back to the CPU
+        with its reasons (``session.overrides.last_explain``).  With the
+        cost-based optimizer on, its decisions follow."""
+        exec_plan = self.session.plan(self.plan)
+        ov = self.session.overrides
+        parts = [exec_plan.tree_string(), "== Logical Plan ==",
+                 self.plan.tree_string(), "== Overrides ==",
+                 ov.last_explain]
+        if ov.last_cbo:
+            parts += ["== Cost-Based Optimizer =="] + list(ov.last_cbo)
+        return "\n".join(parts)
 
 
 def _file_meta_needs(exprs, schema) -> set:

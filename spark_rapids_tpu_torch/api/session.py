@@ -7,6 +7,13 @@ and raises when no CUDA device is present: it never carries on quietly on
 the CPU.  Pass ``device="cpu"`` to run on the CPU on purpose (the tests
 do); the hand-written kernels' plain versions then run instead.
 
+``session.plan`` tags each plan node and expression
+(``plan/overrides.py``); what does not run on the device runs in a
+``CpuFallbackExec`` between device operators, and
+``session.overrides.last_explain`` says which and why
+(``DataFrame.explain()`` prints it under the physical plan).  With
+``spark.rapids.sql.test.enabled`` any such fallback raises instead.
+
 A session may hold a shard group, and then offers every collected plan to
 the distributed planner first (``parallel/dist_planner.py``):
 ``spark.rapids.sql.distributed.numShards = n > 0`` makes ``n`` logical
@@ -129,6 +136,8 @@ class TpuSession:
         # the last single-device collect's spill bytes (to host, to
         # disk) and OOM retries and splits (memory/retry.retry_metrics)
         self.last_memory_stats = None
+        # the error a suppressed planning failure left (see ``plan``)
+        self.last_planning_error = None
         self._views: Dict[str, DataFrame] = {}
 
     def _init_memory(self) -> None:
@@ -218,9 +227,38 @@ class TpuSession:
         return resolve(self, parse(query))
 
     def plan(self, logical: L.LogicalPlan):
+        """The physical plan of ``logical`` (``overrides.last_explain``
+        then says what runs where).  With
+        ``spark.rapids.sql.suppressPlanningFailure`` a planning error
+        demotes the whole query to the CPU fallback, keeping the error on
+        ``last_planning_error``."""
         if self.stopped:
             raise RuntimeError("session is stopped")
-        return self.overrides.apply(logical)
+        if not self.conf.get(rc.SUPPRESS_PLANNING_FAILURE):
+            return self.overrides.apply(logical)
+        try:
+            return self.overrides.apply(logical)
+        except Exception as exc:
+            import warnings
+            # the root cause first: the CPU plan may itself lack a branch
+            # for some node, and that later error must not hide this one
+            warnings.warn(
+                f"planning failed ({type(exc).__name__}: {exc}); running "
+                "the whole query on the CPU fallback "
+                "(spark.rapids.sql.suppressPlanningFailure)",
+                RuntimeWarning, stacklevel=2)
+            self.last_planning_error = exc
+            return self.plan_cpu_only(logical)
+
+    def plan_cpu_only(self, logical: L.LogicalPlan):
+        """The whole query on the CPU fallback, every node a
+        ``CpuFallbackExec`` whose output lands on the session's device."""
+        from spark_rapids_tpu_torch.exec.fallback import CpuFallbackExec
+
+        def whole_cpu(n):
+            return CpuFallbackExec(n, [whole_cpu(c) for c in n.children],
+                                   self.device)
+        return whole_cpu(logical)
 
     def stop(self) -> None:
         """Stop the session and sweep its spill tiers: live handles

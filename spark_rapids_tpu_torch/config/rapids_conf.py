@@ -4,6 +4,13 @@ names, defaults and validation (``spark_rapids_tpu/config/rapids_conf.py``).
 A conf dict written for the JAX engine passes unchanged as long as it only
 sets these keys; any other ``spark.rapids.*`` key is rejected, because a
 knob the port does not read must fail loudly rather than silently no-op.
+Besides the registered keys the planner reads three families of dynamic
+keys, as the JAX package does (``_known_key``):
+``spark.rapids.sql.exec.<Name>`` and ``spark.rapids.sql.expression.<Name>``
+switch one operator or expression class off (``op_enabled``; a name the
+planner does not know is rejected, so a typo still fails), and
+``spark.rapids.sql.optimizer.{tpu,cpu}OpCost.<Op>`` set the cost-based
+optimizer's per-row weights (``op_cost``).
 """
 
 from __future__ import annotations
@@ -150,9 +157,9 @@ WRITER_MAX_ROWS_PER_FILE = conf(
     "spark.rapids.sql.writer.maxRowsPerFile", 1 << 22,
     "Max rows per output file for dataset writes.", _to_int, _positive)
 
-# per format: the scan switches (a disabled format raises at planning:
-# the port has no CPU reader to hand the scan to), the multi-file reader
-# strategy and its thread pool
+# per format: the scan switches (a disabled format hands the scan to the
+# CPU fallback, exec/fallback.py), the multi-file reader strategy and its
+# thread pool
 FORMAT_ENABLED, FORMAT_READ_ENABLED, READER_TYPE = {}, {}, {}
 READ_NUM_THREADS, MAX_NUM_FILES_PARALLEL = {}, {}
 for _fmt, _name in (("parquet", "parquet"), ("orc", "ORC"),
@@ -161,10 +168,12 @@ for _fmt, _name in (("parquet", "parquet"), ("orc", "ORC"),
     FORMAT_ENABLED[_fmt] = conf(
         f"{_base}.enabled", True,
         f"Use the engine's columnar {_name} scan; when false a {_name} "
-        "scan raises NotImplementedError naming this key.", _to_bool)
+        "scan runs on the CPU fallback (arrow record batches through "
+        "pandas, then uploaded), with this key as its reason.", _to_bool)
     FORMAT_READ_ENABLED[_fmt] = conf(
         f"{_base}.read.enabled", True,
-        f"Read side of the {_name} format switch.", _to_bool)
+        f"Read side of the {_name} format switch: when false a {_name} "
+        "scan runs on the CPU fallback.", _to_bool)
     READER_TYPE[_fmt] = conf(
         f"{_base}.reader.type", "AUTO",
         f"{_name} reader strategy over several files: PERFILE, "
@@ -294,18 +303,122 @@ SPILL_INTEGRITY_ENABLED = conf(
     "rename).", _to_bool)
 
 
+# -------------------------------------------------------------- planning --
+# the planner's tagging (plan/overrides.py), its CPU fallback
+# (exec/fallback.py) and the cost-based optimizer (plan/cbo.py)
+
+EXPLAIN = conf(
+    "spark.rapids.sql.explain", "NONE",
+    "Explain why parts of a query did or did not run on the device: NONE, "
+    "NOT_ON_TPU (print the nodes and expressions that fall back to the "
+    "CPU, with their reasons) or ALL (print every node) at each "
+    "planning.", str,
+    lambda v: None if v in ("NONE", "NOT_ON_TPU", "ALL") else
+    "must be NONE, NOT_ON_TPU or ALL")
+
+VARIABLE_FLOAT_AGG = conf(
+    "spark.rapids.sql.variableFloatAgg.enabled", True,
+    "Allow sum and avg over floating-point values on the device even "
+    "though chunked evaluation adds in another order than CPU Spark; when "
+    "false such an aggregate falls back to the CPU.", _to_bool)
+
+CAST_STRING_TO_FLOAT = conf(
+    "spark.rapids.sql.castStringToFloat.enabled", True,
+    "Allow string->float casts on the device.", _to_bool)
+
+CAST_FLOAT_TO_STRING = conf(
+    "spark.rapids.sql.castFloatToString.enabled", True,
+    "Allow float->string casts on the device.", _to_bool)
+
+CAST_STRING_TO_TIMESTAMP = conf(
+    "spark.rapids.sql.castStringToTimestamp.enabled", True,
+    "Allow string->timestamp and string->date casts on the device.",
+    _to_bool)
+
+SUPPRESS_PLANNING_FAILURE = conf(
+    "spark.rapids.sql.suppressPlanningFailure", False,
+    "When planning itself raises, run the whole query on the CPU "
+    "fallback instead of failing (the error is kept on "
+    "session.last_planning_error).", _to_bool)
+
+OPTIMIZER_TRANSITION_COST = conf(
+    "spark.rapids.sql.optimizer.transitionRowCost", 0.1,
+    "Microseconds per row charged for a host<->device transition by the "
+    "cost-based optimizer.", _to_float)
+
+CBO_ENABLED = conf(
+    "spark.rapids.sql.optimizer.enabled", False,
+    "Enable the cost-based optimizer: device regions whose estimated "
+    "work cannot pay for their host<->device transitions run on the CPU "
+    "fallback instead.", _to_bool)
+
+TEST_ENABLED = conf(
+    "spark.rapids.sql.test.enabled", False,
+    "Strict test mode: planning raises when a node would fall back to "
+    "the CPU.", _to_bool)
+
+TEST_ALLOWED_NON_TPU = conf(
+    "spark.rapids.sql.test.allowedNonTpu", "",
+    "Comma-separated plan node names that strict test mode lets fall back "
+    "to the CPU.", str)
+
+
+# dynamic per-op enable keys: spark.rapids.sql.expression.<Name> and
+# spark.rapids.sql.exec.<Name>
+_DYNAMIC_PREFIXES = ("spark.rapids.sql.expression.",
+                     "spark.rapids.sql.exec.")
+# per-op cost-model weights (any logical-plan node name)
+_COST_PREFIXES = ("spark.rapids.sql.optimizer.tpuOpCost.",
+                  "spark.rapids.sql.optimizer.cpuOpCost.")
+
+
+def _known_key(key: str) -> bool:
+    if key in _REGISTRY:
+        return True
+    if key.startswith(_COST_PREFIXES):
+        return True
+    for p in _DYNAMIC_PREFIXES:
+        if key.startswith(p):
+            # imported here: the planner imports this module
+            from spark_rapids_tpu_torch.plan.overrides import valid_op_names
+            return key[len(p):] in valid_op_names()
+    return False
+
+
 class RapidsConf:
     """Immutable view over a settings dict."""
 
     def __init__(self, settings: Optional[Dict[str, Any]] = None):
         self.settings = dict(settings or {})
         for k in self.settings:
-            if k.startswith("spark.rapids.") and k not in _REGISTRY:
+            if k.startswith("spark.rapids.") and not _known_key(k):
                 raise ValueError(
                     f"unknown configuration key {k!r}: the PyTorch port "
-                    f"reads only {sorted(_REGISTRY)}")
+                    f"reads only {sorted(_REGISTRY)}, "
+                    "spark.rapids.sql.{exec,expression}.<Name> and "
+                    "spark.rapids.sql.optimizer.{tpu,cpu}OpCost.<Op>")
         for entry in _REGISTRY.values():
             entry.get(self.settings)  # validate eagerly
 
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self.settings)
+
+    @property
+    def explain(self) -> str:
+        return self.get(EXPLAIN)
+
+    def op_enabled(self, kind: str, name: str) -> bool:
+        """Per-op enable key ``spark.rapids.sql.<kind>.<Name>`` (kind is
+        ``exec`` or ``expression``), default True."""
+        raw = self.settings.get(f"spark.rapids.sql.{kind}.{name}")
+        if raw is None:
+            return True
+        return raw if isinstance(raw, bool) else _to_bool(str(raw))
+
+    def op_cost(self, side: str, name: str) -> Optional[float]:
+        """Per-op cost weight in us/row,
+        ``spark.rapids.sql.optimizer.<side>OpCost.<Op>`` (side ``tpu`` or
+        ``cpu``); None = the optimizer's own table."""
+        raw = self.settings.get(
+            f"spark.rapids.sql.optimizer.{side}OpCost.{name}")
+        return None if raw is None else float(raw)

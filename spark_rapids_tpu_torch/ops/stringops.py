@@ -515,9 +515,15 @@ class Substring(Expression):
         nchars = prefix[offs[1:]] - prefix[offs[:-1]]
         if self.pos >= 0:
             start_char = torch.full_like(nchars, max(self.pos - 1, 0))
+            end_char = start_char + max(self.length, 0)
         else:
-            start_char = (nchars + self.pos).clamp(min=0)
-        end_char = torch.minimum(start_char + max(self.length, 0), nchars)
+            # Spark's substringSQL: the window [len + pos, len + pos +
+            # length) is cut at 0 only after it is placed, so a pos
+            # before the start eats into the length
+            raw = nchars + self.pos
+            start_char = raw.clamp(min=0)
+            end_char = raw + max(self.length, 0)
+        end_char = torch.minimum(torch.maximum(end_char, start_char), nchars)
         start_char = torch.minimum(start_char, nchars)
         # byte position of a row's k-th character: the first byte whose
         # character prefix passes the row's base count plus k

@@ -156,11 +156,15 @@ class ExprLowering:
     at the scan (column pruning): reading one raises."""
 
     def __init__(self, enc: Dict[int, SortedDictionary], device,
-                 dry: bool = False, pruned: Set[int] = frozenset()):
+                 dry: bool = False, pruned: Set[int] = frozenset(),
+                 conf=None):
         self.enc = enc
         self.device = torch.device(device)
         self.dry = dry
         self.pruned = pruned
+        # the session's conf: a lookup whose expression the planner tags
+        # off the device evaluates through the CPU fallback's evaluator
+        self.conf = conf
 
     def lower(self, e: Expression) -> Expression:
         if isinstance(e, Alias):
@@ -229,8 +233,12 @@ class ExprLowering:
 
     def _try_dict_lower(self, e: Expression) -> Optional[DictLookup]:
         """``e`` evaluated over the dictionary of its one encoded column
-        (and a null row) by the engine's own ``emit``, as a lookup; None
-        when ``e`` is not such a function."""
+        (and a null row) as a lookup; None when ``e`` is not such a
+        function.  The engine's own ``emit`` evaluates it on the device,
+        or, when the planner tags ``e`` off the device (a per-expression
+        disable, a LIKE with ``_``, a string cast), the CPU fallback's
+        evaluator does on the host: either way the work is over the K
+        dictionary values, not the rows."""
         ordinal = self._dict_lower_candidate(e)
         if ordinal is None:
             return None
@@ -255,19 +263,28 @@ class ExprLowering:
                 if e.dtype.is_string else None, label)
         d = self.enc[ordinal]
         k = len(d) + 1
-        ctx = EmitContext([_with_null_row(d)], k, k, d.device)
-        try:
-            out = widen(over_dict.emit(ctx), k)
-            check_raise(ctx)
-        except NotImplementedError as exc:
-            raise NotDistributable(
-                f"{type(e).__name__} over strings: {exc}") from exc
+        if self._tagged_off(e):
+            out = _host_lookup(over_dict, d, self.device)
+        else:
+            ctx = EmitContext([_with_null_row(d)], k, k, d.device)
+            try:
+                out = widen(over_dict.emit(ctx), k)
+                check_raise(ctx)
+            except NotImplementedError as exc:
+                raise NotDistributable(
+                    f"{type(e).__name__} over strings: {exc}") from exc
         if e.dtype.is_string:
             table, new_dict = dictionary.encode_sorted(out, k)
             return DictLookup(codes, table, out.validity, dts.INT64,
                               new_dict, label)
         return DictLookup(codes, out.values.to(torch_dtype(e.dtype)),
                           out.validity, e.dtype, None, label)
+
+    def _tagged_off(self, e: Expression) -> bool:
+        if self.conf is None:
+            return False
+        from spark_rapids_tpu_torch.plan.overrides import tag_expression
+        return bool(tag_expression(e, self.conf))
 
     # -- aggregates --------------------------------------------------------
     def lower_agg(self, e: AggregateExpression) -> AggregateExpression:
@@ -382,9 +399,29 @@ class ExprLowering:
                             for c in (hits or [-1])])
 
 
-def check_supported(exprs: Sequence[Expression]) -> None:
+def _host_lookup(over_dict: Expression, d: SortedDictionary,
+                 device) -> ColVal:
+    """``over_dict`` (over input 0) for each dictionary value and a null
+    row, evaluated on the host by the CPU fallback's evaluator, as a
+    column on ``device``."""
+    import pandas as pd
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.exec.fallback import _eval, _to_arrow
+    values = pd.array(d.to_pylist() + [None],
+                      dtype=pd.StringDtype("pyarrow"))
+    v = _eval(over_dict, pd.DataFrame({0: values}))
+    col = ColumnarBatch.from_arrow(pa.table({"v": _to_arrow(v)}),
+                                   device=device).column("v")
+    return ColVal(col.dtype, col.data, col.validity, col.offsets)
+
+
+def check_supported(exprs: Sequence[Expression], conf=None) -> None:
     """The lowered expressions run on the shard group: no string-typed
-    node is left, and the port evaluates every node."""
+    node is left, the port evaluates every node, and (given the
+    session's ``conf``) the planner's tagging passes each one, so
+    per-op disables and type signatures hold on the shard group too (the
+    JAX package's ``_check_supported``)."""
     def walk(e):
         if e.dtype.is_string:
             raise NotDistributable(
@@ -394,4 +431,11 @@ def check_supported(exprs: Sequence[Expression]) -> None:
     for e in exprs:
         check_emittable(e)
         walk(e)
+        if conf is not None:
+            from spark_rapids_tpu_torch.plan.overrides import tag_expression
+            reasons = tag_expression(e, conf)
+            if reasons:
+                raise NotDistributable(
+                    f"expression {type(e).__name__}: "
+                    + "; ".join(reasons))
 

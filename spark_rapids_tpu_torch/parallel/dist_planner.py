@@ -208,7 +208,7 @@ class DistPlanner:
                             pruned)
 
     def _lowering(self, f: ShardedFrame) -> ExprLowering:
-        return ExprLowering(f.enc, self.device, f.dry, f.pruned)
+        return ExprLowering(f.enc, self.device, f.dry, f.pruned, self.conf)
 
     # -- scan -------------------------------------------------------------
     def _scan(self, plan: L.LogicalPlan, dry: bool) -> ShardedFrame:
@@ -470,7 +470,8 @@ class DistPlanner:
         low = self._lowering(f)
         lexprs, enc, pruned = self._lower_outputs(low, f, exprs)
         lconds = [low.lower(c) for c in conds]
-        check_supported([e for e in lexprs if e is not None] + lconds)
+        check_supported([e for e in lexprs if e is not None] + lconds,
+                        self.conf)
         if dry:
             return self._frame(plan.schema, enc=enc, pruned=pruned)
         return self._stage(f, lexprs, lconds, plan.schema, enc, pruned)
@@ -507,7 +508,7 @@ class DistPlanner:
         lgroup = [low.lower(e) for e in group]
         laggs = [low.lower_agg(a) for a in agg_list]
         lconds = [low.lower(c) for c in conds]
-        check_supported(lgroup + laggs + lconds)
+        check_supported(lgroup + laggs + lconds, self.conf)
         nkeys = len(group)
         agg_enc = {}
         for i, ge in enumerate(lgroup):
@@ -529,7 +530,7 @@ class DistPlanner:
                 Alias(rewritten, name) for name, rewritten in out_named]
             agg_low = ExprLowering(agg_enc, self.device, dry)
             proj = [agg_low.lower(e) for e in proj]
-            check_supported(proj)
+            check_supported(proj, self.conf)
             penc = {i: agg_low.out_dict(e) for i, e in enumerate(proj)
                     if agg_low.out_dict(e) is not None}
             out_schema = plan.schema
@@ -591,7 +592,7 @@ class DistPlanner:
         low_l, low_r = self._lowering(left), self._lowering(right)
         lkeys = [low_l.lower(e) for e in plan.left_keys]
         rkeys = [low_r.lower(e) for e in plan.right_keys]
-        check_supported(lkeys + rkeys)
+        check_supported(lkeys + rkeys, self.conf)
         for i in str_keys:
             if low_l.out_dict(lkeys[i]) is None or \
                     low_r.out_dict(rkeys[i]) is None:
@@ -611,7 +612,7 @@ class DistPlanner:
         if plan.condition is not None:
             cond = ExprLowering(out_enc, self.device, dry,
                                 out_pruned).lower(plan.condition)
-            check_supported([cond])
+            check_supported([cond], self.conf)
         layout = self._using_layout(plan, left.names, right.names) \
             if plan.using and not semi else None
         if dry:
@@ -731,7 +732,7 @@ class DistPlanner:
         order keys lowered; placeholders return for the pruned ones."""
         low = self._lowering(f)
         keys = [low.lower(e) for e, _, _ in orders]
-        check_supported(keys)
+        check_supported(keys, self.conf)
         if f.dry:
             return f
         live = f.live
@@ -834,12 +835,16 @@ class DistPlanner:
 
 def try_distributed(session, plan: L.LogicalPlan):
     """Entry point from DataFrame execution: a list holding one batch when
-    the plan ran on the session's shard group, else None (single-device
-    fallback, reason on ``session.last_dist_explain``).  A node or
-    expression the port does not run raises ``NotImplementedError`` here,
-    as the single-device planner would."""
+    the plan ran on the session's shard group, else None: the plan runs
+    on one device, through the CPU fallback where the planner tags it
+    off, with the reason on ``session.last_dist_explain``.  A plan node
+    that does not run on the device (a per-exec disable, a disabled file
+    format, a residual on a join that is not inner) sends the whole plan
+    there; an expression is tagged after it is lowered, so one over an
+    encoded string column still runs distributed as a lookup over its
+    dictionary."""
     from spark_rapids_tpu_torch.plan.overrides import (
-        _pushdown_pass, check_ported)
+        _pushdown_pass, node_reasons)
     group = getattr(session, "shards", None)
     if group is None:
         return None
@@ -848,8 +853,16 @@ def try_distributed(session, plan: L.LogicalPlan):
     if not session.conf.get(rc.DISTRIBUTED_ENABLED):
         session.last_dist_explain = "distributed disabled by conf"
         return None
-    check_ported(plan)
     _pushdown_pass(plan)
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        reasons = node_reasons(node, session.conf)
+        if reasons:
+            session.last_dist_explain = (
+                f"fallback: {type(node).__name__}: " + "; ".join(reasons))
+            return None
+        stack.extend(node.children)
     planner = DistPlanner(session, group)
     try:
         planner.run(plan, dry=True)  # support pre-flight: no data moves

@@ -67,6 +67,15 @@ class LogicalPlan:
     def schema(self) -> Schema:
         raise NotImplementedError
 
+    def describe(self) -> str:
+        return f"{type(self).__name__}[{', '.join(n for n, _ in self.schema)}]"
+
+    def tree_string(self, depth: int = 0) -> str:
+        lines = ["  " * depth + self.describe()]
+        for c in self.children:
+            lines.append(c.tree_string(depth + 1))
+        return "\n".join(lines)
+
 
 
 class InMemoryRelation(LogicalPlan):

@@ -1,40 +1,299 @@
-"""The planner: logical plan -> physical operators.
+"""The planner: tagging, then logical plan -> physical operators.
 
 Counterpart of ``spark_rapids_tpu/plan/overrides.py``, cut to the
-converters of the ported slices (in-memory and file relations, Range,
-Project, Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window),
-``_plan_aggregate``, the pushdown pass into file scans, the
-``Limit(Sort) -> TopN`` rewrite and the fusion pass the JAX planner
-applies: a
-Project/Filter chain under an Aggregate folds into the aggregate (its
-predicates become the row mask), and any other chain of two or more
-members collapses into one FusedStageExec.  There is no CPU fallback: a
-node or expression this port cannot run raises ``NotImplementedError``
-with its name, before anything runs (``check_ported``).
+expression classes and plan nodes the ported slices have.  As in the JAX
+package (and the reference's ``RapidsMeta``), every logical node and every
+expression is wrapped in a meta that collects "will not run on the device
+because ..." reasons (``PlanMeta.tag`` / ``ExprMeta.tag``): a per-op
+disable (``spark.rapids.sql.exec.<Name>``,
+``spark.rapids.sql.expression.<Name>``), a disabled file format, a cast or
+LIKE pattern the device does not run, a window function or frame outside
+the ported set, a residual condition on a join that is not inner, a float
+aggregate under ``variableFloatAgg.enabled=false``, or a type outside the
+expression's signature.  With ``spark.rapids.sql.optimizer.enabled`` the
+cost-based optimizer (``plan/cbo.py``) may add reasons.  A node without
+reasons converts to its device operator; any other node becomes a
+``CpuFallbackExec`` (``exec/fallback.py``) that runs it in pandas between
+device operators, or raises in strict test mode
+(``spark.rapids.sql.test.enabled``).  ``last_explain`` holds the tagged
+tree (``spark.rapids.sql.explain`` prints it) and ``last_cbo`` the
+optimizer's decisions.
+
+The converters cover in-memory and file relations, Range, Project,
+Filter, Aggregate, Join, Sort, Limit, Union, Expand and Window;
+``_plan_aggregate``, the pushdown pass into scans, the
+``Limit(Sort) -> TopN`` rewrite and the fusion pass follow the JAX
+planner: a Project/Filter chain under an Aggregate folds into the
+aggregate (its predicates become the row mask), and any other chain of
+two or more members collapses into one FusedStageExec.  Both rewrites take
+only members that run on the device, so a CPU Filter never folds into a
+device aggregate.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Type
 
 from spark_rapids_tpu_torch.config import rapids_conf as rc
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.basic import (
     TpuCoalesceBatchesExec, TpuFilterExec, TpuLocalLimitExec,
     TpuProjectExec, TpuRangeExec, TpuScanExec, TpuUnionExec)
-from spark_rapids_tpu_torch.exec.expand import Expand, TpuExpandExec
+from spark_rapids_tpu_torch.exec.expand import (
+    Expand, NullLiteral, TpuExpandExec)
 from spark_rapids_tpu_torch.exec.join import TpuHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
 from spark_rapids_tpu_torch.exec.window import (
     TpuWindowExec, WindowExpression, group_by_spec)
 from spark_rapids_tpu_torch.exec.fusion import (
     FusedStageExec, compose_chain, fusion_metrics)
+from spark_rapids_tpu_torch.ops import arithmetic as A
+from spark_rapids_tpu_torch.ops import datetime_ops as D
+from spark_rapids_tpu_torch.ops import predicates as P
+from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.ops.expressions import (
-    Alias, BoundReference, Expression, UnresolvedColumn, substitute_bound)
-from spark_rapids_tpu_torch.ops.stringops import Like
+    Alias, BoundReference, Expression, Literal, UnresolvedColumn,
+    substitute_bound)
+from spark_rapids_tpu_torch.parallel.dict_lowering import DictLookup
 from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan import typechecks as ts
 from spark_rapids_tpu_torch.plan.logical import AggregateExpression
+
+
+# ------------------------------------------------------ expression registry --
+
+class ExprRule:
+    def __init__(self, cls: Type[Expression], sig: ts.TypeSig):
+        self.cls = cls
+        self.sig = sig
+
+
+_EXPR_RULES: Dict[Type[Expression], ExprRule] = {}
+
+
+def expr_rule(cls, sig=ts.COMMON):
+    _EXPR_RULES[cls] = ExprRule(cls, sig)
+
+
+# a class the port lacks gets its rule when it is ported
+for _c in (Alias, BoundReference, Literal, UnresolvedColumn, Cast,
+           WindowExpression, NullLiteral,
+           # the sharded path's lookup over a string dictionary
+           # (parallel/dict_lowering.py), tagged after lowering
+           DictLookup,
+           S.EqualsLiteral, S.StartsWith, S.EndsWith, S.Contains, S.Like,
+           S.Substring,
+           D.Year, D.Month, D.DayOfMonth, D.DateAdd, D.DateSub, D.DateDiff,
+           P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+           P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.IsNull, P.IsNotNull,
+           P.Coalesce, P.If, P.CaseWhen, P.In, P.InSet):
+    expr_rule(_c)
+expr_rule(AggregateExpression, ts.ALL)
+for _c in (A.Add, A.Subtract, A.Multiply, A.Divide, A.IntegralDivide,
+           A.Remainder, A.UnaryMinus, A.Abs, A.BitwiseAnd, A.ShiftRight):
+    expr_rule(_c, ts.NUMERIC)
+
+# the plan nodes with a device operator (TpuOverrides._convert_node)
+_PLAN_CONVERTERS = (L.InMemoryRelation, L.FileRelation, L.Range, L.Union,
+                    Expand, L.Window, L.Project, L.Filter, L.Aggregate,
+                    L.Join, L.Sort, L.Limit)
+
+_FORMAT_GATES = {fmt: (rc.FORMAT_ENABLED[fmt], rc.FORMAT_READ_ENABLED[fmt])
+                 for fmt in rc.FORMAT_ENABLED}
+
+
+def valid_op_names():
+    """Known per-op conf suffixes: expression class names and plan node
+    names (``RapidsConf``'s unknown-key check reads them)."""
+    return {c.__name__ for c in _EXPR_RULES} | \
+        {c.__name__ for c in _PLAN_CONVERTERS}
+
+
+# --------------------------------------------------------------- the metas --
+
+class BaseMeta:
+    def __init__(self, wrapped, conf: rc.RapidsConf):
+        self.wrapped = wrapped
+        self.conf = conf
+        self.reasons: List[str] = []
+        self.child_metas: List[BaseMeta] = []
+
+    def will_not_work(self, reason: str) -> None:
+        self.reasons.append(reason)
+
+    @property
+    def can_replace(self) -> bool:
+        return not self.reasons and all(
+            c.can_replace for c in self.child_metas)
+
+    def explain_lines(self, depth: int = 0, all_nodes: bool = True
+                      ) -> List[str]:
+        status = "will run on the device" if not self.reasons else \
+            "will NOT run on the device because " + "; ".join(self.reasons)
+        lines = []
+        if all_nodes or self.reasons:
+            lines.append("  " * depth + f"{'*' if not self.reasons else '!'}"
+                         f" {type(self.wrapped).__name__} {status}")
+        for c in self.child_metas:
+            lines.extend(c.explain_lines(depth + 1, all_nodes))
+        return lines
+
+
+class ExprMeta(BaseMeta):
+    def __init__(self, expr: Expression, conf: rc.RapidsConf):
+        super().__init__(expr, conf)
+        self.child_metas = [ExprMeta(c, conf) for c in expr.children]
+
+    def tag(self) -> None:
+        expr = self.wrapped
+        name = type(expr).__name__
+        if not self.conf.op_enabled("expression", name):
+            self.will_not_work(
+                f"expression {name} disabled by "
+                f"spark.rapids.sql.expression.{name}")
+        rule = _EXPR_RULES.get(type(expr))
+        if isinstance(expr, AggregateExpression):
+            self._tag_aggregate(expr)
+        if isinstance(expr, Cast):
+            self._tag_cast(expr)
+        if isinstance(expr, S.Like) and expr._plan is None:
+            self.will_not_work(
+                f"LIKE pattern {expr.pattern!r} too general for the "
+                "device ('_' is not ported)")
+        if isinstance(expr, WindowExpression):
+            reason = expr.supported_reason()
+            if reason:
+                self.will_not_work(reason)
+        elif rule is None and type(expr).emit is Expression.emit:
+            self.will_not_work(
+                f"expression {name} has no device implementation")
+        else:
+            # a class without a rule that brings its own ``emit`` (an
+            # expression written against the engine) runs as it is
+            sig = rule.sig if rule is not None else ts.ALL
+            try:
+                reason = sig.reason_if_unsupported(
+                    expr.dtype, f"expression {name}")
+                if reason and not isinstance(expr, (BoundReference, Alias,
+                                                    Literal)):
+                    self.will_not_work(reason)
+            except (RuntimeError, TypeError, ValueError) as e:
+                self.will_not_work(str(e))
+        for c in self.child_metas:
+            c.tag()
+
+    def _tag_aggregate(self, expr: AggregateExpression) -> None:
+        func = expr.func
+        child = func.child
+        try:
+            if child is not None and child.dtype.has_offsets and \
+                    func.name not in ("count", "min", "max"):
+                # string min/max run over order-preserving dictionary
+                # codes; sum/avg of a string has no numeric meaning
+                self.will_not_work(
+                    f"aggregate {func.name} over {child.dtype.name} values "
+                    "falls back to CPU")
+            if func.name in ("sum", "avg") and child is not None and \
+                    child.dtype.is_floating and \
+                    not self.conf.get(rc.VARIABLE_FLOAT_AGG):
+                self.will_not_work(
+                    f"float {func.name} reorders additions across chunks "
+                    "and spark.rapids.sql.variableFloatAgg.enabled is "
+                    "false")
+        except (RuntimeError, TypeError, ValueError) as e:
+            self.will_not_work(str(e))
+
+    def _tag_cast(self, expr: Cast) -> None:
+        try:
+            src, dst = expr.child.dtype, expr.target
+        except (RuntimeError, TypeError, ValueError):
+            return
+        reason = cast_supported(src, dst)
+        if reason:
+            self.will_not_work(reason)
+        gates = ((src.is_string and dst.is_floating,
+                  rc.CAST_STRING_TO_FLOAT),
+                 (src.is_floating and dst.is_string,
+                  rc.CAST_FLOAT_TO_STRING),
+                 (src.is_string and dst.is_datetime,
+                  rc.CAST_STRING_TO_TIMESTAMP))
+        for hit, entry in gates:
+            if hit and not self.conf.get(entry):
+                self.will_not_work(
+                    f"cast {src.name}->{dst.name} disabled by {entry.key}")
+
+
+def node_reasons(node: L.LogicalPlan, conf: rc.RapidsConf) -> List[str]:
+    """The reasons a plan node does not run on the device that come from
+    the node itself, not from its expressions (the sharded planner checks
+    these before it lowers anything)."""
+    name = type(node).__name__
+    out = []
+    if not conf.op_enabled("exec", name):
+        out.append(f"{name} disabled by spark.rapids.sql.exec.{name}")
+    if isinstance(node, L.FileRelation):
+        gates = _FORMAT_GATES.get(node.file_format)
+        if gates is None:
+            out.append(f"file format {node.file_format!r} is not ported")
+        for entry in gates or ():
+            if not conf.get(entry):
+                out.append(f"{node.file_format} scan disabled by "
+                           f"{entry.key}")
+    if not isinstance(node, _PLAN_CONVERTERS):
+        out.append(f"{name} has no device implementation")
+    if isinstance(node, L.Join) and node.condition is not None and \
+            node.join_type != "inner":
+        out.append(
+            "non-equi join conditions only supported for inner joins on "
+            f"the device (the {node.join_type} join's residual semantics "
+            "need the nested-loop join)")
+    return out
+
+
+class PlanMeta(BaseMeta):
+    """Wraps a logical node; the planner below converts it."""
+
+    def __init__(self, plan: L.LogicalPlan, conf: rc.RapidsConf):
+        super().__init__(plan, conf)
+        self.child_metas = [PlanMeta(c, conf) for c in plan.children]
+        self.expr_metas: List[ExprMeta] = [
+            ExprMeta(e, conf) for e in _node_expressions(plan)]
+
+    def tag(self) -> None:
+        for reason in node_reasons(self.wrapped, self.conf):
+            self.will_not_work(reason)
+        for em in self.expr_metas:
+            em.tag()
+            if not em.can_replace:
+                self.will_not_work(
+                    f"expression {type(em.wrapped).__name__} cannot run on "
+                    f"the device: {'; '.join(_deep_reasons(em))}")
+        for c in self.child_metas:
+            c.tag()
+
+    def explain_lines(self, depth: int = 0, all_nodes: bool = True):
+        lines = super().explain_lines(depth, all_nodes)
+        for em in self.expr_metas:
+            if em.reasons:
+                lines.extend(em.explain_lines(depth + 1, False))
+        return lines
+
+
+def _deep_reasons(meta: BaseMeta) -> List[str]:
+    """Every reason in an expression meta tree (the inner reason, a per-op
+    disable say, is what the user needs to see)."""
+    out = list(meta.reasons)
+    for c in meta.child_metas:
+        out.extend(_deep_reasons(c))
+    return out
+
+
+def tag_expression(e: Expression, conf: rc.RapidsConf) -> List[str]:
+    """Every reason ``e`` does not run on the device ([] when it does)."""
+    em = ExprMeta(e, conf)
+    em.tag()
+    return _deep_reasons(em)
 
 
 def aggregate_outputs(group_exprs, agg_out_exprs):
@@ -122,40 +381,6 @@ def _node_expressions(node: L.LogicalPlan) -> List[Expression]:
     if isinstance(node, L.Sort):
         return [e for e, _, _ in node.orders]
     return []
-
-
-def check_ported(plan: L.LogicalPlan) -> None:
-    """Raise ``NotImplementedError`` naming the first node or expression
-    of the plan that the port does not run: a residual condition on a
-    join that is not inner, a window function or frame outside the
-    ported set, a cast to or from a string, a LIKE pattern with ``_``.
-    The JAX package sends these to its CPU fallback, which the port does
-    not have."""
-    if isinstance(plan, L.Join) and plan.condition is not None and \
-            plan.join_type != "inner":
-        raise NotImplementedError(
-            f"a residual (non-equi) condition on a {plan.join_type} join: "
-            "only inner joins take one (the outer, semi and anti residual "
-            "semantics need the nested-loop join, which is not ported)")
-
-    def walk(e: Expression):
-        if isinstance(e, WindowExpression):
-            reason = e.supported_reason()
-            if reason is not None:
-                raise NotImplementedError(f"window {e.kind}: {reason}")
-        if isinstance(e, Cast):
-            reason = cast_supported(e.child.dtype, e.target)
-            if reason is not None:
-                raise NotImplementedError(reason)
-        if isinstance(e, Like) and e._plan is None:
-            raise NotImplementedError(
-                f"LIKE pattern {e.pattern!r}: '_' is not ported")
-        for c in e.children:
-            walk(c)
-    for e in _node_expressions(plan):
-        walk(e)
-    for child in plan.children:
-        check_ported(child)
 
 
 def _names(exprs, schema) -> Optional[set]:
@@ -247,23 +472,11 @@ def _pushdown_pass(plan: L.LogicalPlan) -> None:
             node.pushed_filters = filters
 
 
-def _check_format_enabled(node: L.FileRelation, conf) -> None:
-    """The per-format scan switches: a disabled format raises naming its
-    key (the JAX package reads it on its CPU fallback, which the port
-    does not have)."""
-    for entries in (rc.FORMAT_ENABLED, rc.FORMAT_READ_ENABLED):
-        entry = entries.get(node.file_format)
-        if entry is None:
-            raise NotImplementedError(
-                f"file format {node.file_format!r} is not ported")
-        if not conf.get(entry):
-            raise NotImplementedError(
-                f"{node.file_format} scan disabled by {entry.key}")
 
 
 class TpuOverrides:
-    """Logical plan -> TpuExec tree on one device, its operators bound to
-    ``catalog`` (the session's spill catalog)."""
+    """Logical plan -> TpuExec tree on one device, with the CPU fallback;
+    its operators bound to ``catalog`` (the session's spill catalog)."""
 
     def __init__(self, conf: rc.RapidsConf, device, catalog=None):
         self.conf = conf
@@ -274,12 +487,39 @@ class TpuOverrides:
         self.hash_table_slots = conf.get(rc.PALLAS_HASH_TABLE_SLOTS) \
             if self.hash_enabled else None
         self._chain_nodes: set = set()
+        self.last_explain: str = ""
+        self.last_cbo: List[str] = []
+
+    def tag(self, plan: L.LogicalPlan) -> PlanMeta:
+        """The plan's tagged meta tree (the optimizer's reasons
+        included); sets ``last_explain`` and ``last_cbo`` and prints the
+        explain that ``spark.rapids.sql.explain`` asks for."""
+        meta = PlanMeta(plan, self.conf)
+        meta.tag()
+        self.last_cbo = []
+        if self.conf.get(rc.CBO_ENABLED):
+            import torch
+
+            from spark_rapids_tpu_torch.plan.cbo import CostBasedOptimizer
+            cbo = CostBasedOptimizer(self.conf,
+                                     torch.device(self.device).type)
+            cbo.optimize(meta)
+            self.last_cbo = cbo.explain
+        self.last_explain = "\n".join(meta.explain_lines())
+        mode = self.conf.explain
+        if mode == "ALL":
+            print(self.last_explain)
+        elif mode == "NOT_ON_TPU":
+            lines = meta.explain_lines(all_nodes=False)
+            if lines:
+                print("\n".join(lines))
+        return meta
 
     def apply(self, plan: L.LogicalPlan):
-        check_ported(plan)
         _pushdown_pass(plan)
+        meta = self.tag(plan)
         self._chain_nodes = set()
-        return self._bind(self._convert(plan))
+        return self._bind(self._convert(meta))
 
     def _bind(self, root):
         """Every operator of the tree registers its state in, and
@@ -295,11 +535,7 @@ class TpuOverrides:
         """The file scan, under a coalesce to ``batchSizeBytes`` where a
         PERFILE reader emits one undersized batch per file."""
         from spark_rapids_tpu_torch.io.readers import make_file_scan_exec
-        _check_format_enabled(node, self.conf)
-        if node.options:
-            raise NotImplementedError(
-                f"reader options {sorted(node.options)} are not supported "
-                f"by the PyTorch port's readers")
+        _check_no_options(node)
         scan = make_file_scan_exec(node, self.conf, self.device)
         if len(node.paths) > 1 and scan.reader_type == "PERFILE":
             from spark_rapids_tpu_torch.memory.coalesce import TargetSize
@@ -314,20 +550,40 @@ class TpuOverrides:
         by_bytes = max(1, self.conf.get(rc.BATCH_SIZE_BYTES) // row_bytes)
         return min(self.conf.get(rc.BATCH_ROW_CAPACITY), by_bytes)
 
-    def _convert(self, node: L.LogicalPlan):
-        if isinstance(node, L.Aggregate):
-            fused = self._try_fuse_aggregate(node)
+    def _convert(self, meta: PlanMeta):
+        node = meta.wrapped
+        if isinstance(node, L.Aggregate) and not meta.reasons:
+            fused = self._try_fuse_aggregate(meta)
             if fused is not None:
                 return fused
-        # Limit(Sort) -> TopN (the TakeOrderedAndProject rewrite)
-        if isinstance(node, L.Limit) and isinstance(node.child, L.Sort):
+        # Limit(Sort) -> TopN (the TakeOrderedAndProject rewrite), when
+        # both run on the device
+        if isinstance(node, L.Limit) and not meta.reasons and \
+                isinstance(node.child, L.Sort) and \
+                not meta.child_metas[0].reasons:
+            sort_meta = meta.child_metas[0]
             return TpuTopNExec(node.n, node.child.orders,
-                               self._convert(node.child.child))
-        if isinstance(node, (L.Project, L.Filter)):
-            fused = self._try_fuse_chain(node)
+                               self._convert(sort_meta.child_metas[0]))
+        if isinstance(node, (L.Project, L.Filter)) and not meta.reasons:
+            fused = self._try_fuse_chain(meta)
             if fused is not None:
                 return fused
-        children = [self._convert(c) for c in node.children]
+        children = [self._convert(c) for c in meta.child_metas]
+        if not meta.reasons:
+            return self._convert_node(node, children)
+        name = type(node).__name__
+        if self.conf.get(rc.TEST_ENABLED):
+            allowed = [a.strip() for a in
+                       self.conf.get(rc.TEST_ALLOWED_NON_TPU).split(",")]
+            if name not in allowed:
+                raise RuntimeError(
+                    f"{name} fell back to CPU in strict test mode: "
+                    f"{'; '.join(meta.reasons)}")
+        from spark_rapids_tpu_torch.exec.fallback import CpuFallbackExec
+        return CpuFallbackExec(node, children, self.device,
+                               reasons=meta.reasons)
+
+    def _convert_node(self, node: L.LogicalPlan, children):
         if isinstance(node, L.InMemoryRelation):
             return TpuScanExec(node.batches, node.schema,
                                self._scan_rows(node.schema))
@@ -368,10 +624,8 @@ class TpuOverrides:
             return join
         if isinstance(node, L.Sort):
             return self._sort(node.orders, children[0])
-        if isinstance(node, L.Limit):
-            return TpuLocalLimitExec(node.n, children[0])
-        raise NotImplementedError(
-            f"{type(node).__name__} is not ported to the PyTorch engine")
+        assert isinstance(node, L.Limit), type(node)
+        return TpuLocalLimitExec(node.n, children[0])
 
     def _sort(self, orders, child_exec) -> TpuSortExec:
         return TpuSortExec(
@@ -422,21 +676,30 @@ class TpuOverrides:
             projs.append(Alias(BoundReference(p, pdt, pname), want))
         return TpuProjectExec(projs, cur)
 
-    def _try_fuse_chain(self, node) -> Optional[FusedStageExec]:
-        """Collapse a maximal Project/Filter run into one FusedStageExec."""
-        if id(node) in self._chain_nodes:
+    @staticmethod
+    def _fusible_member(meta: PlanMeta) -> bool:
+        """A chain member the fuser can take: a Project or Filter that
+        runs on the device."""
+        return isinstance(meta.wrapped, (L.Project, L.Filter)) and \
+            not meta.reasons
+
+    def _try_fuse_chain(self, meta: PlanMeta) -> Optional[FusedStageExec]:
+        """Collapse a maximal run of device Project/Filter members into
+        one FusedStageExec; a member that falls back ends the run."""
+        if id(meta.wrapped) in self._chain_nodes:
             return None  # inner member of an already-detected chain
         exprs = None
         conds: List[Expression] = []
-        cur = node
+        cur = meta
         members: List[str] = []
         ids: List[int] = []
-        while isinstance(cur, (L.Project, L.Filter)):
-            exprs, conds = compose_chain(exprs, conds, cur,
-                                         cur.child.schema)
-            members.append(type(cur).__name__)
-            ids.append(id(cur))
-            cur = cur.child
+        while self._fusible_member(cur):
+            node = cur.wrapped
+            exprs, conds = compose_chain(exprs, conds, node,
+                                         node.child.schema)
+            members.append(type(node).__name__)
+            ids.append(id(node))
+            cur = cur.child_metas[0]
         if len(members) < 2:
             return None
         self._chain_nodes.update(ids)
@@ -447,26 +710,28 @@ class TpuOverrides:
         fusion_metrics.bump("fusedOperators", len(members))
         return FusedStageExec(exprs, conds, self._convert(cur), members)
 
-    def _try_fuse_aggregate(self, node: L.Aggregate):
-        """Fold the Project/Filter chain under an Aggregate into it:
-        projections compose into the key/aggregate expressions, predicates
-        become its row mask (bottom-first)."""
+    def _try_fuse_aggregate(self, meta: PlanMeta):
+        """Fold the device Project/Filter chain under an Aggregate into
+        it: projections compose into the key/aggregate expressions,
+        predicates become its row mask (bottom-first)."""
+        node: L.Aggregate = meta.wrapped
         group = list(node.group_exprs)
         aggs = list(node.agg_exprs)
         conds: List[Expression] = []
-        cur = node.child
+        cur = meta.child_metas[0]
         hops = 0
         ids: List[int] = []
-        while isinstance(cur, (L.Project, L.Filter)):
-            if isinstance(cur, L.Project):
-                repl = cur.exprs
+        while self._fusible_member(cur):
+            inner = cur.wrapped
+            if isinstance(inner, L.Project):
+                repl = inner.exprs
                 group = [substitute_bound(e, repl) for e in group]
                 aggs = [substitute_bound(e, repl) for e in aggs]
                 conds = [substitute_bound(c, repl) for c in conds]
             else:
-                conds = [cur.condition] + conds
-            ids.append(id(cur))
-            cur = cur.child
+                conds = [inner.condition] + conds
+            ids.append(id(inner))
+            cur = cur.child_metas[0]
             hops += 1
         if hops == 0:
             return None
@@ -480,3 +745,13 @@ class TpuOverrides:
             group, aggs, self._convert(cur), self.device,
             pre_filter=conds or None, hash_table_slots=self.hash_table_slots,
             merge_chunk_rows=self.conf.get(rc.AGG_MERGE_CHUNK_ROWS))
+
+
+def _check_no_options(node: L.FileRelation) -> None:
+    """Reader options (a CSV's ``header``, ``sep`` ...) are not honoured
+    by the port's readers, device or CPU: setting one raises rather than
+    reading the files some other way."""
+    if node.options:
+        raise NotImplementedError(
+            f"reader options {sorted(node.options)} are not supported "
+            f"by the PyTorch port's readers")

@@ -535,12 +535,23 @@ def test_arrow_layouts(jsess, psess, tmp_path, kind):
                                  "spark.rapids.sql.format.parquet."
                                  "read.enabled"])
 def test_disabled_format_raises_naming_key(tmp_path, key):
+    """A disabled format's scan is tagged with its key and reads on the
+    CPU fallback, with the JAX package's answer; another format's switch
+    leaves the columnar scan alone."""
     paths = _write_files(tmp_path, n_files=1)
     s = TpuSession({key: False}, device="cpu")
-    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
-        s.read.parquet(*paths).to_pandas()
+    df = s.read.parquet(*paths).filter(F.col("grp") < 3)
+    assert "CpuFallbackExec[FileRelation]" in df.explain()
+    assert f"parquet scan disabled by {key}" in s.overrides.last_explain
+    j = JaxSession({key: False})
+    try:
+        want = j.read.parquet(*paths).filter(JF.col("grp") < 3).to_pandas()
+    finally:
+        j.stop()
+    same(df.to_pandas(), want)
     t = TpuSession({"spark.rapids.sql.format.orc.enabled": False},
                    device="cpu")
+    assert "CpuFallbackExec" not in t.read.parquet(*paths).explain()
     assert len(t.read.parquet(*paths).to_pandas()) == 100
 
 

@@ -6,8 +6,8 @@ become the hash/sort-merge join keys and the rest a residual: an inner
 join with keys and a residual is the equi join then a filter, a pure
 residual is the cross product then a filter, and a list of conditions is
 their AND.  The two sides must have distinct column names; a residual on
-a join that is not inner raises ``NotImplementedError`` with the reason
-(the JAX package sends it to its CPU fallback, which the port lacks).
+a join that is not inner sends the join to the CPU fallback, as in the
+JAX package.
 Keys, strings, counts and row order exactly; floats within a relative
 1e-12.
 """
@@ -160,9 +160,41 @@ def test_duplicate_names_raise():
 
 @pytest.mark.parametrize("how", ["left", "right", "full", "semi", "anti"])
 def test_non_inner_residual_raises_with_reason(how):
+    """A residual on a join that is not inner is tagged with its reason
+    and the join runs in the CPU fallback: a left join answers as the
+    JAX package's fallback does (a matched row that fails the residual is
+    null-extended); where the JAX package's fallback raises (right,
+    full, semi, anti), the port raises the same error."""
     _, l, r = _frames(TpuSession, {}, {"device": "cpu"})
-    df = l.join(r, on=(TF.col("lk") == TF.col("rk"))
-                & (TF.col("lv") > TF.col("rv")), how=how)
-    with pytest.raises(NotImplementedError,
-                       match=f"residual.*{how} join.*nested-loop"):
-        df.collect()
+
+    def build(F, l, r):
+        return l.join(r, on=(F.col("lk") == F.col("rk"))
+                      & (F.col("lv") > F.col("rv")), how=how)
+    df = build(TF, l, r)
+    assert df.explain().splitlines()[0] == "CpuFallbackExec[Join]"
+    assert "residual semantics need the nested-loop join" in \
+        df.session.overrides.last_explain
+    js, jl, jr = _frames(JaxSession, {}, {})
+    try:
+        jdf = build(JF, jl, jr)
+        want = jdf.orderBy(*jdf.columns).to_pandas()
+        jax_error = None
+    except NotImplementedError as exc:
+        jax_error = exc
+    finally:
+        js.stop()
+    if jax_error is not None:
+        with pytest.raises(NotImplementedError) as got:
+            df.collect()
+        assert str(got.value) == str(jax_error)
+        return
+    got = df.orderBy(*df.columns).to_pandas()
+    assert list(got.columns) == list(want.columns)
+    assert len(got) == len(want) > 0
+    assert got["rv"].isna().sum() > 0  # null-extended rows
+    for c in got.columns:
+        if got[c].dtype.kind == "f":
+            np.testing.assert_allclose(got[c].to_numpy(), want[c].to_numpy(),
+                                       rtol=RTOL, atol=0, equal_nan=True)
+        else:
+            pd.testing.assert_series_equal(got[c], want[c])
