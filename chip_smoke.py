@@ -53,9 +53,24 @@ just before it and read just after:
   ``session.sql`` over the same tables, hash on, each once after its
   DataFrame form: launches, host syncs and rows/s per query, and each
   answer equal to the DataFrame form's; an unported SQL function raises
-  ``NotImplementedError`` naming it, and a residual on a left join and
+  ``NotImplementedError`` naming it (``size``: the nested types), and a
+  residual on a left join and
   a RANGE frame with offsets raise strict test mode's ``RuntimeError``
   naming the node and the reason;
+- the ``strings_dates`` phase over the same tables: SD1-SD10
+  (``models/strings_dates.py``: string, date-and-time, regex and hash
+  functions and casts to and from strings over customer, orders,
+  lineitem, part, partsupp, supplier and nation) in strict test mode with
+  only each query's pinned fallback nodes (SD9's outer projection), one
+  warm run and one timed run equal to it bit for bit (rows/s, launches,
+  host syncs); SD1, SD4 and SD6 again with the hash path off, equal; the
+  function pass: every ported function over 2^20 rows of the SF10
+  columns on the card equal to the engine on the CPU (computed in a
+  spawned process meanwhile; ``months_between`` within 1e-15 relative),
+  and over
+  the first 2^16 rows equal to Python's ``str``, ``re``, ``datetime`` and
+  a Python Murmur3; and the ten at SF0.1 on the card equal to the engine
+  on the CPU (computed meanwhile in a spawned process);
 - the ``files`` phase: the same SF10 tables written as parquet through
   ``DataFrame.write.parquet`` (lineitem and orders as 16 files each),
   then the 22 queries over ``session.read.parquet`` with the pipeline on
@@ -92,7 +107,8 @@ just before it and read just after:
   ``session.sql`` in strict test mode with ``allowedNonTpu`` naming the
   Aggregate, each plan's ``CpuFallbackExec`` nodes exactly the JAX
   package's (the Aggregate of q7, q27, q65, q67, q13, q6, two of q44),
-  one warm and one timed run (bit for bit), the fallback nodes' host ms,
+  one warm and one timed run (bit for bit; q67 runs once), the fallback
+  nodes' host ms,
   and each answer equal to the float pass's (keys, counts, strings and
   order exactly, a decimal within 1e-9 relative or half a unit of its
   scale, rows tied on their numbers as sets); then the ``numeric`` pass
@@ -116,7 +132,8 @@ just before it and read just after:
   first 8 input batches under a 256 MiB spill budget with a 1 GiB host
   tier, reaching host and disk with no integrity failure, equal batch
   for batch, bit for bit, to M1's sort of those batches at default
-  memory; M3 the 22 TPC-H queries under the budget, once each, equal to
+  memory; M3 11 of the 22 TPC-H queries (``MEMORY_M3_QUERIES``) under
+  the budget, once each, equal to
   the tpch22 answers, q18 spilling and tree-merging, and q1 and q18 over the
   parquet with the pipeline's batches registered; M4 a real
   ``torch.OutOfMemoryError`` in q1's aggregate over 2^26-row batches
@@ -147,7 +164,7 @@ Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
-in total, by phase for the tpch22, fallback, tpch_sql, files, tpcds,
+in total, by phase for the tpch22, fallback, tpch_sql, strings_dates, files, tpcds,
 tpcds_decimal, numeric, sharded_tpch and memory phases, and by shape),
 and last
 ``{"ok": true, "device": {...}}``.
@@ -204,6 +221,12 @@ SHARDED_TPCDS = ("q3", "q55", "q96")
 # queries (all 22 before)
 FILES_REPS = 1
 TPCDS_REPS = 1
+# the strings_dates phase's cuts of earlier phases: the decimal pass runs
+# q67 once (its warm run is its checked run), and M3 runs these 11 of the
+# 22 under the budget (q18 spills and tree-merges)
+MEMORY_M3_QUERIES = ("q1", "q2", "q4", "q5", "q6", "q8", "q9", "q10", "q12",
+                     "q17", "q18")
+DECIMAL_ONE_RUN = ("q67",)
 FILES_PIPELINE_OFF = ("q1", "q3", "q6", "q13", "q18")
 # the float tpcds pass's hash-off rerun and its SF1 check against the
 # CPU run over these (every join and aggregate shape: star joins, rollup,
@@ -1019,8 +1042,8 @@ def check_unported_raise(s):
     from spark_rapids_tpu_torch.api import functions as F
     nation, region = s.table("nation"), s.table("region")
     cases = {
-        "upper": (NotImplementedError, "upper", lambda: s.sql(
-            "SELECT upper(n_name) FROM nation")),
+        "size": (NotImplementedError, "size", lambda: s.sql(
+            "SELECT size(n_name) FROM nation")),
         "left join": (RuntimeError, "Join fell back to CPU in strict test "
                       "mode: non-equi join conditions", lambda: nation.join(
                           region, on=(F.col("n_regionkey")
@@ -1043,6 +1066,547 @@ def check_unported_raise(s):
             raised = str(exc)
         check(text in raised, f"unported {what!r} raises "
               f"{kind.__name__} on the card: {raised!r}")
+
+
+# --------------------------------------------------------- strings_dates --
+
+SD_HASH_OFF = ("sd1", "sd4", "sd6")     # rerun with the hash path off
+SD_CHECK_SF = 0.1         # SD1-SD10 on the card against the engine on the CPU
+SD_FUNCTION_ROWS = 1 << 20  # the function pass: rows from the SF10 columns
+SD_ORACLE_ROWS = 1 << 16  # ... of which Python checks these
+SD_FLOAT_RTOL = 1e-15     # months_between, card against CPU and Python
+SD_BUDGET_S = 120.0
+# the SF10 columns the function pass draws its rows from
+SD_FUNCTION_COLUMNS = {
+    "customer": ("c_name", "c_phone", "c_mktsegment", "c_nationkey"),
+    "orders": ("o_comment", "o_orderdate", "o_orderkey", "o_orderpriority"),
+    "lineitem": ("l_shipdate", "l_commitdate", "l_receiptdate", "l_discount",
+                 "l_shipinstruct"),
+    "part": ("p_type", "p_brand", "p_mfgr", "p_container"),
+}
+
+
+def sd_session(batches, hash_on, allowed=(), device=None):
+    """A strict-mode session over the TPC-H views allowing only the
+    ``allowed`` fallback nodes."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.models import tpch_sql
+    conf = dict(tpch_conf(hash_on), **{
+        "spark.rapids.sql.test.allowedNonTpu": ",".join(allowed) or "none"})
+    s = TpuSession(conf) if device is None else TpuSession(conf,
+                                                           device=device)
+    tpch_sql.register(s, {k: s.create_dataframe(b)
+                          for k, b in batches.items()})
+    return s
+
+
+def strings_dates_cpu_answers(sf, conn):
+    """In a process of its own: SD1-SD10 on the engine on the CPU at scale
+    ``sf`` (the SF0.1 check's reference)."""
+    import torch
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.models import strings_dates as SD
+    from spark_rapids_tpu_torch.models import tpch
+    try:
+        batches = device_tables(tpch.gen_table_columns(sf), "cpu")
+        out = {}
+        for name in SD.QUERIES:
+            s = sd_session(batches, True, SD.FALLBACK_NODES[name], "cpu")
+            out[name] = SD.run(F, s, name).to_pandas()
+        conn.send(out)
+    except BaseException as exc:
+        conn.send(exc)
+        raise
+    finally:
+        conn.close()
+
+
+def function_exprs(F):
+    """Every ported string, date-and-time, regex, hash and cast function
+    over the function pass's columns, by name."""
+    c = F.col
+    ts = F.from_unixtime(F.unix_timestamp(c("o_orderdate"))
+                         + c("o_orderkey") % 86400).cast("timestamp")
+    return {
+        "length": F.length("o_comment"),
+        "octet_length": F.octet_length("o_comment"),
+        "upper": F.upper("o_comment"), "lower": F.lower("c_mktsegment"),
+        "initcap": F.initcap(F.lower("p_type")),
+        "trim": F.trim(F.concat(F.lit("  "), c("c_name"), F.lit(" "))),
+        "ltrim": F.ltrim(F.concat(F.lit("  "), c("p_container"))),
+        "rtrim": F.rtrim(F.concat(c("p_container"), F.lit("  "))),
+        "concat": F.concat(c("c_name"), F.lit("/"), c("c_phone")),
+        "concat_ws": F.concat_ws("|", "p_brand", "p_container",
+                                 "o_orderpriority"),
+        "lpad": F.lpad("c_mktsegment", 12, "*"),
+        "rpad": F.rpad("o_orderpriority", 8, "-."),
+        "locate": F.locate("-", c("c_phone"), 4),
+        "locate_word": F.locate("special", c("o_comment")),
+        "substring_index": F.substring_index("c_phone", "-", 2),
+        "substring_index_neg": F.substring_index("c_phone", "-", -2),
+        "repeat": F.repeat(F.substring("p_mfgr", 14, 1), 3),
+        "ascii": F.ascii("c_name"), "chr": F.chr(c("c_nationkey") + 65),
+        "rlike": F.rlike("o_comment", "special.*requests"),
+        "rlike_anchored": F.rlike("o_comment", "^[a-z]{3}.+ly$"),
+        "regexp_replace": F.regexp_replace("c_phone", "-", ""),
+        "replace": F.replace("o_comment", " ", ""),
+        "translate": F.translate("p_type", "AEIOU", "aeiou"),
+        "split": F.split("c_phone", "-").getItem(2),
+        "hash": F.hash("c_name", "o_orderkey"),
+        "isnan": F.isnan("l_discount"),
+        "greatest": F.greatest("l_shipdate", "l_commitdate",
+                               "l_receiptdate"),
+        "least": F.least("l_shipdate", "l_commitdate", "l_receiptdate"),
+        "quarter": F.quarter("o_orderdate"),
+        "dayofweek": F.dayofweek("o_orderdate"),
+        "weekday": F.weekday("o_orderdate"),
+        "dayofyear": F.dayofyear("o_orderdate"),
+        "last_day": F.last_day("o_orderdate"),
+        "next_day": F.next_day("o_orderdate", "Fri"),
+        "hour": F.hour(ts), "minute": F.minute(ts), "second": F.second(ts),
+        "add_months": F.add_months("o_orderdate", 13),
+        "months_between": F.months_between("l_receiptdate", "l_shipdate"),
+        "trunc": F.trunc("o_orderdate", "quarter"),
+        "unix_timestamp": F.unix_timestamp(ts),
+        "from_unixtime": F.from_unixtime(c("o_orderkey") * 997),
+        "date_format": F.date_format(ts, "yyyy-MM-dd HH:mm:ss"),
+        "int_string": c("o_orderkey").cast("string"),
+        "string_int": F.substring_index("c_phone", "-", 1).cast("int"),
+        "string_bigint": F.regexp_replace("c_phone", "-", "").cast("bigint"),
+        "string_double": F.concat(F.substring_index("c_phone", "-", 1),
+                                  F.lit("."), F.substring("c_phone", 4, 3))
+        .cast("double"),
+        "date_string": c("o_orderdate").cast("string"),
+        "string_date": c("o_orderdate").cast("string").cast("date"),
+        "timestamp_string": ts.cast("string"),
+        "string_timestamp": ts.cast("string").cast("timestamp"),
+        "bool_string": F.isnan("l_discount").cast("string"),
+        "string_bool": (c("o_orderkey") % 2 == 0).cast("string")
+        .cast("boolean"),
+    }
+
+
+def _mm3(values, kinds, seed=42):
+    """Spark's Murmur3_x86_32 ``hash()`` of one row, in Python."""
+    m = 0xFFFFFFFF
+
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & m
+
+    def k1(k):
+        return (rotl((k * 0xCC9E2D51) & m, 15) * 0x1B873593) & m
+
+    def h1(h, k):
+        return (rotl(h ^ k, 13) * 5 + 0xE6546B64) & m
+
+    def fmix(h, n):
+        h ^= n
+        h = ((h ^ (h >> 16)) * 0x85EBCA6B) & m
+        h = ((h ^ (h >> 13)) * 0xC2B2AE35) & m
+        return h ^ (h >> 16)
+    h = seed
+    for v, kind in zip(values, kinds):
+        if kind == "string":
+            b = v.encode("utf-8")
+            n4 = len(b) // 4 * 4
+            for i in range(0, n4, 4):
+                h = h1(h, k1(int.from_bytes(b[i:i + 4], "little")))
+            for x in b[n4:]:
+                h = h1(h, k1((x - 256 if x >= 128 else x) & m))
+            h = fmix(h, len(b))
+        else:
+            v &= (1 << 64) - 1
+            h = fmix(h1(h1(h, k1(v & m)), k1(v >> 32)), 8)
+    return h - (1 << 32) if h >= 1 << 31 else h
+
+
+def function_oracles():
+    """Python's answer (``str``, ``re``, ``datetime``, ``hashlib``,
+    Spark's documented rules) of each function of :func:`function_exprs`
+    for one row (a dict of its input values)."""
+    import calendar
+    import datetime as dtm
+    import math
+    import re
+    epoch = dtm.date(1970, 1, 1)
+    rx1 = re.compile("special.*requests")
+    rx2 = re.compile("^[a-z]{3}.+ly$")
+
+    def ts(r):
+        return dtm.datetime(1970, 1, 1) + dtm.timedelta(seconds=(
+            r["o_orderdate"] - epoch).days * 86400 + r["o_orderkey"] % 86400)
+
+    def ascii_case(v, up):
+        return "".join(ch.upper() if up and "a" <= ch <= "z" else
+                       ch.lower() if not up and "A" <= ch <= "Z" else ch
+                       for ch in v)
+
+    def initcap(v):
+        out, prev = [], True
+        for ch in v:
+            out.append(ch.upper() if prev else ch.lower())
+            prev = ch == " "
+        return "".join(out)
+
+    def pad(v, w, p, left):
+        if len(v) >= w:
+            return v[:w]
+        fill = (p * w)[:w - len(v)]
+        return fill + v if left else v + fill
+
+    def sub_index(v, d, n):
+        parts = v.split(d)
+        return d.join(parts[:n]) if n > 0 else d.join(parts[n:])
+
+    def add_months(d, n):
+        y, mo = divmod(d.year * 12 + d.month - 1 + n, 12)
+        return dtm.date(y, mo + 1, min(d.day, calendar.monthrange(
+            y, mo + 1)[1]))
+
+    def months_between(a, b):
+        if a.day == b.day or (a.day == calendar.monthrange(
+                a.year, a.month)[1] and b.day == calendar.monthrange(
+                b.year, b.month)[1]):
+            return float((a.year * 12 + a.month) - (b.year * 12 + b.month))
+        v = (a.year * 12 + a.month) - (b.year * 12 + b.month) + \
+            (a.day - b.day) * 86400 / (31 * 86400)
+        return math.floor(v * 1e8 + 0.5) / 1e8
+
+    def next_fri(d):
+        return d + dtm.timedelta(days=(4 - d.weekday() + 7) % 7 or 7)
+
+    def fmt(t):
+        return t.strftime("%Y-%m-%d %H:%M:%S")
+    li = ("l_shipdate", "l_commitdate", "l_receiptdate")
+    return {
+        "length": lambda r: len(r["o_comment"]),
+        "octet_length": lambda r: len(r["o_comment"].encode("utf-8")),
+        "upper": lambda r: ascii_case(r["o_comment"], True),
+        "lower": lambda r: ascii_case(r["c_mktsegment"], False),
+        "initcap": lambda r: initcap(r["p_type"].lower()),
+        "trim": lambda r: ("  " + r["c_name"] + " ").strip(" "),
+        "ltrim": lambda r: r["p_container"],
+        "rtrim": lambda r: r["p_container"],
+        "concat": lambda r: r["c_name"] + "/" + r["c_phone"],
+        "concat_ws": lambda r: "|".join((r["p_brand"], r["p_container"],
+                                         r["o_orderpriority"])),
+        "lpad": lambda r: pad(r["c_mktsegment"], 12, "*", True),
+        "rpad": lambda r: pad(r["o_orderpriority"], 8, "-.", False),
+        "locate": lambda r: r["c_phone"].find("-", 3) + 1,
+        "locate_word": lambda r: r["o_comment"].find("special") + 1,
+        "substring_index": lambda r: sub_index(r["c_phone"], "-", 2),
+        "substring_index_neg": lambda r: sub_index(r["c_phone"], "-", -2),
+        "repeat": lambda r: r["p_mfgr"][13:14] * 3,
+        "ascii": lambda r: ord(r["c_name"][0]),
+        "chr": lambda r: chr((r["c_nationkey"] + 65) % 256),
+        "rlike": lambda r: bool(rx1.search(r["o_comment"])),
+        "rlike_anchored": lambda r: bool(rx2.search(r["o_comment"])),
+        "regexp_replace": lambda r: r["c_phone"].replace("-", ""),
+        "replace": lambda r: r["o_comment"].replace(" ", ""),
+        "translate": lambda r: r["p_type"].translate(
+            str.maketrans("AEIOU", "aeiou")),
+        "split": lambda r: r["c_phone"].split("-")[2],
+        "hash": lambda r: _mm3([r["c_name"], r["o_orderkey"]],
+                               ["string", "bigint"]),
+        "isnan": lambda r: math.isnan(r["l_discount"]),
+        "greatest": lambda r: max(r[k] for k in li),
+        "least": lambda r: min(r[k] for k in li),
+        "quarter": lambda r: (r["o_orderdate"].month - 1) // 3 + 1,
+        "dayofweek": lambda r: (r["o_orderdate"].weekday() + 1) % 7 + 1,
+        "weekday": lambda r: r["o_orderdate"].weekday(),
+        "dayofyear": lambda r: r["o_orderdate"].timetuple().tm_yday,
+        "last_day": lambda r: r["o_orderdate"].replace(
+            day=calendar.monthrange(r["o_orderdate"].year,
+                                    r["o_orderdate"].month)[1]),
+        "next_day": lambda r: next_fri(r["o_orderdate"]),
+        "hour": lambda r: ts(r).hour, "minute": lambda r: ts(r).minute,
+        "second": lambda r: ts(r).second,
+        "add_months": lambda r: add_months(r["o_orderdate"], 13),
+        "months_between": lambda r: months_between(r["l_receiptdate"],
+                                                   r["l_shipdate"]),
+        "trunc": lambda r: dtm.date(r["o_orderdate"].year, (
+            r["o_orderdate"].month - 1) // 3 * 3 + 1, 1),
+        "unix_timestamp": lambda r: (r["o_orderdate"] - epoch).days * 86400
+        + r["o_orderkey"] % 86400,
+        "from_unixtime": lambda r: fmt(dtm.datetime(1970, 1, 1) +
+                                       dtm.timedelta(seconds=r["o_orderkey"]
+                                                     * 997)),
+        "date_format": lambda r: fmt(ts(r)),
+        "int_string": lambda r: str(r["o_orderkey"]),
+        "string_int": lambda r: int(r["c_phone"].split("-")[0]),
+        "string_bigint": lambda r: int(r["c_phone"].replace("-", "")),
+        "string_double": lambda r: float(r["c_phone"].split("-")[0] + "."
+                                         + r["c_phone"][3:6]),
+        "date_string": lambda r: r["o_orderdate"].isoformat(),
+        "string_date": lambda r: r["o_orderdate"],
+        "timestamp_string": lambda r: fmt(ts(r)),
+        "string_timestamp": lambda r: ts(r),
+        "bool_string": lambda r: str(math.isnan(r["l_discount"])).lower(),
+        "string_bool": lambda r: r["o_orderkey"] % 2 == 0,
+    }
+
+
+def function_oracle_values(path, rows, conn):
+    """In a process of its own: Python's answer of every function of
+    :func:`function_exprs` for the first ``rows`` rows of the arrow file
+    ``path``, as an arrow table, and the seconds it took."""
+    import pyarrow as pa
+    try:
+        t0 = time.perf_counter()
+        with pa.memory_map(path) as src:
+            table = pa.ipc.open_file(src).read_all().slice(0, rows)
+        data = table.to_pylist()
+        out = pa.table({name: pa.array([fn(r) for r in data])
+                        for name, fn in function_oracles().items()})
+        conn.send((out, time.perf_counter() - t0))
+    except BaseException as exc:
+        conn.send(exc)
+        raise
+    finally:
+        conn.close()
+
+
+def function_pass_cpu(path, out_path, conn):
+    """In a process of its own: every function of :func:`function_exprs`
+    over the rows of the arrow file ``path`` on the engine on the CPU,
+    written to the arrow file ``out_path``; the seconds it took."""
+    import pyarrow as pa
+    import torch
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    try:
+        t0 = time.perf_counter()
+        with pa.memory_map(path) as src:
+            table = pa.ipc.open_file(src).read_all()
+        s = TpuSession({}, device="cpu")
+        out = s.create_dataframe(table).select(
+            *[e.alias(k) for k, e in function_exprs(F).items()]).to_arrow()
+        with pa.OSFile(out_path, "wb") as sink:
+            with pa.ipc.new_file(sink, out.schema) as writer:
+                writer.write_table(out)
+        conn.send(time.perf_counter() - t0)
+    except BaseException as exc:
+        conn.send(exc)
+        raise
+    finally:
+        conn.close()
+
+
+def start_function_pass(batches, workdir):
+    """Start the function pass's references while the card runs other
+    phases, each in a process of its own over its rows written to an
+    arrow file in ``workdir``: the engine on the CPU over
+    ``SD_FUNCTION_ROWS`` rows and Python over the first
+    ``SD_ORACLE_ROWS``.  Returns (a function that waits for the CPU's
+    arrow table and its seconds, Python's process)."""
+    import os
+    import pyarrow as pa
+    path = os.path.join(workdir, "function_pass_in.arrow")
+    out_path = os.path.join(workdir, "function_pass_cpu.arrow")
+    table = batch_to_cpu(function_batch(batches, SD_FUNCTION_ROWS)).to_arrow()
+    with pa.OSFile(path, "wb") as sink:
+        with pa.ipc.new_file(sink, table.schema) as writer:
+            writer.write_table(table)
+    cpu = start_process(function_pass_cpu, path, out_path)
+    oracle = start_process(function_oracle_values, path, SD_ORACLE_ROWS)
+
+    def cpu_job():
+        secs = receive_cpu_answers(*cpu, "strings_dates function pass CPU")
+        with pa.memory_map(out_path) as src:
+            return pa.ipc.open_file(src).read_all(), secs
+    return cpu_job, oracle
+
+
+def function_batch(batches, n):
+    """One batch of the first ``n`` rows of each table's function-pass
+    columns (views of the card's SF10 tables, a string's chars cut to its
+    rows)."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.exec.basic import slice_batch
+    cols = {}
+    for table, names in SD_FUNCTION_COLUMNS.items():
+        b = batches[table]
+        head = slice_batch(b, [0, n, b.nrows])[0] if b.nrows > n else b
+        for name in names:
+            cols[name] = head.columns[name]
+    return ColumnarBatch(cols, n)
+
+
+def batch_to_cpu(batch):
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column
+    cols = {}
+    for k, c in batch.columns.items():
+        off = None if c.offsets is None else c.offsets.cpu()
+        data = c.data if off is None else c.data[:int(off[-1])]
+        cols[k] = Column(c.dtype, data.cpu(), batch.nrows,
+                         validity=None if c.validity is None
+                         else c.validity.cpu(), offsets=off)
+    return ColumnarBatch(cols, batch.nrows)
+
+
+def _py_value(v):
+    import datetime as dtm
+    if isinstance(v, dtm.datetime):
+        return v.replace(tzinfo=None)
+    return v
+
+
+def run_function_pass(torch, K, F, batches, card_line, total, cpu_job,
+                      oracle_proc):
+    """Every ported function over ``SD_FUNCTION_ROWS`` rows of the SF10
+    columns on the card against the engine on the CPU (``cpu_job``: the
+    CPU's arrow table, computed in a process meanwhile), exactly (floats
+    within ``SD_FLOAT_RTOL``), and on the first ``SD_ORACLE_ROWS`` rows
+    against Python (``oracle_proc``: the process computing Python's
+    answers meanwhile)."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    t0 = time.perf_counter()
+    n = SD_FUNCTION_ROWS
+    s = TpuSession(tpch_conf(True))
+    exprs = function_exprs(F)
+    df = s.create_dataframe(function_batch(batches, n)).select(
+        *[e.alias(k) for k, e in exprs.items()])
+    check(not fallback_nodes(s.plan(df.plan)),
+          f"strings_dates function pass: all {len(exprs)} functions on the "
+          "card")
+    K.launches.reset()
+    got = df.to_arrow()
+    total.add(dict(K.launches.snapshot(),
+                   by_shape=K.launches.shape_snapshot()))
+    card_s = time.perf_counter() - t0
+    s.stop()
+    t1 = time.perf_counter()
+    want, cpu_s = cpu_job()
+    waited = time.perf_counter() - t1
+    bad = []
+    for name in exprs:
+        g, w = got.column(name), want.column(name)
+        if g.type != w.type:
+            bad.append(f"{name}: type {g.type} vs {w.type}")
+            continue
+        ga = g.to_numpy(zero_copy_only=False)
+        wa = w.to_numpy(zero_copy_only=False)
+        if name == "months_between":
+            ok = np.allclose(ga, wa, rtol=SD_FLOAT_RTOL, atol=0)
+        else:
+            ok = g.equals(w)
+        if not ok:
+            bad.append(name)
+    check(not bad, f"strings_dates function pass: {len(exprs)} functions "
+          f"over {n} rows of the SF10 columns, the card equals the CPU "
+          f"(months_between within rel {SD_FLOAT_RTOL}) {bad}")
+    # Python on the first rows
+    t2 = time.perf_counter()
+    m = SD_ORACLE_ROWS
+    oracles, py_s = receive_cpu_answers(*oracle_proc,
+                                        "strings_dates Python answers")
+    wrong = []
+    for name in oracles.column_names:
+        exp = oracles.column(name)
+        g = got.column(name)[:m]
+        if name == "months_between":
+            same = np.allclose(g.to_numpy(), exp.to_numpy(),
+                               rtol=SD_FLOAT_RTOL, atol=0)
+        else:
+            g = g.cast(exp.type) if g.type != exp.type else g
+            same = g.equals(exp)
+        if not same:
+            vals = [_py_value(v) for v in g.to_pylist()]
+            want_vals = exp.to_pylist()
+            first = next((i for i, (a, b) in enumerate(zip(vals, want_vals))
+                          if a != b), 0)
+            wrong.append(f"{name} row {first}: {vals[first]!r} vs "
+                         f"{want_vals[first]!r}")
+    check(not wrong and set(oracles.column_names) == set(exprs),
+          f"strings_dates function pass: {len(oracles)} functions over the "
+          f"first {m} rows equal Python's str, re, datetime and Murmur3 "
+          f"{wrong}")
+    print(f"strings_dates function pass: the card {card_s:.3f} s for "
+          f"{len(exprs)} functions over {n} rows; the CPU's took "
+          f"{cpu_s:.3f} s in a process (waited {waited:.3f} s for it), "
+          f"Python's over {m} rows {py_s:.3f} s in a process (waited for "
+          f"it and compared in {time.perf_counter() - t2:.3f} s)",
+          flush=True)
+
+
+def run_strings_dates(torch, K, fm, SD, batches, card_line, total,
+                      cpu_proc, function_refs):
+    """The strings_dates phase over the SF10 tables on the card: SD1-SD10
+    in strict test mode (only each query's pinned fallback nodes), once
+    warm and once timed (bit for bit), rows/s and host syncs; hash off
+    over ``SD_HASH_OFF`` equal to hash on; the function pass (its
+    references from ``function_refs``, :func:`start_function_pass`'s);
+    SD1-SD10 at ``SD_CHECK_SF`` on the card equal to the engine on the CPU
+    (from ``cpu_proc``, started before).  Returns the phase's seconds."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    t_phase = time.perf_counter()
+    cpu_job, oracle_proc = function_refs
+    sessions = {}
+
+    def session(name, hash_on=True):
+        key = (tuple(SD.FALLBACK_NODES[name]), hash_on)
+        if key not in sessions:
+            sessions[key] = sd_session(batches, hash_on, key[0])
+        return sessions[key]
+
+    answers, rates, syncs = {}, {}, {}
+    for name in SD.QUERIES:
+        s = session(name)
+        held = {}
+
+        def build(s=s, name=name):
+            held["df"] = SD.run(F, s, name)
+            return held["df"]
+        rows = sum(batches[k].nrows for k in SD.TABLES[name])
+        label = f"strings_dates {name}"
+        got, launches, fus, rates[name] = drive(
+            torch, K, fm, build, rows, card_line, label, reps=1,
+            same_bits=True, extra={"host_syncs": host_sync_metrics})
+        total.add(launches)
+        answers[name] = got
+        syncs[name] = fus["host_syncs"]
+        nodes = sorted(type(n.node).__name__
+                       for n in fallback_nodes(held["df"]._last_exec))
+        check(nodes == sorted(SD.FALLBACK_NODES[name]),
+              f"{label}: CpuFallbackExec nodes {nodes}, pinned "
+              f"{SD.FALLBACK_NODES[name]}")
+        sql_launch_line(label, got, launches, fus, SD.TABLES[name])
+    for name in SD_HASH_OFF:
+        off = SD.run(F, session(name, False), name).to_pandas()
+        ok, why = frames_match(off, answers[name], QUERY_RTOL)
+        check(ok, f"strings_dates {name}: hash off equals hash on (floats "
+              f"within rel {QUERY_RTOL}) {why}")
+    for s in sessions.values():
+        s.stop()
+    print("strings_dates rows/s on " + card_line + ": " + json.dumps(
+        {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+    print("strings_dates host syncs: " + json.dumps(syncs), flush=True)
+    run_function_pass(torch, K, F, batches, card_line, total, cpu_job,
+                      oracle_proc)
+    # at SF0.1 against the engine on the CPU
+    t0 = time.perf_counter()
+    small = device_tables(tpch.gen_table_columns(SD_CHECK_SF),
+                          torch.device(DEVICE))
+    got = {}
+    for name in SD.QUERIES:
+        s = sd_session(small, True, SD.FALLBACK_NODES[name])
+        got[name] = SD.run(F, s, name).to_pandas()
+        s.stop()
+    want = receive_cpu_answers(*cpu_proc, f"strings_dates SF{SD_CHECK_SF}")
+    for name in SD.QUERIES:
+        ok, why = frames_match(got[name], want[name], QUERY_RTOL)
+        check(ok, f"strings_dates SF{SD_CHECK_SF} {name}: the card equals "
+              f"the CPU (floats within rel {QUERY_RTOL}) {why}")
+    print(f"strings_dates SF{SD_CHECK_SF}: 10 queries on the card, then the "
+          f"CPU's answers, in {time.perf_counter() - t0:.3f} s", flush=True)
+    return time.perf_counter() - t_phase
 
 
 def tpcds_device_tables(data, device):
@@ -1354,7 +1918,8 @@ def run_tpcds_decimal(torch, K, fm, tpcds, batches, float_answers,
               f"{label}: CpuFallbackExec nodes {got_nodes}, expected "
               f"{sorted(want_nodes)}")
         got, launches, fus, rates[name] = drive(
-            torch, K, fm, build, rows, card_line, label, reps=1,
+            torch, K, fm, build, rows, card_line, label,
+            reps=0 if name in DECIMAL_ONE_RUN else 1,
             same_bits=True, extra={"host_syncs": host_sync_metrics})
         total.add(launches)
         sql_launch_line(label, got, launches, fus, read)
@@ -2839,7 +3404,7 @@ def run_memory_sorts(torch, K, fm, F, lineitem, lexsort, total):
 
 
 def run_memory_tpch(torch, K, fm, tpch, batches, df_answers, root, total):
-    """M3: the 22 TPC-H queries in memory under the spill budget, once
+    """M3: 11 of the 22 TPC-H queries in memory under the spill budget, once
     each, equal to the tpch22 answers; q1 and q18 over the files phase's
     parquet with the pipeline on."""
     from spark_rapids_tpu_torch.api.session import TpuSession
@@ -2847,7 +3412,8 @@ def run_memory_tpch(torch, K, fm, tpch, batches, df_answers, root, total):
     tables = {k: s.create_dataframe(b) for k, b in batches.items()}
     cat = s.memory_catalog
     spilled, merged = [], []
-    for name, query in tpch.QUERIES.items():
+    for name in MEMORY_M3_QUERIES:
+        query = tpch.QUERIES[name]
         K.launches.reset()
         fm.reset()
         t0 = time.perf_counter()
@@ -3439,6 +4005,9 @@ def main() -> int:
               f"tpch22 launched {k} {tpch_launches.counts[k]}x")
     total.extend(tpch_launches)
 
+    # the strings_dates phase's SF0.1 answers on the CPU, meanwhile
+    sd_cpu = start_process(strings_dates_cpu_answers, SD_CHECK_SF)
+
     # the fallback phase over the same tables, against the tpch22 answers
     fallback_launches = PathLaunches(K.launches.NAMES)
     t0 = time.perf_counter()
@@ -3452,6 +4021,10 @@ def main() -> int:
               f"fallback launched {k} {fallback_launches.counts[k]}x")
     total.extend(fallback_launches)
 
+    # the strings_dates function pass's references (the engine on the CPU
+    # and Python), computed while the card runs the tpch_sql phase
+    function_refs = start_function_pass(tpch_batches, scratch)
+
     # the same 22 queries as SQL text through session.sql, each once
     from spark_rapids_tpu_torch.models import tpch_sql
     sql_launches = PathLaunches(K.launches.NAMES)
@@ -3464,6 +4037,18 @@ def main() -> int:
         check(sql_launches.counts[k] >= 1,
               f"tpch_sql launched {k} {sql_launches.counts[k]}x")
     total.extend(sql_launches)
+
+    # the strings_dates phase: SD1-SD10 over the same tables
+    from spark_rapids_tpu_torch.models import strings_dates
+    sd_launches = PathLaunches(K.launches.NAMES)
+    sd_s = run_strings_dates(torch, K, fm, strings_dates, tpch_batches,
+                             card_line, sd_launches, sd_cpu, function_refs)
+    print(f"strings_dates phase {sd_s:.3f} s (budget {SD_BUDGET_S} s); "
+          f"launches {sd_launches.counts}", flush=True)
+    for k in ("hash_insert", "hash_probe"):
+        check(sd_launches.counts[k] >= 1,
+              f"strings_dates launched {k} {sd_launches.counts[k]}x")
+    total.extend(sd_launches)
 
     # the sharded_tpch phase, in three passes: the 44 queries in memory
     # here, the 22 over the files phase's parquet inside that phase, and
@@ -3592,6 +4177,7 @@ def main() -> int:
     phase_launches = {"tpch22": tpch_launches.counts,
                       "fallback": fallback_launches.counts,
                       "tpch_sql": sql_launches.counts,
+                      "strings_dates": sd_launches.counts,
                       "files": files_launches.counts,
                       "tpcds": ds_launches.counts,
                       "tpcds_decimal": dec_launches.counts,

@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
                             [memory] [fallback] [tpcds_decimal]
+                            [strings_dates]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -35,7 +36,11 @@ nodes' host time in pandas and in each transfer, and
 tpcds phase's tables with ``decimal(7,2)`` money columns (q67's rollup
 Aggregate in the CPU fallback), then q67 timed once under each setting of
 that aggregate's host work (one worker thread or ``_HOST_THREADS``, the
-distinct-groups sample's skip off or on),
+distinct-groups sample's skip off or on), and (``strings_dates``, only
+when asked for) ``chip_smoke.py``'s strings_dates phase over the SF10
+tables (its checks included), then one trace each of SD3 (regexes,
+``replace`` and ``locate`` over 15M ``o_comment`` rows) and SD4 (chained
+string producers over the 8M-row part-partsupp join),
 and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
@@ -266,9 +271,40 @@ def main() -> int:
         profile_fallback(torch, F, TpuSession, tpch, card_line)
     if "tpcds_decimal" in sys.argv[1:]:
         profile_tpcds_decimal(torch, card_line)
+    if "strings_dates" in sys.argv[1:]:
+        profile_strings_dates(torch, TpuSession, tpch, card_line)
     if "sharded_tpch" in sys.argv[1:]:
         return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
+
+
+def profile_strings_dates(torch, TpuSession, tpch, card_line):
+    """``chip_smoke.py``'s strings_dates phase (its checks included) over
+    the SF10 tables, then traces of SD3 and SD4."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.exec.fusion import fusion_metrics as fm
+    from spark_rapids_tpu_torch.models import strings_dates as SD
+    from spark_rapids_tpu_torch.ops import kernels as K
+    cpu = cs.start_process(cs.strings_dates_cpu_answers, cs.SD_CHECK_SF)
+    t0 = time.perf_counter()
+    batches = cs.device_tables(tpch.gen_table_columns(cs.TPCH_SF),
+                               torch.device(cs.DEVICE))
+    print(f"TPC-H SF{cs.TPCH_SF} on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    import tempfile
+    K.library()
+    total = cs.PathLaunches(K.launches.NAMES)
+    with tempfile.TemporaryDirectory(prefix="profile_port_") as tmp:
+        refs = cs.start_function_pass(batches, tmp)
+        secs = cs.run_strings_dates(torch, K, fm, SD, batches, card_line,
+                                    total, cpu, refs)
+    print(f"strings_dates phase {secs:.3f} s; launches {total.counts}",
+          flush=True)
+    for name in ("sd3", "sd4"):
+        s = cs.sd_session(batches, True, SD.FALLBACK_NODES[name])
+        profile(torch, lambda s=s, name=name: SD.run(F, s, name),
+                f"{name.upper()} SF{cs.TPCH_SF}, hash on", card_line)
+        s.stop()
 
 
 def profile_tpcds_decimal(torch, card_line):

@@ -55,6 +55,9 @@ class DataFrame:
 
     def select(self, *cols: Union[Col, str]) -> "DataFrame":
         exprs = [_expr(c) for c in cols]
+        routed = self._route_batch_ids(exprs)
+        if routed is not None:
+            return routed
         needs = _file_meta_needs(exprs, self.plan.schema)
         if needs:
             return self._with_file_meta(needs).select(*cols)
@@ -92,6 +95,35 @@ class DataFrame:
             final.append(r if out_name is None else Alias(r, out_name))
         wplan = L.Window(wexprs, self.plan)
         return DataFrame(self.session, L.Project(final, wplan))
+
+    def _route_batch_ids(self, exprs) -> Optional["DataFrame"]:
+        """monotonically_increasing_id() / spark_partition_id() need the
+        batch they are in: a BatchId node adds their columns and the
+        markers read them."""
+        from spark_rapids_tpu_torch.ops.misc_exprs import _BatchIdMarker
+
+        def has_marker(e):
+            return isinstance(e, _BatchIdMarker) or any(
+                has_marker(c) for c in e.children)
+
+        def rewrite(e):
+            if isinstance(e, _BatchIdMarker):
+                return UnresolvedColumn("__mid" if e.kind == "mid"
+                                        else "__pid")
+            if not e.children:
+                return e
+            return e.with_children([rewrite(c) for c in e.children])
+
+        if not any(has_marker(e) for e in exprs):
+            return None
+        out = []
+        for e in exprs:
+            r = rewrite(e)
+            if isinstance(r, UnresolvedColumn) and r.col_name in (
+                    "__mid", "__pid"):
+                r = Alias(r, e.name)
+            out.append(r)
+        return DataFrame(self.session, L.Project(out, L.BatchId(self.plan)))
 
     def filter(self, condition: Col) -> "DataFrame":
         cond = _expr(condition)

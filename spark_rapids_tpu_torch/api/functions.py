@@ -5,15 +5,21 @@ ported slices run: column references, literals (numbers, bools, strings,
 dates, decimals), arithmetic (``%`` and unary minus too), ``abs``, the
 math functions, ``floor``/``ceil``, ``round``/``bround``, ``pmod``,
 ``pow``, ``atan2``, ``hypot``, the bitwise operators and shifts,
-comparisons, logic, null tests, casts, ``isin``, the string predicates
-(``startswith``, ``endswith``, ``contains``, ``like``),
-``when``/``otherwise``, ``coalesce``, ``substring``, the date parts and
-date arithmetic, ``input_file_name`` and ``_metadata`` field access over
-file scans, sort keys, the sum / avg / count / min / max / first / last
-aggregates and the variance family, ``grouping``/``grouping_id``
-(rollup, cube, grouping sets), and window functions (``Window`` specs,
-``.over``: the ranking functions, ``lead``/``lag`` and the ``window_*``
-aggregates).
+comparisons, logic, null tests, ``isnan``, ``greatest``/``least``, casts,
+``isin``, the string predicates (``startswith``, ``endswith``,
+``contains``, ``like``, ``rlike``), the string functions (``length``,
+case mapping, trims, pads, ``concat``/``concat_ws``, ``locate``,
+``repeat``, ``substring``/``substring_index``, ``ascii``/``chr``,
+``regexp_replace``, ``replace``, ``translate``, ``split(...).getItem``),
+``hash``/``md5``, ``monotonically_increasing_id``/``spark_partition_id``,
+``when``/``otherwise``, ``coalesce``, the date parts, date and time
+arithmetic and formatting (``date_format``, ``unix_timestamp``,
+``from_unixtime``, ``months_between``, ``trunc`` ...),
+``input_file_name`` and ``_metadata`` field access over file scans, sort
+keys, the sum / avg / count / min / max / first / last aggregates and the
+variance family, ``grouping``/``grouping_id`` (rollup, cube, grouping
+sets), and window functions (``Window`` specs, ``.over``: the ranking
+functions, ``lead``/``lag`` and the ``window_*`` aggregates).
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from spark_rapids_tpu_torch.columnar.dtypes import DataType, dtype_from_name
 from spark_rapids_tpu_torch.ops import aggregates as agg
 from spark_rapids_tpu_torch.ops import arithmetic as arith
 from spark_rapids_tpu_torch.ops import datetime_ops as D
+from spark_rapids_tpu_torch.ops import misc_exprs as ME
 from spark_rapids_tpu_torch.ops import predicates as preds
+from spark_rapids_tpu_torch.ops import regexops as RX
 from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops.cast import Cast
 from spark_rapids_tpu_torch.columnar import dtypes as dts
@@ -161,6 +169,26 @@ class Col:
     def like(self, pattern: str) -> "Col":
         return Col(S.Like(self.expr, pattern))
 
+    def rlike(self, pattern: str) -> "Col":
+        return Col(RX.RLike(self.expr, pattern))
+
+    def substr(self, pos: int, length: int = 2**31 - 1) -> "Col":
+        return Col(S.Substring(self.expr, pos, length))
+
+    def getItem(self, key) -> "Col":
+        """``split(c, d).getItem(n)``: the n-th part (the one array form
+        the port runs)."""
+        if isinstance(key, str):
+            return self.getField(key)
+        if isinstance(self.expr, RX.StringSplit) and self.expr.limit == -1:
+            return Col(RX.SplitPart(self.expr.children[0],
+                                    self.expr.pattern, int(key)))
+        raise NotImplementedError(
+            "getItem over an array: nested types are not ported to the "
+            "PyTorch engine")
+
+    __getitem__ = getItem
+
     def getField(self, field: str) -> "Col":
         """A field of a struct column.  The port has no struct columns;
         the one struct it reads, a file scan's ``_metadata``, is held as
@@ -261,6 +289,130 @@ def substring(c, pos: int, length_: int = 2**31 - 1) -> Col:
     return Col(S.Substring(_expr(c), pos, length_))
 
 
+def isnan(c) -> Col:
+    return Col(preds.IsNaN(_expr(c)))
+
+
+def greatest(*cols) -> Col:
+    return Col(preds.Greatest(*[_expr(c) for c in cols]))
+
+
+def least(*cols) -> Col:
+    return Col(preds.Least(*[_expr(c) for c in cols]))
+
+
+# ------------------------------------------------------------------ strings
+
+def length(c) -> Col:
+    return Col(S.Length(_expr(c)))
+
+
+def octet_length(c) -> Col:
+    return Col(S.OctetLength(_expr(c)))
+
+
+def upper(c) -> Col:
+    return Col(S.Upper(_expr(c)))
+
+
+def lower(c) -> Col:
+    return Col(S.Lower(_expr(c)))
+
+
+def initcap(c) -> Col:
+    return Col(S.InitCap(_expr(c)))
+
+
+def concat(*cols) -> Col:
+    return Col(S.ConcatStrings(*[_expr(c) for c in cols]))
+
+
+def concat_ws(sep: str, *cols) -> Col:
+    return Col(RX.ConcatWs(sep, *[_expr(c) for c in cols]))
+
+
+def trim(c) -> Col:
+    return Col(S.StringTrim(_expr(c)))
+
+
+def ltrim(c) -> Col:
+    return Col(S.StringTrimLeft(_expr(c)))
+
+
+def rtrim(c) -> Col:
+    return Col(S.StringTrimRight(_expr(c)))
+
+
+def lpad(c, width: int, pad: str = " ") -> Col:
+    return Col(S.StringLPad(_expr(c), width, pad))
+
+
+def rpad(c, width: int, pad: str = " ") -> Col:
+    return Col(S.StringRPad(_expr(c), width, pad))
+
+
+def locate(substr: str, c, start: int = 1) -> Col:
+    return Col(S.StringLocate(substr, _expr(c), start))
+
+
+def substring_index(c, delim: str, count: int) -> Col:
+    return Col(S.SubstringIndex(_expr(c), delim, count))
+
+
+def repeat(c, n: int) -> Col:
+    return Col(S.StringRepeat(_expr(c), n))
+
+
+def ascii(c) -> Col:  # noqa: A001
+    return Col(S.Ascii(_expr(c)))
+
+
+def chr(c) -> Col:  # noqa: A001
+    return Col(S.Chr(_expr(c)))
+
+
+def rlike(c, pattern: str) -> Col:
+    return Col(RX.RLike(_expr(c), pattern))
+
+
+def regexp_replace(c, pattern: str, replacement: str) -> Col:
+    return Col(RX.RegExpReplace(_expr(c), pattern, replacement))
+
+
+def replace(c, search: str, replacement: str = "") -> Col:
+    return Col(RX.StringReplace(_expr(c), search, replacement))
+
+
+def translate(c, from_str: str, to_str: str) -> Col:
+    return Col(RX.Translate(_expr(c), from_str, to_str))
+
+
+def split(c, pattern: str, limit: int = -1) -> Col:
+    """split(str, regex): an array of strings, held only as
+    ``split(...).getItem(n)`` (nested types are not ported)."""
+    return Col(RX.StringSplit(_expr(c), pattern, limit))
+
+
+# ------------------------------------------------------ hashes and ids
+
+def hash(*cols) -> Col:  # noqa: A001 - Spark calls it hash()
+    return Col(ME.Murmur3Hash(*[_expr(c) for c in cols]))
+
+
+def md5(c) -> Col:
+    return Col(ME.Md5(_expr(c)))
+
+
+def monotonically_increasing_id() -> Col:
+    return Col(ME._BatchIdMarker("mid"))
+
+
+def spark_partition_id() -> Col:
+    return Col(ME._BatchIdMarker("pid"))
+
+
+# ---------------------------------------------------------------- date/time
+
 def year(c) -> Col:
     return Col(D.Year(_expr(c)))
 
@@ -273,6 +425,42 @@ def dayofmonth(c) -> Col:
     return Col(D.DayOfMonth(_expr(c)))
 
 
+def dayofweek(c) -> Col:
+    return Col(D.DayOfWeek(_expr(c)))
+
+
+def weekday(c) -> Col:
+    return Col(D.WeekDay(_expr(c)))
+
+
+def dayofyear(c) -> Col:
+    return Col(D.DayOfYear(_expr(c)))
+
+
+def quarter(c) -> Col:
+    return Col(D.Quarter(_expr(c)))
+
+
+def hour(c) -> Col:
+    return Col(D.Hour(_expr(c)))
+
+
+def minute(c) -> Col:
+    return Col(D.Minute(_expr(c)))
+
+
+def second(c) -> Col:
+    return Col(D.Second(_expr(c)))
+
+
+def last_day(c) -> Col:
+    return Col(D.LastDay(_expr(c)))
+
+
+def next_day(c, day_of_week: str) -> Col:
+    return Col(D.NextDay(_expr(c), day_of_week))
+
+
 def date_add(c, days) -> Col:
     return Col(D.DateAdd(_expr(c), _lit_expr(days)))
 
@@ -283,6 +471,37 @@ def date_sub(c, days) -> Col:
 
 def datediff(end, start) -> Col:
     return Col(D.DateDiff(_expr(end), _expr(start)))
+
+
+def add_months(c, months) -> Col:
+    return Col(D.AddMonths(_expr(c), _lit_expr(months)))
+
+
+def months_between(a, b, roundOff: bool = True) -> Col:
+    return Col(D.MonthsBetween(_expr(a), _expr(b), roundOff))
+
+
+def trunc(c, fmt: str) -> Col:
+    return Col(D.TruncDate(_expr(c), fmt))
+
+
+def unix_timestamp(c) -> Col:
+    return Col(D.UnixTimestamp(_expr(c)))
+
+
+def to_unix_timestamp(c) -> Col:
+    return Col(D.ToUnixTimestamp(_expr(c)))
+
+
+def from_unixtime(c) -> Col:
+    return Col(D.FromUnixTime(_expr(c)))
+
+
+def date_format(c, fmt: str) -> Col:
+    """Format a date or timestamp: on the device for fixed-width
+    patterns (yyyy/MM/dd/HH/mm/ss and separators), other patterns in the
+    CPU fallback."""
+    return Col(D.DateFormatClass(_expr(c), fmt))
 
 
 # ------------------------------------------------------------ math functions

@@ -316,6 +316,22 @@ EXPLAIN = conf(
     lambda v: None if v in ("NONE", "NOT_ON_TPU", "ALL") else
     "must be NONE, NOT_ON_TPU or ALL")
 
+INCOMPAT_ENABLED = conf(
+    "spark.rapids.sql.incompatibleOps.enabled", True,
+    "Run operators whose semantics differ from CPU Spark in documented "
+    "corner cases (ASCII-only case mapping, byte-semantics regex). The "
+    "reference defaults this OFF (RapidsMeta.scala:271); this engine "
+    "defaults ON because each incompat is individually documented and "
+    "per-op keys (spark.rapids.sql.expression.<Name>) can disable any "
+    "single one.", _to_bool)
+
+REGEXP_ENABLED = conf(
+    "spark.rapids.sql.regexp.enabled", True,
+    "Evaluate regular-expression expressions (rlike, regexp_replace, "
+    "split_part) on device; when false every regex expression tags off "
+    "to the CPU fallback (reference `sql.regexp.enabled`, "
+    "RapidsConf.scala).", _to_bool)
+
 VARIABLE_FLOAT_AGG = conf(
     "spark.rapids.sql.variableFloatAgg.enabled", True,
     "Allow sum and avg over floating-point values on the device even "

@@ -25,8 +25,9 @@ per operator, codes stable across batches (a null interns as a code of
 its own), so the partial batches carry int32 codes, every path (coded,
 hash, sort) groups them as integers, and the merge's output decodes them
 on the card.  A string min/max buffer takes
-batch-local order-preserving codes (``dictionary.ordered_dict_encode``)
-for each reduction: the partials decode their winners to strings, and
+batch-local order-preserving codes (``dictionary.encode_sorted``: on the
+card for strings of at most 256 bytes) for each reduction: the partials
+decode their winners to strings, and
 the merge re-encodes them over every partial, so comparisons across
 batches stay exact.  Groups with string keys come out in code order.
 """
@@ -71,13 +72,12 @@ def _head(c: ColVal, n: int) -> ColVal:
 
 
 def _ordered_codes(c: ColVal, capacity: int):
-    """(int64 codes ColVal, sorted distinct values) of a string buffer
-    input: order-preserving, so min/max over codes is min/max over the
-    strings."""
-    host = dictionary.host_strings(c, capacity)
-    codes, values = dictionary.ordered_dict_encode(host)
-    return ColVal(dts.INT64, torch.from_numpy(codes).to(c.values.device),
-                  c.validity), values
+    """(int64 codes ColVal, ``SortedDictionary`` of the distinct values)
+    of a string buffer input: order-preserving, so min/max over codes is
+    min/max over the strings.  On the card for strings of at most 256
+    bytes (``dictionary.encode_sorted``), on the host past that."""
+    codes, values = dictionary.encode_sorted(c, capacity)
+    return ColVal(dts.INT64, codes, c.validity), values
 
 
 def _rows(c: ColVal) -> int:
@@ -202,8 +202,8 @@ class TpuHashAggregateExec(TpuExec):
         if dicts:
             n = int(RowCount.wrap(n))
             key_out = [_head(k, n) for k in key_out]
-            buf_out = [dictionary.decode(dicts[j], _head(b, n).values,
-                                         _head(b, n).validity)
+            buf_out = [dicts[j].decode(_head(b, n).values,
+                                       _head(b, n).validity)
                        if j in dicts else _head(b, n)
                        for j, b in enumerate(buf_out)]
         return key_out, buf_out, n

@@ -29,8 +29,12 @@ int64 microseconds; strings as arrow-backed pandas strings.  Expressions
 evaluate over numpy arrays and their validity (``_eval``) with the
 device's semantics: Kleene AND / OR, integer overflow that wraps, null
 for a division by zero, Java's remainder, NaN as the largest float, LIKE
-through arrow's ``match_like``, and the JAX package's string casts (its
-device parse and format rules, and its CPU formatting of floats).  The
+through arrow's ``match_like``, the string casts (Spark's non-ANSI parse
+rules, as the card's, and the JAX package's CPU formatting of floats),
+and the string, regex, hash and date library (``_eval_library``) with CPU
+Spark's semantics: case mapping over all of Unicode, any pattern through
+Python's ``re`` (Java's ASCII classes), ``md5`` through ``hashlib``, a
+host Murmur3, ``date_format`` over the common Java pattern letters.  The
 JAX package's fallback builds pandas frames with numpy types instead, so
 an integer column with nulls becomes float there and loses precision past
 2^53; its ``_build_batch`` then fills those nulls with 0 before the cast.
@@ -505,8 +509,464 @@ def _eval(expr, df: pd.DataFrame) -> _V:
         l, r = _eval(e.left, df), _eval(e.right, df)
         return _V(dts.INT32, (_to_days(l) - _to_days(r)).astype(np.int32),
                   l.valid & r.valid)
+    out = _eval_library(e, df)
+    if out is not None:
+        return out
     raise NotImplementedError(
         f"CPU fallback cannot evaluate {type(e).__name__}")
+
+
+# ------------------------------------------- the string, date and hash library
+
+def _strings(vals, valid: np.ndarray) -> _V:
+    import pyarrow as pa
+    vals = [v if ok else None for v, ok in zip(vals, valid)]
+    return _V(dts.STRING, pa.array(vals, type=pa.large_string()),
+              np.asarray(valid, dtype=np.bool_))
+
+
+def _map_strings(c: _V, fn, dt: DataType = dts.STRING) -> _V:
+    """``fn`` over each non-null string of ``c`` (a None result is
+    null)."""
+    got = [None if s is None else fn(s) for s in _str_list(c)]
+    valid = np.array([g is not None for g in got], dtype=np.bool_)
+    if dt.is_string:
+        return _strings(got, valid)
+    return _V(dt, np.array([0 if g is None else g for g in got],
+                           dtype=dt.storage), valid)
+
+
+def _initcap(v: str) -> str:
+    out, prev_space = [], True
+    for ch in v:
+        out.append(ch.upper() if prev_space else ch.lower())
+        prev_space = ch == " "
+    return "".join(out)
+
+
+def _pad(v: str, width: int, pad: str, left: bool) -> str:
+    """Spark's lpad / rpad over characters."""
+    if width <= 0:
+        return ""
+    if len(v) >= width or not pad:
+        return v[:width]
+    fill = (pad * (width // len(pad) + 1))[:width - len(v)]
+    return fill + v if left else v + fill
+
+
+def _find_all(v: str, sub: str):
+    """Every start of ``sub`` in ``v``, overlapping ones too (Spark's
+    substring_index steps one character past each)."""
+    out, i = [], v.find(sub)
+    while i >= 0:
+        out.append(i)
+        i = v.find(sub, i + 1)
+    return out
+
+
+def _substring_index(v: str, delim: str, count: int) -> str:
+    if count == 0 or not delim:
+        return ""
+    hits = _find_all(v, delim)
+    if count > 0:
+        return v if len(hits) < count else v[:hits[count - 1]]
+    if len(hits) < -count:
+        return v
+    return v[hits[count] + len(delim):]
+
+
+def _locate(v: str, sub: str, start: int) -> int:
+    if start < 1:
+        return 0
+    if not sub:
+        return 1
+    return v.find(sub, start - 1) + 1
+
+
+def _java_replacement(text: str):
+    """A Java regex replacement as a function of the match: ``$n`` is
+    group n, ``\\x`` a literal x."""
+    parts, i = [], 0
+    while i < len(text):
+        ch = text[i]
+        if ch == "\\" and i + 1 < len(text):
+            parts.append(text[i + 1])
+            i += 2
+        elif ch == "$" and i + 1 < len(text) and text[i + 1].isdigit():
+            j = i + 1
+            while j < len(text) and text[j].isdigit():
+                j += 1
+            parts.append(int(text[i + 1:j]))
+            i = j
+        else:
+            parts.append(ch)
+            i += 1
+    return lambda m: "".join(p if isinstance(p, str) else (m.group(p) or "")
+                             for p in parts)
+
+
+def _translate_table(src: str, dst: str) -> dict:
+    table = {}
+    for i, ch in enumerate(src):
+        if ord(ch) not in table:
+            table[ord(ch)] = dst[i] if i < len(dst) else None
+    return table
+
+
+def _mm3_rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & 0xFFFFFFFF
+
+
+def _mm3_k1(k: int) -> int:
+    k = (k * 0xCC9E2D51) & 0xFFFFFFFF
+    return (_mm3_rotl(k, 15) * 0x1B873593) & 0xFFFFFFFF
+
+
+def _mm3_h1(h: int, k: int) -> int:
+    return (_mm3_rotl(h ^ k, 13) * 5 + 0xE6546B64) & 0xFFFFFFFF
+
+
+def _mm3_fmix(h: int, n: int) -> int:
+    h ^= n
+    h = ((h ^ (h >> 16)) * 0x85EBCA6B) & 0xFFFFFFFF
+    h = ((h ^ (h >> 13)) * 0xC2B2AE35) & 0xFFFFFFFF
+    return h ^ (h >> 16)
+
+
+def _murmur3_value(value, dt: DataType, seed: int) -> int:
+    """Spark's Murmur3_x86_32 of one non-null value of type ``dt`` (its
+    storage value) over ``seed``."""
+    import struct
+    if dt.is_string:
+        b = value.encode("utf-8")
+        h = seed
+        n4 = len(b) - len(b) % 4
+        for i in range(0, n4, 4):
+            h = _mm3_h1(h, _mm3_k1(int.from_bytes(b[i:i + 4], "little")))
+        for x in b[n4:]:
+            h = _mm3_h1(h, _mm3_k1((x - 256 if x >= 128 else x)
+                                   & 0xFFFFFFFF))
+        return _mm3_fmix(h, len(b))
+    if dt.name == "float":
+        v = float(value)
+        bits = 0x7FC00000 if v != v else \
+            struct.unpack("<I", struct.pack("<f", 0.0 if v == 0 else v))[0]
+        return _mm3_fmix(_mm3_h1(seed, _mm3_k1(bits)), 4)
+    if dt.name == "double":
+        v = float(value)
+        value = 0x7FF8000000000000 if v != v else struct.unpack(
+            "<q", struct.pack("<d", 0.0 if v == 0 else v))[0]
+        dt = dts.INT64
+    if dt.name in ("bigint", "timestamp") or dt.is_decimal:
+        v = int(value) & 0xFFFFFFFFFFFFFFFF
+        h = _mm3_h1(seed, _mm3_k1(v & 0xFFFFFFFF))
+        h = _mm3_h1(h, _mm3_k1(v >> 32))
+        return _mm3_fmix(h, 8)
+    return _mm3_fmix(_mm3_h1(seed, _mm3_k1(int(value) & 0xFFFFFFFF)), 4)
+
+
+def _murmur3(cols: List[_V], n: int, seed: int) -> np.ndarray:
+    hs = []
+    lists = [_str_list(c) if c.dt.is_string else c.values.tolist()
+             for c in cols]
+    for r in range(n):
+        h = seed & 0xFFFFFFFF
+        for c, vals in zip(cols, lists):
+            if c.valid[r]:
+                h = _murmur3_value(vals[r], c.dt, h)
+        hs.append(h - (1 << 32) if h >= 1 << 31 else h)
+    return np.array(hs, dtype=np.int32)
+
+
+_JAVA_FIELDS = (("yyyy", "%Y"), ("yy", "%y"), ("MMMM", "%B"), ("MMM", "%b"),
+                ("MM", "%m"), ("dd", "%d"), ("HH", "%H"), ("hh", "%I"),
+                ("mm", "%M"), ("ss", "%S"), ("EEEE", "%A"), ("EEE", "%a"),
+                ("E", "%a"), ("DDD", "%j"), ("a", "%p"))
+
+
+def java_date_format(us: int, fmt: str) -> str:
+    """A Java date pattern over UTC microseconds: the common letters
+    (year, month, day, hour, minute, second, fraction S..., day and
+    month names, day of year, am/pm), quoted text and '' as a quote."""
+    t = datetime.datetime(1970, 1, 1) + datetime.timedelta(microseconds=us)
+    out, i = [], 0
+    while i < len(fmt):
+        ch = fmt[i]
+        if ch == "'":
+            j = fmt.find("'", i + 1)
+            if j == i + 1:
+                out.append("'")
+                i += 2
+                continue
+            j = len(fmt) if j < 0 else j
+            out.append(fmt[i + 1:j])
+            i = j + 1
+            continue
+        if ch == "S":
+            j = i
+            while j < len(fmt) and fmt[j] == "S":
+                j += 1
+            out.append(f"{t.microsecond:06d}"[:j - i].ljust(j - i, "0"))
+            i = j
+            continue
+        for tok, code in _JAVA_FIELDS:
+            if fmt.startswith(tok, i):
+                text = t.strftime(code)
+                if tok == "yyyy":
+                    text = f"{t.year:04d}"
+                out.append(text)
+                i += len(tok)
+                break
+        else:
+            single = {"y": f"{t.year}", "M": f"{t.month}", "d": f"{t.day}",
+                      "H": f"{t.hour}", "m": f"{t.minute}",
+                      "s": f"{t.second}"}
+            out.append(single.get(ch, ch))
+            i += 1
+    return "".join(out)
+
+
+def _micros(v: _V) -> np.ndarray:
+    if v.dt.is_date:
+        return v.values.astype(np.int64) * US_PER_DAY
+    return v.values.astype(np.int64)
+
+
+def _month_days(y: np.ndarray, m: np.ndarray) -> np.ndarray:
+    import calendar
+    return np.array([calendar.monthrange(int(a), int(b))[1]
+                     for a, b in zip(y, m)], dtype=np.int64)
+
+
+def _civil_days(y: np.ndarray, m: np.ndarray, d: np.ndarray) -> np.ndarray:
+    base = datetime.date(1970, 1, 1).toordinal()
+    return np.array([datetime.date(int(a), int(b), int(c)).toordinal() - base
+                     for a, b, c in zip(y, m, d)], dtype=np.int64)
+
+
+def _months_between(ua: int, ub: int, round_off: bool) -> float:
+    """Spark's ``DateTimeUtils.monthsBetween`` in UTC."""
+    import calendar
+    import math
+    da, db = ua // US_PER_DAY, ub // US_PER_DAY
+    a = datetime.date.fromordinal(719163 + da)
+    b = datetime.date.fromordinal(719163 + db)
+    diff = float((a.year * 12 + a.month) - (b.year * 12 + b.month))
+    a_last = a.day == calendar.monthrange(a.year, a.month)[1]
+    b_last = b.day == calendar.monthrange(b.year, b.month)[1]
+    if a.day == b.day or (a_last and b_last):
+        return diff
+    secs = (a.day - b.day) * 86400 + (ua - da * US_PER_DAY) // US_PER_SEC \
+        - (ub - db * US_PER_DAY) // US_PER_SEC
+    out = diff + secs / (31 * 86400)
+    return math.floor(out * 1e8 + 0.5) / 1e8 if round_off else out
+
+
+def _eval_library(e, df: pd.DataFrame) -> Optional[_V]:
+    """Host evaluation of the string, regex, hash and date functions
+    with CPU Spark's semantics (case mapping over all of Unicode, Python's
+    ``re`` for any pattern), or None for another class."""
+    import hashlib
+    import re
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.ops import datetime_ops as D
+    from spark_rapids_tpu_torch.ops import misc_exprs as ME
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops import regexops as RX
+    from spark_rapids_tpu_torch.ops import stringops as S
+
+    n = len(df)
+    if isinstance(e, (S.Length, S.OctetLength)):
+        c = _eval(e.child, df)
+        fn = pc.utf8_length if isinstance(e, S.Length) else pc.binary_length
+        vals = fn(c.values).fill_null(0).to_numpy(zero_copy_only=False)
+        return _V(dts.INT32, vals.astype(np.int32), c.valid)
+    if isinstance(e, (S.Upper, S.Lower, S.InitCap)):
+        fn = {S.Upper: str.upper, S.Lower: str.lower,
+              S.InitCap: lambda v: _initcap(v.lower())}[type(e)]
+        return _map_strings(_eval(e.child, df), fn)
+    if isinstance(e, (S.StringTrim, S.StringTrimLeft, S.StringTrimRight)):
+        fn = {S.StringTrim: lambda v: v.strip(" "),
+              S.StringTrimLeft: lambda v: v.lstrip(" "),
+              S.StringTrimRight: lambda v: v.rstrip(" ")}[type(e)]
+        return _map_strings(_eval(e.child, df), fn)
+    if isinstance(e, S.StringLocate):
+        c = _eval(e.child, df)
+        return _map_strings(c, lambda v: _locate(v, e.substr, e.start),
+                            dts.INT32)
+    if isinstance(e, S.ConcatStrings):
+        parts = [_eval(c, df) for c in e.children]
+        lists = [_str_list(p) for p in parts]
+        valid = np.logical_and.reduce([p.valid for p in parts])
+        return _strings(["".join(row) if ok else None
+                         for row, ok in zip(zip(*lists), valid)], valid)
+    if isinstance(e, RX.ConcatWs):
+        lists = [_str_list(_eval(c, df)) for c in e.children]
+        return _strings([e.sep.join(v for v in row if v is not None)
+                         for row in zip(*lists)], np.ones(n, np.bool_))
+    if isinstance(e, S.StringRepeat):
+        return _map_strings(_eval(e.child, df), lambda v: v * e.times)
+    if isinstance(e, (S.StringLPad, S.StringRPad)):
+        left = isinstance(e, S.StringLPad)
+        return _map_strings(_eval(e.child, df),
+                            lambda v: _pad(v, e.width, e.pad, left))
+    if isinstance(e, S.SubstringIndex):
+        return _map_strings(_eval(e.child, df), lambda v: _substring_index(
+            v, e.delim, e.count))
+    if isinstance(e, S.Ascii):
+        return _map_strings(_eval(e.child, df),
+                            lambda v: ord(v[0]) if v else 0, dts.INT32)
+    if isinstance(e, S.Chr):
+        c = _eval(e.child, df)
+        vals = ["" if x < 0 else chr(x % 256)
+                for x in c.values.astype(np.int64).tolist()]
+        return _strings(vals, c.valid)
+    # Java's \w, \d and \s are ASCII classes, as under re.ASCII
+    if isinstance(e, RX.RLike):
+        rx = re.compile(e.pattern, re.ASCII)
+        return _map_strings(_eval(e.child, df),
+                            lambda v: bool(rx.search(v)), dts.BOOL)
+    if isinstance(e, RX.RegExpReplace):
+        rx = re.compile(e.pattern, re.ASCII)
+        repl = _java_replacement(e.replacement)
+        return _map_strings(_eval(e.child, df), lambda v: rx.sub(repl, v))
+    if isinstance(e, RX.StringReplace):
+        if not e.search:
+            return _eval(e.child, df)
+        return _map_strings(_eval(e.child, df),
+                            lambda v: v.replace(e.search, e.replacement))
+    if isinstance(e, RX.Translate):
+        table = _translate_table(e.from_str, e.to_str)
+        return _map_strings(_eval(e.child, df), lambda v: v.translate(table))
+    if isinstance(e, RX.SplitPart):
+        rx = re.compile(e.delim, re.ASCII)
+
+        def part(v):
+            parts = rx.split(v)
+            return parts[e.index] if 0 <= e.index < len(parts) else None
+        return _map_strings(_eval(e.child, df), part)
+    if isinstance(e, ME.Md5):
+        return _map_strings(_eval(e.child, df), lambda v: hashlib.md5(
+            v.encode("utf-8")).hexdigest())
+    if isinstance(e, ME.Murmur3Hash):
+        cols = [_eval(c, df) for c in e.children]
+        return _V(dts.INT32, _murmur3(cols, n, e.seed),
+                  np.ones(n, dtype=np.bool_))
+    if isinstance(e, P.IsNaN):
+        c = _eval(e.child, df)
+        nan = np.isnan(c.values) if c.dt.is_floating else \
+            np.zeros(n, dtype=np.bool_)
+        return _V(dts.BOOL, nan & c.valid, np.ones(n, dtype=np.bool_))
+    if isinstance(e, (P.Greatest, P.Least)):
+        t = e.dtype
+        cols = [_eval(c, df) for c in e.children]
+        if t.is_string:
+            lists = [_str_list(c) for c in cols]
+            pick = max if isinstance(e, P.Greatest) else min
+            got = []
+            for row in zip(*lists):
+                vals = [v.encode("utf-8") for v in row if v is not None]
+                got.append(pick(vals).decode("utf-8") if vals else None)
+            return _strings(got, np.array([g is not None for g in got],
+                                          dtype=np.bool_))
+        cols = [_implicit(c, t) for c in cols]
+        name = "GreaterThan" if isinstance(e, P.Greatest) else "LessThan"
+        out = cols[0].values.copy()
+        valid = cols[0].valid.copy()
+        for c in cols[1:]:
+            beats = _compare(name, _V(t, c.values, c.valid),
+                             _V(t, out, valid))
+            take = c.valid & (~valid | beats)
+            out = np.where(take, c.values, out)
+            valid = valid | c.valid
+        return _V(t, out.astype(t.storage), valid)
+    if isinstance(e, (D.Quarter, D.DayOfWeek, D.WeekDay, D.DayOfYear)):
+        c = _eval(e.child, df)
+        days = _to_days(c)
+        y, m, d = _civil_from_days(days)
+        if isinstance(e, D.Quarter):
+            out = (m - 1) // 3 + 1
+        elif isinstance(e, D.DayOfWeek):
+            out = (days + 4) % 7 + 1
+        elif isinstance(e, D.WeekDay):
+            out = (days + 3) % 7
+        else:
+            out = days - _civil_days(y, np.ones_like(m), np.ones_like(d)) + 1
+        return _V(dts.INT32, np.asarray(out).astype(np.int32), c.valid)
+    if isinstance(e, D.LastDay):
+        c = _eval(e.child, df)
+        y, m, d = _civil_from_days(_to_days(c))
+        out = _to_days(c) - d + _month_days(y, m)
+        return _V(dts.DATE32, out.astype(np.int32), c.valid)
+    if isinstance(e, D.NextDay):
+        c = _eval(e.child, df)
+        if e.target is None:
+            return _V(dts.DATE32, np.zeros(n, np.int32),
+                      np.zeros(n, np.bool_))
+        days = _to_days(c)
+        ahead = (e.target - (days + 3) % 7 + 7) % 7
+        out = days + np.where(ahead == 0, 7, ahead)
+        return _V(dts.DATE32, out.astype(np.int32), c.valid)
+    if isinstance(e, (D.Hour, D.Minute, D.Second)):
+        c = _eval(e.child, df)
+        us = _micros(c)
+        out = {D.Hour: (us % US_PER_DAY) // 3_600_000_000,
+               D.Minute: (us % 3_600_000_000) // 60_000_000,
+               D.Second: (us % 60_000_000) // US_PER_SEC}[type(e)]
+        return _V(dts.INT32, out.astype(np.int32), c.valid)
+    if isinstance(e, D.AddMonths):
+        l, r = _eval(e.left, df), _eval(e.right, df)
+        y, m, d = _civil_from_days(_to_days(l))
+        months = y * 12 + (m - 1) + r.values.astype(np.int64)
+        ny, nm = months // 12, months % 12 + 1
+        valid = l.valid & r.valid
+        nd = np.minimum(d, _month_days(np.where(valid, ny, 1970),
+                                       np.where(valid, nm, 1)))
+        out = np.where(valid, _civil_days(np.where(valid, ny, 1970),
+                                          np.where(valid, nm, 1),
+                                          np.where(valid, nd, 1)), 0)
+        return _V(dts.DATE32, out.astype(np.int32), valid)
+    if isinstance(e, D.MonthsBetween):
+        a, b = _eval(e.left, df), _eval(e.right, df)
+        valid = a.valid & b.valid
+        out = [_months_between(x, y, e.round_off) if ok else 0.0
+               for x, y, ok in zip(_micros(a).tolist(),
+                                   _micros(b).tolist(), valid)]
+        return _V(dts.FLOAT64, np.array(out, dtype=np.float64), valid)
+    if isinstance(e, D.TruncDate):
+        c = _eval(e.child, df)
+        days = _to_days(c)
+        y, m, d = _civil_from_days(days)
+        unit = D._TRUNC_FORMATS.get(e.fmt)
+        one = np.ones_like(m)
+        if unit is None:
+            return _V(dts.DATE32, np.zeros(n, np.int32),
+                      np.zeros(n, np.bool_))
+        if unit == "week":
+            out = days - (days + 3) % 7
+        else:
+            mm = {"year": one, "month": m,
+                  "quarter": (m - 1) // 3 * 3 + 1}[unit]
+            out = _civil_days(y, mm, one)
+        return _V(dts.DATE32, np.asarray(out).astype(np.int32), c.valid)
+    if isinstance(e, D.UnixTimestamp):
+        c = _eval(e.child, df)
+        return _V(dts.INT64, np.floor_divide(_micros(c), US_PER_SEC),
+                  c.valid)
+    if isinstance(e, D.TimeAdd):
+        l, r = _eval(e.left, df), _eval(e.right, df)
+        return _V(dts.TIMESTAMP_US, _micros(l) + r.values.astype(np.int64),
+                  l.valid & r.valid)
+    if isinstance(e, (D.DateFormatClass, D.FromUnixTime)):
+        c = _eval(e.child, df)
+        if isinstance(e, D.FromUnixTime):
+            us, fmt = c.values.astype(np.int64) * US_PER_SEC, \
+                "yyyy-MM-dd HH:mm:ss"
+        else:
+            us, fmt = _micros(c), e.fmt
+        return _strings([java_date_format(x, fmt) if ok else None
+                         for x, ok in zip(us.tolist(), c.valid)], c.valid)
+    return None
 
 
 def _emit_over(e, children, n: int):
@@ -620,38 +1080,58 @@ def _substring(v: str, pos: int, ln: int) -> str:
 
 _BOOL_TRUE = ("true", "t", "yes", "y", "1")
 _BOOL_FALSE = ("false", "f", "no", "n", "0")
-_MAX_NUM_BYTES = 24
+# the longest trimmed string a number parses from (the device's window)
+_MAX_NUM_BYTES = 40
+_WS = bytes(range(0x21))
+_INT_LIMITS = {"tinyint": 1 << 7, "smallint": 1 << 15, "int": 1 << 31,
+               "bigint": 1 << 63}
+_FLOAT_SPECIAL = {"inf": float("inf"), "+inf": float("inf"),
+                  "infinity": float("inf"), "+infinity": float("inf"),
+                  "-inf": float("-inf"), "-infinity": float("-inf"),
+                  "nan": float("nan")}
 
 
-def _parse_number(s: str, integral: bool):
-    """The JAX package's device parse: an optional sign, digits and at
-    most one dot, at most 24 bytes; an integer target takes no dot."""
-    b = s.encode("utf-8")
-    if not b or len(b) > _MAX_NUM_BYTES:
+def _cast_bytes(s: str) -> bytes:
+    """A string's UTF-8 bytes with whitespace and control bytes (<=
+    0x20) trimmed from both ends, as Spark's casts trim."""
+    return s.encode("utf-8").strip(_WS)
+
+
+def _parse_integral(s: str, name: str):
+    """Spark's non-ANSI string -> integral (``UTF8String.toLong``): a sign,
+    digits and an optional '.' whose digits are dropped; null past the
+    type's range."""
+    b = _cast_bytes(s)
+    if not b or len(b) > _MAX_NUM_BYTES or b in (b"-", b"+"):
         return None
     neg = b[:1] == b"-"
     body = b[1:] if b[:1] in (b"-", b"+") else b
-    if not body:
+    whole, _, frac = body.partition(b".")
+    if not (whole.isdigit() or not whole) or \
+            not (frac.isdigit() or not frac):
         return None
-    val, frac, scale, seen_dot, has_digit = 0, 0, 0, False, False
-    for ch in body:
-        if 48 <= ch <= 57:
-            has_digit = True
-            if seen_dot:
-                frac = frac * 10 + (ch - 48)
-                scale += 1
-            else:
-                val = val * 10 + (ch - 48)
-        elif ch == 46 and not seen_dot:
-            seen_dot = True
-        else:
-            return None
-    if not has_digit or (integral and seen_dot):
+    v = int(whole or b"0")
+    v = -v if neg else v
+    lim = _INT_LIMITS[name]
+    return v if -lim <= v < lim else None
+
+
+def _parse_float(s: str):
+    """Spark's string -> double: Java's decimal literal (an exponent and
+    a d/f suffix allowed) or the special literals inf, infinity and nan
+    (any case; Java's +NaN and -NaN)."""
+    import re
+    b = _cast_bytes(s)
+    if not b or len(b) > _MAX_NUM_BYTES:
         return None
-    if integral:
-        return -val if neg else val
-    f = float(val) + float(frac) / (10.0 ** scale)
-    return -f if neg else f
+    t = b.decode("utf-8", "replace")
+    if t.lower() in _FLOAT_SPECIAL:
+        return _FLOAT_SPECIAL[t.lower()]
+    if t in ("+NaN", "-NaN"):
+        return float("nan")
+    if not re.fullmatch(r"[+-]?(\d+\.?\d*|\.\d+)([eE][+-]?\d+)?[dDfF]?", t):
+        return None
+    return float(t.rstrip("dDfF"))
 
 
 def _days_from_civil(y: int, m: int, d: int) -> int:
@@ -659,7 +1139,8 @@ def _days_from_civil(y: int, m: int, d: int) -> int:
 
 
 def _parse_date(s: str):
-    """yyyy-MM-dd, exactly."""
+    """yyyy-MM-dd after trimming, exactly."""
+    s = _cast_bytes(s).decode("utf-8", "replace")
     if len(s) != 10 or s[4] != "-" or s[7] != "-" or \
             not (s[:4] + s[5:7] + s[8:]).isdigit() or not s.isascii():
         return None
@@ -670,7 +1151,9 @@ def _parse_date(s: str):
 
 
 def _parse_timestamp(s: str):
-    """'yyyy-MM-dd[( |T)HH:mm:ss[.f{1,6}]]' in UTC, as microseconds."""
+    """'yyyy-MM-dd[( |T)HH:mm:ss[.f{1,6}]]' after trimming, in UTC, as
+    microseconds."""
+    s = _cast_bytes(s).decode("utf-8", "replace")
     if not s.isascii():
         return None
     days = _parse_date(s[:10]) if len(s) >= 10 else None
@@ -696,10 +1179,7 @@ def _parse_timestamp(s: str):
 
 
 def _parse_bool(s: str):
-    b = s.encode("utf-8")
-    if len(b) > 16:
-        return None
-    t = b.strip(bytes(range(0x21))).decode("utf-8", "replace").lower()
+    t = _cast_bytes(s).decode("utf-8", "replace").lower()
     if t in _BOOL_TRUE:
         return True
     if t in _BOOL_FALSE:
@@ -776,8 +1256,8 @@ def _cast(c: _V, t: DataType) -> _V:
         from spark_rapids_tpu_torch.ops.cast import cast_colval
         return _via_torch(lambda a: cast_colval(a, t), n, c)
     if src.is_string:
-        parse = (lambda s: _parse_number(s, True)) if t.is_integral else \
-            (lambda s: _parse_number(s, False)) if t.is_floating else \
+        parse = (lambda s: _parse_integral(s, t.name)) if t.is_integral \
+            else _parse_float if t.is_floating else \
             _parse_date if t.is_date else \
             _parse_timestamp if t.is_timestamp else \
             _parse_bool if t.is_boolean else None

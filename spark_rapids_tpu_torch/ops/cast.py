@@ -17,9 +17,13 @@ with Spark's non-ANSI semantics:
   infinity) is null, as Spark's CheckOverflow makes it.  Every decimal
   step but the float ones stays in int64.
 
-Casts to and from strings (the JAX package's ``stringops.cast_string``)
-are not ported: :func:`cast_supported` names them and ``Cast`` raises
-``NotImplementedError``.  ANSI casts are not ported either.
+Casts to and from strings run in ``stringops.cast_string`` (they need the
+chars and offsets layout): strings parse to the integral, float, boolean,
+date and timestamp types, and integers, booleans, dates and timestamps
+format to strings.  :func:`cast_supported` keeps the JAX package's
+reasons for the rest: a string to a decimal, and a float or decimal to a
+string (shortest round-trip formatting), which the CPU fallback runs.
+ANSI casts are not ported.
 """
 
 from __future__ import annotations
@@ -54,9 +58,6 @@ def cast_supported(src: DataType, dst: DataType) -> Optional[str]:
     if dst.is_string and (src.is_floating or src.is_decimal):
         return (f"cast {src} -> string needs shortest-round-trip "
                 "float formatting (host fallback)")
-    if src.is_string or dst.is_string:
-        return (f"cast {src} -> {dst}: casts to and from strings are not "
-                "ported")
     return None
 
 
@@ -65,14 +66,28 @@ def _saturate_int(v: torch.Tensor, target: DataType) -> torch.Tensor:
     return v.clamp(lo, hi).to(dts.torch_dtype(target))
 
 
-def cast_colval(c: ColVal, target: DataType) -> ColVal:
-    """``c`` cast to ``target`` (values only; nulls stay null)."""
+class _Rows:
+    """The one field of an EmitContext a string cast reads."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+
+
+def cast_colval(c: ColVal, target: DataType, ctx=None) -> ColVal:
+    """``c`` cast to ``target`` (values only; nulls stay null).  A string
+    cast needs the batch's rows: ``ctx``, or the column's own."""
     src = c.dtype
     if src.name == target.name:
         return c
     reason = cast_supported(src, target)
     if reason is not None:
         raise NotImplementedError(reason)
+    if src.is_string or target.is_string:
+        from spark_rapids_tpu_torch.ops import stringops
+        if ctx is None:
+            ctx = _Rows(c.offsets.shape[0] - 1 if c.offsets is not None
+                        else c.values.shape[0])
+        return stringops.cast_string(c, target, ctx)
     v = c.values
     storage = dts.torch_dtype(target)
     if target.is_boolean:
@@ -154,7 +169,7 @@ class Cast(Expression):
         return self.target
 
     def emit(self, ctx: EmitContext) -> ColVal:
-        return cast_colval(self.child.emit(ctx), self.target)
+        return cast_colval(self.child.emit(ctx), self.target, ctx)
 
     def cache_key(self):
         return ("Cast", self.target.name, self.child.cache_key())

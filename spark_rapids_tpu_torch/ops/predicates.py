@@ -6,11 +6,14 @@ timestamp as a timestamp); strings compare byte-wise through
 ``stringops`` (UTF-8 byte order is Spark's string order).  Also ``In`` /
 ``InSet`` (Spark's null rule: no match and a null option give null),
 ``If`` / ``CaseWhen`` (a null predicate takes the else branch) and
-``Coalesce``; string-valued CASE and COALESCE go through
-``stringops.string_select``.  Spark semantics kept: AND/OR use Kleene
+``Coalesce``, ``IsNaN`` and ``Greatest`` / ``Least``; string-valued
+CASE, COALESCE, GREATEST and LEAST go through ``stringops.string_select``.  Spark semantics kept: AND/OR use Kleene
 three-valued logic (null AND false = false); float comparisons treat
 NaN = NaN as true and NaN as the largest value; -0.0 compares equal to
-0.0.
+0.0.  ``greatest`` and ``least`` skip nulls (null only when every argument
+is) and order NaN above every number, so ``greatest`` of a NaN is NaN and
+``least`` takes a NaN only when every argument is one (Spark's rule; the
+JAX package's ``Least`` takes ``jnp.minimum``, which returns the NaN).
 """
 
 from __future__ import annotations
@@ -191,6 +194,29 @@ class IsNotNull(UnaryExpression):
             return ColVal(dts.BOOL, torch.ones(
                 _row_shape(c, ctx), dtype=torch.bool, device=ctx.device))
         return ColVal(dts.BOOL, c.validity)
+
+
+class IsNaN(UnaryExpression):
+    """isnan(x): true for a NaN; a null is false (never null)."""
+
+    @property
+    def dtype(self):
+        return dts.BOOL
+
+    @property
+    def nullable(self):
+        return False
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        c = self.child.emit(ctx)
+        v = c.values
+        nan = torch.isnan(v) if _is_float(v) else \
+            torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+        if nan.dim() == 0:
+            nan = nan.expand(ctx.capacity)
+        if c.validity is not None:
+            nan = torch.logical_and(nan, c.validity)
+        return ColVal(dts.BOOL, nan)
 
 
 # ------------------------------------------------------- conditional values --
@@ -444,3 +470,79 @@ class InSet(Expression):
 
     def __str__(self):
         return f"{self.children[0]} INSET[{len(self.table)}]"
+
+
+class _Extremum(Expression):
+    """greatest / least: per row the largest (smallest) non-null argument
+    under Spark's order (NaN above every number); null when every
+    argument is null."""
+
+    # the comparison whose NaN-aware values pick a new argument over the
+    # running best
+    _order = None
+
+    def __init__(self, *children: Expression):
+        if len(children) < 2:
+            raise ValueError(f"{type(self).__name__.lower()} needs at "
+                             "least two arguments")
+        self.children = tuple(children)
+
+    def with_children(self, children):
+        return type(self)(*children)
+
+    @property
+    def dtype(self) -> DataType:
+        t = self.children[0].dtype
+        for c in self.children[1:]:
+            t = promote_types(t, c.dtype)
+        return t
+
+    @property
+    def nullable(self):
+        return all(c.nullable for c in self.children)
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        t = self.dtype
+        if t.is_string:
+            return self._emit_strings(ctx)
+        out = None
+        for child in self.children:
+            c = cast_value(child.emit(ctx), t)
+            if out is None:
+                out = ColVal(t, c.values.expand(ctx.capacity)
+                             if c.values.dim() == 0 else c.values,
+                             c.validity)
+                continue
+            cv = _full_validity(c.validity, ctx)
+            ov = _full_validity(out.validity, ctx)
+            beats, _ = self._order.eval_values(None, c.values, out.values)
+            take = cv & (~ov | beats)
+            out = ColVal(t, torch.where(take, c.values, out.values),
+                         None if c.validity is None and out.validity is None
+                         else ov | cv)
+        return out
+
+    def _emit_strings(self, ctx: EmitContext) -> ColVal:
+        from spark_rapids_tpu_torch.ops import stringops
+        op = "string_gt" if isinstance(self, Greatest) else "string_lt"
+        out = None
+        for child in self.children:
+            c = child.emit(ctx)
+            if out is None:
+                out = c if not stringops.is_literal(c, ctx.capacity) else \
+                    stringops.string_literal_column(c, ctx.capacity)
+                continue
+            cv = _full_validity(c.validity, ctx)
+            ov = _full_validity(out.validity, ctx)
+            take = cv & (~ov | getattr(stringops, op)(c, out, ctx))
+            out = stringops.string_select([take, ov | cv], [c, out],
+                                          ctx.capacity, ctx.device)
+        return out
+
+
+class Greatest(_Extremum):
+    _order = GreaterThan
+
+
+class Least(_Extremum):
+    _order = LessThan

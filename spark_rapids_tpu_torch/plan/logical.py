@@ -282,6 +282,27 @@ class Range(LogicalPlan):
         return self._schema
 
 
+class BatchId(LogicalPlan):
+    """Appends the per-batch id columns that monotonically_increasing_id()
+    and spark_partition_id() read (``ops/misc_exprs.TpuBatchIdExec``)."""
+
+    def __init__(self, child: LogicalPlan):
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        from spark_rapids_tpu_torch.columnar.dtypes import INT32, INT64
+        return list(self.child.schema) + [("__mid", INT64),
+                                          ("__pid", INT32)]
+
+    def describe(self):
+        return "BatchId"
+
+
 class Window(LogicalPlan):
     """Append window-function columns to the child's."""
 

@@ -7,8 +7,11 @@ expression is wrapped in a meta that collects "will not run on the device
 because ..." reasons (``PlanMeta.tag`` / ``ExprMeta.tag``): a per-op
 disable (``spark.rapids.sql.exec.<Name>``,
 ``spark.rapids.sql.expression.<Name>``), a disabled file format, a cast or
-LIKE pattern the device does not run, a window function or frame outside
-the ported set, a residual condition on a join that is not inner, a float
+LIKE pattern the device does not run, a regex or ``date_format`` pattern
+outside the device subset, ``spark.rapids.sql.regexp.enabled`` and
+``spark.rapids.sql.incompatibleOps.enabled`` (ASCII case mapping and
+byte-semantics regexes are incompatible expressions, as in the JAX
+package), a window function or frame outside the ported set, a residual condition on a join that is not inner, a float
 aggregate under ``variableFloatAgg.enabled=false``, or a type outside the
 expression's signature.  With ``spark.rapids.sql.optimizer.enabled`` the
 cost-based optimizer (``plan/cbo.py``) may add reasons.  A node without
@@ -20,7 +23,7 @@ tree (``spark.rapids.sql.explain`` prints it) and ``last_cbo`` the
 optimizer's decisions.
 
 The converters cover in-memory and file relations, Range, Project,
-Filter, Aggregate, Join, Sort, Limit, Union, Expand and Window;
+Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window and BatchId;
 ``_plan_aggregate``, the pushdown pass into scans, the
 ``Limit(Sort) -> TopN`` rewrite and the fusion pass follow the JAX
 planner: a Project/Filter chain under an Aggregate folds into the
@@ -50,7 +53,9 @@ from spark_rapids_tpu_torch.exec.fusion import (
 from spark_rapids_tpu_torch.ops import arithmetic as A
 from spark_rapids_tpu_torch.ops import datetime_ops as D
 from spark_rapids_tpu_torch.ops import decimal_ops as DEC
+from spark_rapids_tpu_torch.ops import misc_exprs as ME
 from spark_rapids_tpu_torch.ops import predicates as P
+from spark_rapids_tpu_torch.ops import regexops as RX
 from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.ops.expressions import (
@@ -65,16 +70,21 @@ from spark_rapids_tpu_torch.plan.logical import AggregateExpression
 # ------------------------------------------------------ expression registry --
 
 class ExprRule:
-    def __init__(self, cls: Type[Expression], sig: ts.TypeSig):
+    def __init__(self, cls: Type[Expression], sig: ts.TypeSig,
+                 incompat: str = ""):
         self.cls = cls
         self.sig = sig
+        # non-empty: a documented difference from CPU Spark; the
+        # expression runs on the device only under
+        # spark.rapids.sql.incompatibleOps.enabled
+        self.incompat = incompat
 
 
 _EXPR_RULES: Dict[Type[Expression], ExprRule] = {}
 
 
-def expr_rule(cls, sig=ts.COMMON):
-    _EXPR_RULES[cls] = ExprRule(cls, sig)
+def expr_rule(cls, sig=ts.COMMON, incompat=""):
+    _EXPR_RULES[cls] = ExprRule(cls, sig, incompat)
 
 
 # a class the port lacks gets its rule when it is ported
@@ -84,12 +94,26 @@ for _c in (Alias, BoundReference, Literal, UnresolvedColumn, Cast,
            # (parallel/dict_lowering.py), tagged after lowering
            DictLookup,
            S.EqualsLiteral, S.StartsWith, S.EndsWith, S.Contains, S.Like,
-           S.Substring,
-           D.Year, D.Month, D.DayOfMonth, D.DateAdd, D.DateSub, D.DateDiff,
+           S.Substring, S.Length, S.OctetLength, S.StringLocate,
+           S.StringTrim, S.StringTrimLeft, S.StringTrimRight,
+           S.ConcatStrings, S.StringRepeat, S.StringLPad, S.StringRPad,
+           S.SubstringIndex, S.Ascii, S.Chr,
+           D.Year, D.Month, D.DayOfMonth, D.Quarter, D.DayOfWeek, D.WeekDay,
+           D.DayOfYear, D.LastDay, D.Hour, D.Minute, D.Second, D.DateAdd,
+           D.DateSub, D.DateDiff, D.AddMonths, D.MonthsBetween, D.TruncDate,
+           D.UnixTimestamp, D.FromUnixTime, D.TimeAdd, D.DateFormatClass,
+           D.NextDay,
+           RX.StringReplace, RX.ConcatWs, RX.Translate, ME.Murmur3Hash,
            P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
            P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.IsNull, P.IsNotNull,
-           P.Coalesce, P.If, P.CaseWhen, P.In, P.InSet):
+           P.IsNaN, P.Coalesce, P.If, P.CaseWhen, P.In, P.InSet,
+           P.Greatest, P.Least):
     expr_rule(_c)
+# Md5 has no rule: it runs on the host only, in the CPU fallback
+for _c in (S.Upper, S.Lower, S.InitCap):
+    expr_rule(_c, incompat="ASCII-only case mapping")
+for _c in (RX.RLike, RX.RegExpReplace, RX.SplitPart):
+    expr_rule(_c, incompat="byte-semantics regex ('.' matches one byte)")
 expr_rule(AggregateExpression, ts.ALL)
 for _c in (A.Add, A.Subtract, A.Multiply, A.Divide, A.IntegralDivide,
            A.Remainder, A.Pmod, A.UnaryMinus, A.UnaryPositive, A.Abs,
@@ -115,7 +139,7 @@ _FLOAT_SUM_AGGREGATES = ("sum", "avg", "var_pop", "var_samp", "stddev_pop",
 # the plan nodes with a device operator (TpuOverrides._convert_node)
 _PLAN_CONVERTERS = (L.InMemoryRelation, L.FileRelation, L.Range, L.Union,
                     Expand, L.Window, L.Project, L.Filter, L.Aggregate,
-                    L.Join, L.Sort, L.Limit)
+                    L.Join, L.Sort, L.Limit, L.BatchId)
 
 _FORMAT_GATES = {fmt: (rc.FORMAT_ENABLED[fmt], rc.FORMAT_READ_ENABLED[fmt])
                  for fmt in rc.FORMAT_ENABLED}
@@ -171,6 +195,11 @@ class ExprMeta(BaseMeta):
                 f"expression {name} disabled by "
                 f"spark.rapids.sql.expression.{name}")
         rule = _EXPR_RULES.get(type(expr))
+        if rule is not None and rule.incompat and \
+                not self.conf.get(rc.INCOMPAT_ENABLED):
+            self.will_not_work(
+                f"{name} is incompatible with CPU Spark ({rule.incompat}) "
+                "and spark.rapids.sql.incompatibleOps.enabled is false")
         if isinstance(expr, AggregateExpression):
             self._tag_aggregate(expr)
         if isinstance(expr, Cast):
@@ -179,6 +208,20 @@ class ExprMeta(BaseMeta):
             self.will_not_work(
                 f"LIKE pattern {expr.pattern!r} too general for the "
                 "device ('_' is not ported)")
+        if isinstance(expr, D.DateFormatClass) and not expr.supported:
+            self.will_not_work(
+                f"date_format pattern {expr.fmt!r} outside the "
+                "fixed-width device subset (yyyy/MM/dd/HH/mm/ss)")
+        if isinstance(expr, (RX.RLike, RX.RegExpReplace, RX.StringReplace,
+                             RX.Translate, RX.SplitPart)) and \
+                not expr.supported:
+            self.will_not_work(
+                f"{name} arguments outside the device regex subset (falls "
+                "back to CPU, like the reference's regex incompat flag)")
+        if isinstance(expr, (RX.RLike, RX.RegExpReplace, RX.SplitPart)) \
+                and not self.conf.get(rc.REGEXP_ENABLED):
+            self.will_not_work(
+                f"{name} disabled by spark.rapids.sql.regexp.enabled")
         if isinstance(expr, DEC.CheckOverflow) and expr.supported_reason():
             self.will_not_work(expr.supported_reason())
         if isinstance(expr, WindowExpression):
@@ -654,6 +697,8 @@ class TpuOverrides:
             return join
         if isinstance(node, L.Sort):
             return self._sort(node.orders, children[0])
+        if isinstance(node, L.BatchId):
+            return ME.TpuBatchIdExec(children[0])
         assert isinstance(node, L.Limit), type(node)
         return TpuLocalLimitExec(node.n, children[0])
 

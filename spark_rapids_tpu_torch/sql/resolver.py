@@ -32,27 +32,13 @@ AGG_FNS = {"sum", "count", "avg", "mean", "min", "max", "first", "last",
 
 WINDOW_RANK_FNS = {"row_number", "rank", "dense_rank", "percent_rank"}
 
-# the JAX package's SQL function library (its ``_func`` map); the names
-# outside the port's map raise NotImplementedError, any other name is
-# unknown
+# the JAX package's SQL functions over nested types (arrays, structs,
+# maps, split's array of strings, the window struct): the port raises
+# NotImplementedError for each until the nested types are ported
 _JAX_FUNCS = {
-    "exp", "expm1", "ln", "asinh", "acosh", "atanh", "log2", "log10",
-    "log1p", "sin", "cos", "tan", "cot", "asin", "acos", "atan", "atan2",
-    "sinh", "cosh", "tanh", "degrees", "radians", "rint", "signum",
-    "sign", "cbrt", "floor", "ceil", "ceiling", "pmod", "abs", "sqrt",
-    "coalesce", "isnan", "greatest", "least", "length", "upper", "lower",
-    "initcap", "concat", "trim", "ltrim", "rtrim", "year", "month", "day",
-    "dayofmonth", "dayofweek", "weekday", "dayofyear", "quarter", "hour",
-    "minute", "second", "last_day", "unix_timestamp", "from_unixtime",
-    "size", "array", "datediff", "months_between", "pow", "power",
-    "element_at", "map_keys", "map_values", "hypot", "ascii", "char",
-    "chr", "array_min", "array_max", "reverse", "round", "bround",
-    "slice", "array_repeat", "next_day", "shiftleft", "shiftright",
-    "shiftrightunsigned", "log", "substring", "substr", "get_json_object",
-    "split", "date_format", "to_unix_timestamp", "window", "concat_ws",
-    "lpad", "rpad", "locate", "repeat", "substring_index",
-    "regexp_replace", "replace", "translate", "date_add", "date_sub",
-    "add_months", "trunc", "struct", "md5", "hash"}
+    "size", "array", "element_at", "map_keys", "map_values", "array_min",
+    "array_max", "reverse", "slice", "array_repeat", "get_json_object",
+    "split", "window", "struct"}
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -664,6 +650,18 @@ class Resolver:
             "abs": F.abs, "coalesce": F.coalesce, "year": F.year,
             "month": F.month, "day": F.dayofmonth,
             "dayofmonth": F.dayofmonth, "datediff": F.datediff,
+            "isnan": F.isnan, "greatest": F.greatest, "least": F.least,
+            "length": F.length, "upper": F.upper, "lower": F.lower,
+            "initcap": F.initcap, "concat": F.concat, "trim": F.trim,
+            "ltrim": F.ltrim, "rtrim": F.rtrim,
+            "dayofweek": F.dayofweek, "weekday": F.weekday,
+            "dayofyear": F.dayofyear, "quarter": F.quarter,
+            "hour": F.hour, "minute": F.minute, "second": F.second,
+            "last_day": F.last_day, "unix_timestamp": F.unix_timestamp,
+            "from_unixtime": F.from_unixtime,
+            "months_between": F.months_between, "ascii": F.ascii,
+            "char": F.chr, "chr": F.chr, "md5": F.md5, "hash": F.hash,
+            "to_unix_timestamp": F.to_unix_timestamp,
         }
         if n in simple:
             return simple[n](*args)
@@ -684,6 +682,35 @@ class Resolver:
             return F.date_add(args[0], int(lit_arg(1)))
         if n == "date_sub":
             return F.date_sub(args[0], int(lit_arg(1)))
+        if n == "next_day":
+            return F.next_day(args[0], str(lit_arg(1)))
+        if n == "add_months":
+            return F.add_months(args[0], int(lit_arg(1)))
+        if n == "trunc":
+            return F.trunc(args[0], lit_arg(1))
+        if n == "date_format":
+            return F.date_format(args[0], lit_arg(1))
+        if n == "concat_ws":
+            return F.concat_ws(lit_arg(0), *args[1:])
+        if n in ("lpad", "rpad"):
+            return getattr(F, n)(args[0], int(lit_arg(1)),
+                                 lit_arg(2) if len(args) > 2 else " ")
+        if n == "locate":
+            # locate(substr, str[, pos]): Spark's start position (the
+            # JAX package reads only two arguments)
+            return F.locate(lit_arg(0), args[1],
+                            int(lit_arg(2)) if len(args) > 2 else 1)
+        if n == "repeat":
+            return F.repeat(args[0], int(lit_arg(1)))
+        if n == "substring_index":
+            return F.substring_index(args[0], lit_arg(1), int(lit_arg(2)))
+        if n == "regexp_replace":
+            return F.regexp_replace(args[0], lit_arg(1), lit_arg(2))
+        if n == "replace":
+            return F.replace(args[0], lit_arg(1),
+                             lit_arg(2) if len(args) > 2 else "")
+        if n == "translate":
+            return F.translate(args[0], lit_arg(1), lit_arg(2))
         if n in _JAX_FUNCS:
             raise _not_ported(f"the SQL function {n}()")
         raise ValueError(f"unknown SQL function {n!r}")

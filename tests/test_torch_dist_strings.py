@@ -336,8 +336,7 @@ def test_keyless_string_min_max(frames):
 
 def test_string_function_dict_lowering(frames):
     """A string-valued function of one encoded column (a CASE over it
-    here: the port has no ``upper``) re-encodes through a lookup and stays
-    distributed."""
+    here) re-encodes through a lookup and stays distributed."""
     got, want = _both(lambda F, f: f.select(
         F.when(F.col("s") < "c", "low").otherwise(F.col("s")).alias("u"))
         .groupBy("u").agg(F.count().alias("n")).orderBy("u"), frames[0])

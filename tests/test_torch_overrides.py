@@ -148,9 +148,9 @@ def test_conf_docs_generate():
 
 
 @pytest.mark.parametrize("key", [
-    # no ported expression is incompatible: a key nothing reads is
-    # rejected, not silently ignored
-    "spark.rapids.sql.incompatibleOps.enabled"])
+    # the UDF compiler is not ported: a key nothing reads is rejected,
+    # not silently ignored
+    "spark.rapids.sql.udfCompiler.enabled"])
 def test_unread_reference_keys_rejected(key):
     JaxConf({key: "false"})
     with pytest.raises(ValueError, match="unknown configuration key"):
@@ -243,14 +243,11 @@ def test_cast_config_gates():
     same(df.to_pandas(), want)
     got = df.to_pandas()["d"].tolist()
     assert got[:3] == [1.5, 2.5, -3.0] and pd.isna(got[3])
-    # by default the JAX package parses on its device; the port has no
-    # device string cast, so it still falls back (with that reason) and
-    # answers the same
+    # by default both packages parse on the device, with the same answer
     port, df, want, jexplain = run_both({}, build, data)
     assert tagged(jexplain) == []
-    assert "CpuFallbackExec[Project]" in df.explain()
-    assert "casts to and from strings are not ported" in \
-        port.overrides.last_explain
+    assert "CpuFallbackExec" not in df.explain().split("==")[0]
+    assert tagged(port.overrides.last_explain) == []
     same(df.to_pandas(), want)
 
 

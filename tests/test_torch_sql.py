@@ -288,6 +288,8 @@ def test_views_and_columns(sessions):
     ("SELECT cust, first(amount) FROM orders GROUP BY cust", "first"),
     ("SELECT CAST(amount AS decimal(7,2)) FROM orders", "decimal"),
     ("SELECT CAST(o_id AS string) FROM orders", "string"),
+    ("SELECT md5(note) FROM orders", "Md5"),
+    ("SELECT size(note) FROM orders", "size"),
     ("SELECT o_id, ntile(4) OVER (ORDER BY o_id) FROM orders", "ntile"),
     ("SELECT o_id, min(note) OVER (PARTITION BY cust) FROM orders",
      "string"),
@@ -295,11 +297,12 @@ def test_views_and_columns(sessions):
 def test_unported_construct_raises_with_its_name(text, missing, sessions):
     """A construct outside the port raises NotImplementedError naming
     it, whether it is caught while lowering the SQL or when the CPU
-    fallback meets a node it has no branch for (a window).  A cast to a
-    string is tagged by name and runs in the CPU fallback, with the JAX
-    package's answer.  The numeric functions, the variance family,
-    ``first`` and decimal casts have since been ported: they run on the
-    device, with the JAX package's answer."""
+    fallback meets a node it has no branch for (a window) or a function
+    over the nested types (``size``).  ``md5`` is tagged by name and runs
+    in the CPU fallback, with the JAX package's answer.  The numeric
+    functions, the variance family, ``first``, decimal casts, the string
+    functions and casts to strings have since been ported: they run on
+    the device, with the JAX package's answer."""
     s = sessions["default"]
     if text in PORTED_ANSWERS:
         df = s.sql(text)
@@ -317,12 +320,14 @@ def test_unported_construct_raises_with_its_name(text, missing, sessions):
 
 
 # the cases above that the CPU fallback answers
-FALLBACK_ANSWERS = {"SELECT CAST(o_id AS string) FROM orders"}
+FALLBACK_ANSWERS = {"SELECT md5(note) FROM orders"}
 # the cases above that the device now answers
 PORTED_ANSWERS = {"SELECT c_id, sqrt(region) FROM customers",
                   "SELECT stddev(amount) FROM orders",
                   "SELECT cust, first(amount) FROM orders GROUP BY cust",
-                  "SELECT CAST(amount AS decimal(7,2)) FROM orders"}
+                  "SELECT CAST(amount AS decimal(7,2)) FROM orders",
+                  "SELECT upper(name) FROM customers",
+                  "SELECT CAST(o_id AS string) FROM orders"}
 
 
 def test_unknown_function_is_not_a_port_gap(sessions):

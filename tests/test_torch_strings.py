@@ -301,9 +301,10 @@ def test_inset_with_null_matches_jax(table):
 
 
 def test_unported_expressions_raise_by_name(table):
-    """What the port's device expressions do not run (a LIKE with ``_``,
-    casts to and from strings) is tagged by name and runs in the CPU
-    fallback, with the JAX package's answer."""
+    """What the port's device expressions do not run (a LIKE with ``_``)
+    is tagged by name and runs in the CPU fallback, with the JAX
+    package's answer; casts between strings and integers have since been
+    ported and run on the device, with the JAX package's answer."""
     s = TpuSession({}, device="cpu")
     df = s.create_dataframe(table)
     cases = {
@@ -314,8 +315,13 @@ def test_unported_expressions_raise_by_name(table):
                                                  .alias("x")),
     }
     for name, build in cases.items():
-        assert "CpuFallbackExec" in build(TF, df).explain()
-        assert name in s.overrides.last_explain, s.overrides.last_explain
+        physical = build(TF, df).explain().split("==")[0]
+        if name == "a_c":
+            assert "CpuFallbackExec" in physical
+            assert name in s.overrides.last_explain, \
+                s.overrides.last_explain
+        else:
+            assert "CpuFallbackExec" not in physical
         _assert_same(_port(build, table), _jax(build, table))
 
 
