@@ -53,7 +53,7 @@ just before it and read just after:
   ``session.sql`` over the same tables, hash on, each once after its
   DataFrame form: launches, host syncs and rows/s per query, and each
   answer equal to the DataFrame form's; an unported SQL function raises
-  ``NotImplementedError`` naming it (``size``: the nested types), and a
+  ``NotImplementedError`` naming it (``ntile``), and a
   residual on a left join and
   a RANGE frame with offsets raise strict test mode's ``RuntimeError``
   naming the node and the reason;
@@ -71,13 +71,27 @@ just before it and read just after:
   the first 2^16 rows equal to Python's ``str``, ``re``, ``datetime`` and
   a Python Murmur3; and the ten at SF0.1 on the card equal to the engine
   on the CPU (computed meanwhile in a spawned process);
+- the ``nested`` phase over the same tables: ND1-ND7
+  (``models/nested.py``: collect_list/collect_set per order and the
+  collection functions, explode and posexplode, an exploded hash join
+  with a keyless sum, a struct through a top-N sort, maps, tumbling and
+  sliding windows, JSON and ``split`` in the fallback) in strict test
+  mode with only ND7's pinned fallback nodes, one warm and one timed run
+  bit for bit (rows/s, launches, host syncs), each equal to numpy's
+  answers (computed by the process that generated the tables); ND2 and
+  ND3 with the hash path off, equal; the SQL forms of ND1, ND4, ND5 and
+  ND6 equal to their DataFrame forms; array, struct and map columns
+  through parquet and back; all at SF0.1 on the card equal to the
+  engine on the CPU (a spawned process); ``hash_insert``,
+  ``hash_probe`` and ``masked_multi_reduce`` each launched;
 - the ``files`` phase: the same SF10 tables written as parquet through
   ``DataFrame.write.parquet`` (lineitem and orders as 16 files each),
   then the 22 queries over ``session.read.parquet`` with the pipeline on
   (one warm run, then one timed run equal to it bit for bit; rows/s,
   launches, host syncs and the host time the scans waited for decoded tables and spent
-  uploading), each answer equal to the in-memory one; q1, q3, q6, q13
-  and q18 once more with the pipeline off, equal bit for bit; q1 and q6
+  uploading), each answer equal to the in-memory one; q6 and q13
+  (``FILES_PIPELINE_OFF``) once more with the pipeline off, equal bit
+  for bit; q1 and q6
   under the PERFILE,
   COALESCING and MULTITHREADED readers, q6's scan decoding only its four
   columns; at SF0.1 lineitem as ORC and as CSV equal to its parquet
@@ -98,7 +112,7 @@ just before it and read just after:
   scale factor 50 (store_sales 3.0e7 rows), after the TPC-H tables left
   the card: per query one warm run, then one timed run equal to it bit
   for bit (rows/s over the input rows of the tables it reads), launches,
-  hash overflow fallbacks and host syncs; for 8 of them
+  hash overflow fallbacks and host syncs; for 4 of them
   (``TPCDS_FLOAT_SUBSET``) the answer equals a hash-off run's, and their
   answers at SF1 on the card the engine's on the CPU;
 - the ``tpcds_decimal`` pass over the same tables with the
@@ -145,7 +159,8 @@ just before it and read just after:
   are ``launches_by_phase["memory"]``;
 - the fact-dim hash join (2^26 fact rows against 2^19 dim rows, then a
   group-by on the key), hash path on (``hash_insert`` + ``hash_probe`` in
-  every probe batch) and off;
+  every probe batch) and off, run while the TPC-H tables are generated
+  (before q3);
 - the sharded query path on 8 logical shards of the card
   (``spark.rapids.sql.distributed.numShards=8``): q6 and the q1 shape at
   2^26 rows, the sparse-key group-by, the fact-dim join as a shuffle
@@ -156,7 +171,8 @@ just before it and read just after:
   one logical shard (and q1 against numpy).
 
 Answers are checked against numpy / pandas oracles on the same host data.
-The single-device tpch22, tpch_sql, files, memory and tpcds phases plan
+The single-device tpch22, tpch_sql, strings_dates, nested, files, memory
+and tpcds phases plan
 in strict test mode (``spark.rapids.sql.test.enabled``): a node of
 theirs that would fall back to the CPU fails the run.
 
@@ -164,8 +180,9 @@ Output, in order: the card's name and power limit, the torch/CUDA versions
 and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
-in total, by phase for the tpch22, fallback, tpch_sql, strings_dates, files, tpcds,
-tpcds_decimal, numeric, sharded_tpch and memory phases, and by shape),
+in total, by phase for the tpch22, fallback, tpch_sql, strings_dates,
+nested, files, tpcds, tpcds_decimal, numeric, sharded_tpch and memory
+phases, and by shape),
 and last
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
@@ -212,7 +229,7 @@ PG_TPCH_SF = 1          # TPC-H q1 through the one-rank NCCL group
 # the sharded_tpch phase's file pass: these first, then the rest while
 # the phase stays inside SHARDED_BUDGET_S (a phase may take 400 s)
 SHARDED_FILES_FIRST = ("q1", "q3", "q6", "q9", "q13", "q21")
-SHARDED_BUDGET_S = 340.0
+SHARDED_BUDGET_S = 110.0     # 340 s before the nested phase's cuts
 SHARDED_TPCDS = ("q3", "q55", "q96")
 # the time step's cuts of earlier phases, so that the TPC-DS decimal and
 # numeric passes fit the script's time: the float tpcds phase times one
@@ -221,19 +238,31 @@ SHARDED_TPCDS = ("q3", "q55", "q96")
 # queries (all 22 before)
 FILES_REPS = 1
 TPCDS_REPS = 1
+# the nested phase's cuts of earlier phases, past the two its issue names
+# (FILES_PIPELINE_OFF, TPCDS_FLOAT_SUBSET): the tpch22 phase times one run
+# after the warm one (three before), the files phase times these 11 of
+# the 22 and the tpcds phase these 15 of the 29 (each checked bit for bit
+# against its warm run; the others run once), M2 sorts 4 input batches
+# (8 before) and the sharded file pass has SHARDED_BUDGET_S
+TPCH22_REPS = 1
+FILES_TIMED = ("q1", "q3", "q5", "q6", "q9", "q10", "q12", "q13", "q14",
+               "q18", "q21")
+TPCDS_TIMED = ("q3", "q7", "q19", "q27", "q34", "q42", "q46", "q47",
+               "q52", "q55", "q61", "q67", "q88", "q96", "q98")
 # the strings_dates phase's cuts of earlier phases: the decimal pass runs
 # q67 once (its warm run is its checked run), and M3 runs these 11 of the
 # 22 under the budget (q18 spills and tree-merges)
 MEMORY_M3_QUERIES = ("q1", "q2", "q4", "q5", "q6", "q8", "q9", "q10", "q12",
                      "q17", "q18")
 DECIMAL_ONE_RUN = ("q67",)
-FILES_PIPELINE_OFF = ("q1", "q3", "q6", "q13", "q18")
+# the files phase's pipeline-off pass (q1, q3 and q18 cut for the nested
+# phase's time)
+FILES_PIPELINE_OFF = ("q6", "q13")
 # the float tpcds pass's hash-off rerun and its SF1 check against the
-# CPU run over these (every join and aggregate shape: star joins, rollup,
-# windows, the scalar subqueries' Range, a semi join); the decimal pass
-# runs all 29 at SF1
-TPCDS_FLOAT_SUBSET = ("q3", "q19", "q27", "q47", "q67", "q88", "q61",
-                      "q98")
+# CPU run over these (star joins, windows, the scalar subqueries' Range;
+# q19, q27, q67's rollup and q88 cut for the nested phase's time); the
+# decimal pass runs all 29 at SF1
+TPCDS_FLOAT_SUBSET = ("q3", "q47", "q61", "q98")
 # the decimal pass's CpuFallbackExec nodes: the JAX package's over the
 # same tables (avg over a decimal, a sum past DECIMAL_64)
 TPCDS_DECIMAL_FALLBACK = {q: ["Aggregate"] for q in
@@ -917,7 +946,8 @@ def table_bytes(batches) -> int:
                for b in batches.values() for c in b.columns.values())
 
 
-def run_tpch22(torch, K, fm, tpch, cols, batches, card_line, total, reps=3):
+def run_tpch22(torch, K, fm, tpch, cols, batches, card_line, total,
+               reps=TPCH22_REPS):
     """All 22 TPC-H queries through ``TpuSession`` on the card over the
     device tables ``batches`` (made from the host ``cols``), hash on:
     launches and host syncs of the first run (the main path's), then
@@ -1042,8 +1072,8 @@ def check_unported_raise(s):
     from spark_rapids_tpu_torch.api import functions as F
     nation, region = s.table("nation"), s.table("region")
     cases = {
-        "size": (NotImplementedError, "size", lambda: s.sql(
-            "SELECT size(n_name) FROM nation")),
+        "ntile": (NotImplementedError, "ntile", lambda: s.sql(
+            "SELECT ntile(4) OVER (ORDER BY n_nationkey) FROM nation")),
         "left join": (RuntimeError, "Join fell back to CPU in strict test "
                       "mode: non-equi join conditions", lambda: nation.join(
                           region, on=(F.col("n_regionkey")
@@ -1609,6 +1639,210 @@ def run_strings_dates(torch, K, fm, SD, batches, card_line, total,
     return time.perf_counter() - t_phase
 
 
+# ----------------------------------------------------------------- nested --
+
+ND_BUDGET_S = 60.0
+ND_HASH_OFF = ("nd2", "nd3")               # rerun with the hash path off
+ND_CHECK_SF = 0.1      # ND1-ND7 on the card against the engine on the CPU
+ND_FILE_ROWS = 1 << 20  # ND4's parquet round trip: rows from lineitem
+
+
+def nested_oracle(ND, cols):
+    """``models/nested.references`` (numpy's answers of ND1-ND7 at SF10)
+    on a thread: a function that waits for them, ``(refs, seconds)``
+    (``profile_port.py``'s; ``chip_smoke.py`` computes them in the
+    process that generates the tables)."""
+    host = ND.host_columns({t: cols[t] for t in ("lineitem", "orders",
+                                                 "supplier")})
+    job = OnThread(lambda: ND.references(host))
+    return lambda: (job.result(), job.seconds)
+
+
+def nested_session(batches, name, hash_on=True, device=None):
+    """A strict-mode session over the TPC-H views (and ``lineitem_map``)
+    allowing only ``name``'s pinned fallback nodes."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.models import nested as ND
+    s = sd_session(batches, hash_on, ND.FALLBACK_NODES[name], device)
+    ND.register_map_view(F, s)
+    return s
+
+
+def nested_cpu_answers(sf, conn):
+    """In a process of its own: ND1-ND7 and their SQL forms on the engine
+    on the CPU at scale ``sf`` (the SF0.1 check's reference), as arrow
+    tables."""
+    import torch
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.models import nested as ND
+    from spark_rapids_tpu_torch.models import tpch
+    try:
+        batches = device_tables(tpch.gen_table_columns(sf), "cpu")
+        out = {}
+        for name in ND.NAMES:
+            s = nested_session(batches, name, device="cpu")
+            out[name] = ND.build(F, s, name).to_arrow()
+            if name in ND.SQL:
+                out[name + " sql"] = s.sql(ND.SQL[name]).to_arrow()
+            s.stop()
+        conn.send(out)
+    except BaseException as exc:
+        conn.send(exc)
+        raise
+    finally:
+        conn.close()
+
+
+def arrow_match(got, want, rtol, columns=None):
+    """(equal, what differs) of two arrow tables over ``columns`` (all of
+    ``want``'s by default): the same rows and order, float columns within
+    ``rtol`` relative, every other column (arrays and structs included)
+    exactly."""
+    import pyarrow as pa
+    columns = list(want.column_names) if columns is None else columns
+    missing = [c for c in columns if c not in got.column_names]
+    if missing or got.num_rows != want.num_rows:
+        return False, (f"columns {got.column_names} x {got.num_rows} vs "
+                       f"{want.column_names} x {want.num_rows}")
+    for c in columns:
+        g, w = got.column(c), want.column(c)
+        if pa.types.is_floating(w.type):
+            gv, wv = g.to_numpy(), w.to_numpy()
+            if not np.allclose(gv, wv, rtol=rtol, atol=0, equal_nan=True):
+                return False, f"{c}: floats differ past rel {rtol}"
+        elif not g.equals(w):
+            return False, f"{c}: differs"
+    return True, ""
+
+
+def nested_file_round_trip(F, s, workdir):
+    """ND4's file check: a 2^20-row slice of lineitem with an array, a
+    struct (one field a map) and a map column, written by the port to
+    parquet and read back through its reader, equals what was written."""
+    import os
+    src = s.table("lineitem").limit(ND_FILE_ROWS).select(
+        "l_orderkey", F.array("l_partkey", "l_suppkey").alias("keys"),
+        F.struct("l_linenumber", "l_shipdate",
+                 F.create_map(F.lit(1), F.col("l_quantity"))
+                 .alias("qty")).alias("line"),
+        F.create_map(F.lit(2), F.col("l_extendedprice"), F.lit(3),
+                     F.col("l_discount")).alias("money"))
+    path = os.path.join(workdir, "nested_parquet")
+    t0 = time.perf_counter()
+    want = src.to_arrow()
+    src.write.mode("overwrite").parquet(path)
+    got = s.read.parquet(path).to_arrow()
+    check(got.num_rows == ND_FILE_ROWS and got.equals(want),
+          f"nested parquet round trip: {got.num_rows} rows with array, "
+          "struct and map columns read back equal to what was written")
+    print(f"nested parquet round trip: {ND_FILE_ROWS} rows, columns "
+          f"{[str(f.type) for f in got.schema]}, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def run_nested(torch, K, fm, ND, batches, card_line, total, oracle,
+               cpu_proc, workdir):
+    """The nested phase over the SF10 tables on the card: ND1-ND7 in
+    strict test mode (only ND7's pinned fallback nodes), each once warm
+    and once timed (bit for bit), against numpy (``oracle()`` waits for
+    its answers: ``(refs, seconds computing)``); ND2 and ND3
+    with the hash path off; the SQL forms of ND1, ND4, ND5 and ND6 against
+    their DataFrame forms; ND4's parquet round trip; every query at
+    ``ND_CHECK_SF`` on the card against the engine on the CPU (from
+    ``cpu_proc``).  Returns the phase's seconds."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    t_phase = time.perf_counter()
+    sessions = {}
+
+    def session(name, hash_on=True):
+        key = (tuple(ND.FALLBACK_NODES[name]), hash_on)
+        if key not in sessions:
+            sessions[key] = nested_session(batches, name, hash_on)
+        return sessions[key]
+
+    t0 = time.perf_counter()
+    refs, secs = oracle()
+    print(f"nested: numpy's answers took {secs:.3f} s on the host; waited "
+          f"{time.perf_counter() - t0:.3f} s for them", flush=True)
+    answers, rates, syncs = {}, {}, {}
+    for name in ND.NAMES:
+        s = session(name)
+        held = {}
+
+        def build(s=s, name=name):
+            held["df"] = ND.build(F, s, name)
+            return held["df"]
+        rows = sum(batches[k].nrows for k in ND.TABLES[name])
+        label = f"nested {name}"
+        got, launches, fus, rates[name] = drive(
+            torch, K, fm, build, rows, card_line, label, reps=1,
+            extra={"host_syncs": host_sync_metrics}, same_bits=True,
+            arrow=True)
+        total.add(launches)
+        answers[name] = got
+        syncs[name] = fus["host_syncs"]
+        ok, why = ND.check(name, got, refs)
+        check(ok, f"{label}: equals numpy (integers, keys, arrays and "
+              f"order exactly, float sums within rel {ND.FLOAT_RTOL}) {why}")
+        nodes = sorted(type(n.node).__name__
+                       for n in fallback_nodes(held["df"]._last_exec))
+        check(nodes == sorted(ND.FALLBACK_NODES[name]),
+              f"{label}: CpuFallbackExec nodes {nodes}, pinned "
+              f"{ND.FALLBACK_NODES[name]}")
+        print(f"{label}: {got.num_rows} rows; launches "
+              + ", ".join(f"{k} {launches[k]}" for k in launches
+                          if k != "by_shape")
+              + f"; hashKernelLaunches {fus['hashKernelLaunches']}, host "
+              f"syncs {fus['host_syncs']}", flush=True)
+    del refs
+    for name in ND_HASH_OFF:
+        off = ND.build(F, session(name, False), name).to_arrow()
+        ok, why = arrow_match(off, answers[name], QUERY_RTOL)
+        check(ok, f"nested {name}: hash off equals hash on (floats within "
+              f"rel {QUERY_RTOL}) {why}")
+    for name in ND.SQL:
+        t0 = time.perf_counter()
+        sql = session(name).sql(ND.SQL[name]).to_arrow()
+        ok, why = arrow_match(sql, answers[name], QUERY_RTOL,
+                              sql.column_names)
+        check(ok, f"nested {name}: SQL equals the DataFrame form "
+              f"(columns {sql.column_names}; floats within rel "
+              f"{QUERY_RTOL}) {why}")
+        print(f"nested {name} SQL: {sql.num_rows} rows in "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    nested_file_round_trip(F, session("nd4"), workdir)
+    for s in sessions.values():
+        s.stop()
+    answers.clear()
+    print("nested rows/s on " + card_line + ": " + json.dumps(
+        {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+    print("nested host syncs: " + json.dumps(syncs), flush=True)
+    # at SF0.1 against the engine on the CPU
+    t0 = time.perf_counter()
+    small = device_tables(tpch.gen_table_columns(ND_CHECK_SF),
+                          torch.device(DEVICE))
+    got = {}
+    for name in ND.NAMES:
+        s = nested_session(small, name)
+        got[name] = ND.build(F, s, name).to_arrow()
+        if name in ND.SQL:
+            got[name + " sql"] = s.sql(ND.SQL[name]).to_arrow()
+        s.stop()
+    want = receive_cpu_answers(*cpu_proc, f"nested SF{ND_CHECK_SF}")
+    for name in got:
+        ok, why = arrow_match(got[name], want[name], QUERY_RTOL)
+        check(ok, f"nested SF{ND_CHECK_SF} {name}: the card equals the CPU "
+              f"(floats within rel {QUERY_RTOL}) {why}")
+    print(f"nested SF{ND_CHECK_SF}: {len(got)} queries on the card, then "
+          f"the CPU's answers, in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    return time.perf_counter() - t_phase
+
+
 def tpcds_device_tables(data, device):
     """Every TPC-DS table (pandas, from ``tpcds.gen_tables``) as one
     batch on ``device``, through arrow as ``create_dataframe`` takes it."""
@@ -1644,7 +1878,8 @@ def run_tpcds(torch, K, fm, tpcds, batches, card_line, total,
         t0 = time.perf_counter()
         got, launches, fus, rates[name] = drive(
             torch, K, fm, lambda text=text: on.sql(text), rows, card_line,
-            f"tpcds {name}", reps=reps, same_bits=True,
+            f"tpcds {name}", reps=reps if name in TPCDS_TIMED else 0,
+            same_bits=True,
             extra={"host_syncs": host_sync_metrics})
         walls[name] = rows / rates[name]
         answers[name] = got
@@ -1733,27 +1968,53 @@ def receive_cpu_answers(proc, conn, label):
     return _received(proc, conn, label, _item)
 
 
+def _pickled(obj, path):
+    """``obj`` pickled to ``path`` (a pipe moves gigabytes several times
+    more slowly than a file), or ``obj`` itself if the file cannot be
+    written."""
+    import pickle
+    try:
+        with open(path, "wb") as f:
+            pickle.dump(obj, f, protocol=5)
+        return path
+    except OSError:
+        Path(path).unlink(missing_ok=True)
+        return obj
+
+
+def _unpickled(got):
+    """What :func:`_pickled` gave, loaded (and its file removed)."""
+    import pickle
+    if not isinstance(got, str):
+        return got
+    with open(got, "rb") as f:
+        obj = pickle.load(f)
+    Path(got).unlink()
+    return obj
+
+
 def generated_tables(sf, where, conn):
     """In a process of its own: ``tpch.gen_table_columns(sf)`` pickled
-    into the directory ``where`` (a pipe moves its 10 GB several times
-    more slowly than a file), then ``(path, seconds generating)`` down
-    ``conn``; the tables themselves instead of the path if the file
-    cannot be written."""
-    import pickle
+    into the directory ``where``, then ``(path, seconds generating)``
+    down ``conn``; then, from the same columns, numpy's answers of the
+    nested phase (``models/nested.references``), pickled beside them, and
+    ``(path, seconds computing)``: computed here, they take no share of
+    the card-driving process's interpreter."""
     sys.path.insert(0, str(ROOT))
     try:
+        from spark_rapids_tpu_torch.models import nested as ND
         from spark_rapids_tpu_torch.models import tpch
         t0 = time.perf_counter()
         tables = tpch.gen_table_columns(sf)
         seconds = time.perf_counter() - t0
-        path = str(Path(where) / "tpch_columns.pkl")
-        try:
-            with open(path, "wb") as f:
-                pickle.dump(tables, f, protocol=5)
-        except OSError:
-            Path(path).unlink(missing_ok=True)
-            path = tables
-        conn.send((path, seconds))
+        conn.send((_pickled(tables, str(Path(where) / "tpch_columns.pkl")),
+                   seconds))
+        t0 = time.perf_counter()
+        refs = ND.references(ND.host_columns(
+            {t: tables[t] for t in ("lineitem", "orders", "supplier")}))
+        del tables
+        conn.send((_pickled(refs, str(Path(where) / "nested_refs.pkl")),
+                   time.perf_counter() - t0))
     except BaseException as exc:
         conn.send(exc)
         raise
@@ -1762,15 +2023,17 @@ def generated_tables(sf, where, conn):
 
 
 def receive_tables(proc, conn, label):
-    """(tables, seconds generating) from :func:`generated_tables`."""
-    import pickle
+    """(tables, seconds generating) from :func:`generated_tables` (the
+    process goes on to the nested answers: :func:`receive_nested_refs`)."""
+    got, seconds = _item(conn)
+    return _unpickled(got), seconds
+
+
+def receive_nested_refs(proc, conn, label):
+    """(numpy's nested answers, seconds computing) from
+    :func:`generated_tables`, which then ends."""
     got, seconds = _received(proc, conn, label, _item)
-    if isinstance(got, str):
-        with open(got, "rb") as f:
-            tables = pickle.load(f)
-        Path(got).unlink()
-        return tables, seconds
-    return got, seconds
+    return _unpickled(got), seconds
 
 
 def check_tpcds_cpu(torch, tpcds, sf, proc, conn):
@@ -2042,19 +2305,16 @@ def run_numeric(torch, K, fm, dec, card_line, total):
     rows = ss.nrows
     cols = ["ss_item_sk", "ss_quantity", "ss_net_profit",
             "ss_ticket_number"]
-    t0 = time.perf_counter()
     host = ColumnarBatch({k: ss.columns[k] for k in cols},
                          ss.row_count).to_arrow()
-    want = numeric_oracle(
+    # numpy's answer on a thread while the card runs the aggregates
+    oracle = OnThread(lambda: numeric_oracle(
         host.column("ss_item_sk").to_numpy(),
         host.column("ss_quantity").to_numpy(),
         np.concatenate([decimal_unscaled(c) for c in
                         host.column("ss_net_profit").chunks]),
-        host.column("ss_ticket_number").to_numpy())
-    del host
-    print(f"numeric: numpy oracle over {rows} rows in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    answers = {}
+        host.column("ss_ticket_number").to_numpy()))
+    answers, want = {}, None
     for hash_on in (True, False):
         s = TpuSession(tpch_conf(hash_on), device=ss.device)
         label = f"numeric per-item moments, first, last " \
@@ -2065,6 +2325,12 @@ def run_numeric(torch, K, fm, dec, card_line, total):
             extra={"host_syncs": host_sync_metrics})
         total.add(launches)
         answers[hash_on] = got
+        if want is None:
+            t0 = time.perf_counter()
+            want = oracle.result()
+            print(f"numeric: numpy oracle over {rows} rows in "
+                  f"{oracle.seconds:.3f} s on a thread; waited "
+                  f"{time.perf_counter() - t0:.3f} s for it", flush=True)
         check(np.array_equal(got["ss_item_sk"].to_numpy(),
                              want["ss_item_sk"])
               and np.array_equal(got["n"].to_numpy(), want["n"])
@@ -2500,7 +2766,8 @@ def run_files(torch, K, fm, tpch, batches, df_answers, mem_rates,
             rows = sum(batches[k].nrows for k in read.read)
             got, launches, fus, rates[name] = drive(
                 torch, K, fm, q, rows, card_line, f"files {name}",
-                reps=FILES_REPS, extra={"host_syncs": host_sync_metrics},
+                reps=FILES_REPS if name in FILES_TIMED else 0,
+                extra={"host_syncs": host_sync_metrics},
                 same_bits=True)
             answers[name] = got
             total.add(launches)
@@ -3117,7 +3384,7 @@ def make_hash_agg(F, df):
 
 
 def drive(torch, K, fm, query, rows, card_line, label, reps=3,
-          extra=None, same_bits=False):
+          extra=None, same_bits=False, arrow=False):
     """Reset the launch counts, run the query once through the engine
     (its counts are the main path's), then time ``reps`` more runs (with
     ``reps=0`` the rate is the one run's).  ``query`` is a DataFrame, or a
@@ -3126,9 +3393,11 @@ def drive(torch, K, fm, query, rows, card_line, label, reps=3,
     anew).  ``extra``: more metric objects (reset, snapshot) read like
     ``fm``; ``fm`` then returns their snapshots in a dict beside its own.
     ``same_bits``: check that every timed run's answer equals the first
-    run's bit for bit (float sums included)."""
+    run's bit for bit (float sums included).  ``arrow``: collect arrow
+    tables (nested columns stay lists and structs) instead of pandas."""
     def run():
-        return (query() if callable(query) else query).to_pandas()
+        df = query() if callable(query) else query
+        return df.to_arrow() if arrow else df.to_pandas()
     K.launches.reset()
     fm.reset()
     for m in (extra or {}).values():
@@ -3165,7 +3434,7 @@ MEMORY_BUDGET = 256 << 20   # M2-M5's device spill budget (SF100 cut to SF10)
 MEMORY_HOST = 1 << 30       # the host tier (the reference's default)
 OOM_BATCH_ROWS = 1 << 26    # M4: q1's aggregate over 2^26-row batches
 OOM_HEADROOM = 0.55         # M4: the cap leaves this share of its peak
-M2_BATCHES = 8              # M2 sorts lineitem's first 8 input batches
+M2_BATCHES = 4              # M2 sorts lineitem's first 4 input batches
 M5_QUERIES = ("q47", "q67")
 M5_BUDGET_QUERY = "q67"     # M5's run under the spill budget
 SORT_KEYS = ("l_extendedprice", "l_orderkey", "l_linenumber")
@@ -3256,29 +3525,44 @@ def exec_metric(plan, name):
     return got + sum(exec_metric(c, name) for c in plan.children)
 
 
-class LexsortOracle:
-    """numpy's lexsort of lineitem's three sort keys, on a thread of its
-    own (numpy lets go of the GIL while it sorts), started as soon as the
-    host columns exist."""
+class OnThread:
+    """``fn()`` on a thread of its own, started at once (numpy lets go of
+    the GIL while it sorts): a host oracle computed while the card runs
+    the phases before its own.  ``result()`` waits for it and re-raises
+    its error; ``seconds`` is its run time."""
 
-    def __init__(self, lineitem_cols):
+    def __init__(self, fn):
         import threading
-        self.cols = {k: np.asarray(lineitem_cols[k][1]) for k in SORT_KEYS}
-        self.keys = None
+        self._fn = fn
+        self._out = self._error = None
         self.seconds = None
         self._t = threading.Thread(target=self._run, daemon=True)
         self._t.start()
 
     def _run(self):
         t0 = time.perf_counter()
-        price, okey, line = (self.cols[k] for k in SORT_KEYS)
-        idx = np.lexsort((line, okey, -price))
-        self.keys = [price[idx], okey[idx], line[idx]]
+        try:
+            self._out = self._fn()
+        except BaseException as exc:  # re-raised on the main thread
+            self._error = exc
         self.seconds = time.perf_counter() - t0
+        self._fn = None
 
     def result(self):
         self._t.join()
-        return self.keys
+        if self._error is not None:
+            raise self._error
+        return self._out
+
+
+def lexsort_oracle(lineitem_cols) -> OnThread:
+    """numpy's lexsort of lineitem's three sort keys, on a thread."""
+    price, okey, line = (np.asarray(lineitem_cols[k][1]) for k in SORT_KEYS)
+
+    def run():
+        idx = np.lexsort((line, okey, -price))
+        return [price[idx], okey[idx], line[idx]]
+    return OnThread(run)
 
 
 def memory_sort(torch, K, fm, F, lineitem, conf, label, keys_out=None):
@@ -3915,6 +4199,71 @@ def main() -> int:
     s.stop()
     del sdf, sparse
 
+    # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
+    # (while the TPC-H tables are still being generated)
+    fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)
+    want_k, want_sv, want_sw = fact_dim_oracle(fact, dim)
+    fd_out, rate_fd = {}, {}
+    for enabled in (False, True):
+        s = TpuSession({"spark.rapids.sql.tpu.maxBatchRows": BATCH_ROWS,
+                        "spark.rapids.tpu.pallas.hash.enabled": enabled,
+                        "spark.rapids.tpu.pallas.hash.tableSlots":
+                            str(HASH_SLOTS)})
+        q = make_fact_dim(F, s.create_dataframe(fact),
+                          s.create_dataframe(dim))
+        label = f"fact-dim join ({'hash on' if enabled else 'hash off'})"
+        got, lf, fus, rate_fd[enabled] = drive(
+            torch, K, fm, q, FACT_ROWS + DIM_ROWS, card_line, label)
+        fd_out[enabled] = got
+        check(np.array_equal(got["k"].to_numpy(), want_k)
+              and np.array_equal(got["sv"].to_numpy(), want_sv)
+              and np.array_equal(got["sw"].to_numpy(), want_sw),
+              f"{label}: {len(got)} groups equal numpy exactly")
+        batches = FACT_ROWS // BATCH_ROWS
+        if enabled:
+            check(lf["hash_probe"] == batches
+                  and lf["hash_insert"] >= batches
+                  and fus["hashOverflowFallbacks"] == 0,
+                  f"{label}: hash_probe {lf['hash_probe']}x (one per probe "
+                  f"batch), hash_insert {lf['hash_insert']}x, "
+                  f"hashKernelLaunches {fus['hashKernelLaunches']}, "
+                  f"hashOverflowFallbacks {fus['hashOverflowFallbacks']}")
+            total.add(lf)
+        else:
+            check(lf["hash_insert"] == 0 and lf["hash_probe"] == 0,
+                  f"{label}: no hash kernel launch")
+        s.stop()
+    check(fd_out[False].equals(fd_out[True]),
+          "fact-dim join identical with hash on and off")
+
+    # the same join over 8 logical shards: 2^19 build rows are past the
+    # broadcast threshold, so both sides shuffle by key hash, then the
+    # group-by exchanges its partials
+    s = TpuSession(dist_conf)
+    q = make_fact_dim(F, s.create_dataframe(fact), s.create_dataframe(dim))
+    got, lf, mf, d_fd = drive(torch, K, fm, q, FACT_ROWS + DIM_ROWS,
+                              card_line, "distributed fact-dim join",
+                              extra=dist_metrics)
+    got = got.sort_values("k", ignore_index=True)
+    check(np.array_equal(got["k"].to_numpy(), want_k)
+          and np.array_equal(got["sv"].to_numpy(), want_sv)
+          and np.array_equal(got["sw"].to_numpy(), want_sw),
+          f"distributed fact-dim join: {len(got)} groups equal numpy "
+          "exactly")
+    check_dist(s, "distributed fact-dim join", lf, mf)
+    jst = dict(s.last_dist_stats)["join:inner"]
+    check(jst["strategy"] == "shuffle"
+          and int(jst["probe_counts"].sum()) == FACT_ROWS
+          and int(jst["build_counts"].sum()) == DIM_ROWS,
+          f"distributed fact-dim join: shuffle strategy, stats histograms "
+          f"count {FACT_ROWS} probe and {DIM_ROWS} build rows")
+    print(f"rows/s fact-dim join: distributed over {NSHARDS} shards "
+          f"{d_fd:.6e}, single device {rate_fd[False]:.6e} (hash off), "
+          f"{rate_fd[True]:.6e} (hash on)", flush=True)
+    total.add(lf)
+    s.stop()
+    del fact, dim, q
+
     # TPC-H at SF10: lineitem 60M rows, orders 15M, partsupp 8M, part 2M,
     # customer 1.5M, supplier 100k; every table on the card once.  The
     # CPU's answers at SF0.1 (check b) are computed meanwhile in a process
@@ -3926,8 +4275,10 @@ def main() -> int:
     print(f"TPC-H SF{TPCH_SF}: all eight tables generated in {gen_s:.3f} "
           "s in a process of their own, beside the kernel checks; "
           f"waited {time.perf_counter() - t0:.3f} s for them", flush=True)
-    # the memory phase's oracle, sorting on the host meanwhile
-    lexsort = LexsortOracle(tpch_cols["lineitem"])
+    # the memory phase's oracle, sorting on the host meanwhile (the
+    # nested phase's comes from the generating process)
+    from spark_rapids_tpu_torch.models import nested as ND
+    lexsort = lexsort_oracle(tpch_cols["lineitem"])
     t0 = time.perf_counter()
     tpch_batches = device_tables(tpch_cols, device)
     torch.cuda.synchronize()
@@ -4038,6 +4389,9 @@ def main() -> int:
               f"tpch_sql launched {k} {sql_launches.counts[k]}x")
     total.extend(sql_launches)
 
+    # the nested phase's SF0.1 answers on the CPU, meanwhile
+    nd_cpu = start_process(nested_cpu_answers, ND_CHECK_SF)
+
     # the strings_dates phase: SD1-SD10 over the same tables
     from spark_rapids_tpu_torch.models import strings_dates
     sd_launches = PathLaunches(K.launches.NAMES)
@@ -4049,6 +4403,18 @@ def main() -> int:
         check(sd_launches.counts[k] >= 1,
               f"strings_dates launched {k} {sd_launches.counts[k]}x")
     total.extend(sd_launches)
+
+    # the nested phase: ND1-ND7 over the same tables
+    nd_launches = PathLaunches(K.launches.NAMES)
+    nd_s = run_nested(torch, K, fm, ND, tpch_batches, card_line,
+                      nd_launches, lambda: receive_nested_refs(
+                          *tpch_gen, "nested answers"), nd_cpu, scratch)
+    print(f"nested phase {nd_s:.3f} s (budget {ND_BUDGET_S} s); launches "
+          f"{nd_launches.counts}", flush=True)
+    for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
+        check(nd_launches.counts[k] >= 1,
+              f"nested launched {k} {nd_launches.counts[k]}x")
+    total.extend(nd_launches)
 
     # the sharded_tpch phase, in three passes: the 44 queries in memory
     # here, the 22 over the files phase's parquet inside that phase, and
@@ -4178,76 +4544,13 @@ def main() -> int:
                       "fallback": fallback_launches.counts,
                       "tpch_sql": sql_launches.counts,
                       "strings_dates": sd_launches.counts,
+                      "nested": nd_launches.counts,
                       "files": files_launches.counts,
                       "tpcds": ds_launches.counts,
                       "tpcds_decimal": dec_launches.counts,
                       "numeric": numeric_launches.counts,
                       "sharded_tpch": sharded_launches.counts,
                       "memory": memory_launches.counts}
-
-    # fact-dim hash join: 2^26 fact rows, 2^19 dim rows, 16 probe batches
-    fact, dim = gen_fact_dim(FACT_ROWS, DIM_ROWS)
-    want_k, want_sv, want_sw = fact_dim_oracle(fact, dim)
-    fd_out, rate_fd = {}, {}
-    for enabled in (False, True):
-        s = TpuSession({"spark.rapids.sql.tpu.maxBatchRows": BATCH_ROWS,
-                        "spark.rapids.tpu.pallas.hash.enabled": enabled,
-                        "spark.rapids.tpu.pallas.hash.tableSlots":
-                            str(HASH_SLOTS)})
-        q = make_fact_dim(F, s.create_dataframe(fact),
-                          s.create_dataframe(dim))
-        label = f"fact-dim join ({'hash on' if enabled else 'hash off'})"
-        got, lf, fus, rate_fd[enabled] = drive(
-            torch, K, fm, q, FACT_ROWS + DIM_ROWS, card_line, label)
-        fd_out[enabled] = got
-        check(np.array_equal(got["k"].to_numpy(), want_k)
-              and np.array_equal(got["sv"].to_numpy(), want_sv)
-              and np.array_equal(got["sw"].to_numpy(), want_sw),
-              f"{label}: {len(got)} groups equal numpy exactly")
-        batches = FACT_ROWS // BATCH_ROWS
-        if enabled:
-            check(lf["hash_probe"] == batches
-                  and lf["hash_insert"] >= batches
-                  and fus["hashOverflowFallbacks"] == 0,
-                  f"{label}: hash_probe {lf['hash_probe']}x (one per probe "
-                  f"batch), hash_insert {lf['hash_insert']}x, "
-                  f"hashKernelLaunches {fus['hashKernelLaunches']}, "
-                  f"hashOverflowFallbacks {fus['hashOverflowFallbacks']}")
-            total.add(lf)
-        else:
-            check(lf["hash_insert"] == 0 and lf["hash_probe"] == 0,
-                  f"{label}: no hash kernel launch")
-        s.stop()
-    check(fd_out[False].equals(fd_out[True]),
-          "fact-dim join identical with hash on and off")
-
-    # the same join over 8 logical shards: 2^19 build rows are past the
-    # broadcast threshold, so both sides shuffle by key hash, then the
-    # group-by exchanges its partials
-    s = TpuSession(dist_conf)
-    q = make_fact_dim(F, s.create_dataframe(fact), s.create_dataframe(dim))
-    got, lf, mf, d_fd = drive(torch, K, fm, q, FACT_ROWS + DIM_ROWS,
-                              card_line, "distributed fact-dim join",
-                              extra=dist_metrics)
-    got = got.sort_values("k", ignore_index=True)
-    check(np.array_equal(got["k"].to_numpy(), want_k)
-          and np.array_equal(got["sv"].to_numpy(), want_sv)
-          and np.array_equal(got["sw"].to_numpy(), want_sw),
-          f"distributed fact-dim join: {len(got)} groups equal numpy "
-          "exactly")
-    check_dist(s, "distributed fact-dim join", lf, mf)
-    jst = dict(s.last_dist_stats)["join:inner"]
-    check(jst["strategy"] == "shuffle"
-          and int(jst["probe_counts"].sum()) == FACT_ROWS
-          and int(jst["build_counts"].sum()) == DIM_ROWS,
-          f"distributed fact-dim join: shuffle strategy, stats histograms "
-          f"count {FACT_ROWS} probe and {DIM_ROWS} build rows")
-    print(f"rows/s fact-dim join: distributed over {NSHARDS} shards "
-          f"{d_fd:.6e}, single device {rate_fd[False]:.6e} (hash off), "
-          f"{rate_fd[True]:.6e} (hash on)", flush=True)
-    total.add(lf)
-    s.stop()
-    del fact, dim, q
 
     # NCCL allocates its buffers outside PyTorch's caching allocator,
     # whose cache may by now hold nearly the whole card (83.7e9 bytes

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
                             [memory] [fallback] [tpcds_decimal]
-                            [strings_dates]
+                            [strings_dates] [nested]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -40,7 +40,11 @@ distinct-groups sample's skip off or on), and (``strings_dates``, only
 when asked for) ``chip_smoke.py``'s strings_dates phase over the SF10
 tables (its checks included), then one trace each of SD3 (regexes,
 ``replace`` and ``locate`` over 15M ``o_comment`` rows) and SD4 (chained
-string producers over the 8M-row part-partsupp join),
+string producers over the 8M-row part-partsupp join), and (``nested``,
+only when asked for) ``chip_smoke.py``'s nested phase over the SF10
+tables (its checks included), then one trace each of ND1 (collect_list
+and collect_set per order over 60M lines, and the collection functions
+over the 15M arrays) and ND5 (a map per line, read back and summed),
 and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
@@ -155,7 +159,8 @@ SPILL_TIMES = ("spill_to_host_ns", "checksum_ns", "serialize_ns",
 def profile(torch, query, label, card_line, run=None, catalog=None):
     """``query``: a DataFrame, or a function that builds one (a SQL
     statement, built anew in the traced run: its scalar subqueries run
-    there); ``run`` replaces the collect; with ``catalog``, the spill
+    there); ``run`` replaces the collect (``to_pandas``); with
+    ``catalog``, the spill
     catalog's host times of the traced run are printed too."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
@@ -273,6 +278,8 @@ def main() -> int:
         profile_tpcds_decimal(torch, card_line)
     if "strings_dates" in sys.argv[1:]:
         profile_strings_dates(torch, TpuSession, tpch, card_line)
+    if "nested" in sys.argv[1:]:
+        profile_nested(torch, tpch, card_line)
     if "sharded_tpch" in sys.argv[1:]:
         return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
@@ -304,6 +311,37 @@ def profile_strings_dates(torch, TpuSession, tpch, card_line):
         s = cs.sd_session(batches, True, SD.FALLBACK_NODES[name])
         profile(torch, lambda s=s, name=name: SD.run(F, s, name),
                 f"{name.upper()} SF{cs.TPCH_SF}, hash on", card_line)
+        s.stop()
+
+
+def profile_nested(torch, tpch, card_line):
+    """``chip_smoke.py``'s nested phase (its checks included) over the
+    SF10 tables, then traces of ND1 and ND5, each collected to arrow."""
+    import tempfile
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.exec.fusion import fusion_metrics as fm
+    from spark_rapids_tpu_torch.models import nested as ND
+    from spark_rapids_tpu_torch.ops import kernels as K
+    cpu = cs.start_process(cs.nested_cpu_answers, cs.ND_CHECK_SF)
+    t0 = time.perf_counter()
+    cols = tpch.gen_table_columns(cs.TPCH_SF)
+    oracle = cs.nested_oracle(ND, cols)
+    batches = cs.device_tables(cols, torch.device(cs.DEVICE))
+    del cols
+    print(f"TPC-H SF{cs.TPCH_SF} generated and on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    K.library()
+    total = cs.PathLaunches(K.launches.NAMES)
+    with tempfile.TemporaryDirectory(prefix="profile_port_") as tmp:
+        secs = cs.run_nested(torch, K, fm, ND, batches, card_line, total,
+                             oracle, cpu, tmp)
+    print(f"nested phase {secs:.3f} s; launches {total.counts}",
+          flush=True)
+    for name in ("nd1", "nd5"):
+        s = cs.nested_session(batches, name)
+        profile(torch, None, f"{name.upper()} SF{cs.TPCH_SF}, hash on",
+                card_line, run=lambda s=s, name=name: ND.build(
+                    F, s, name).to_arrow())
         s.stop()
 
 

@@ -1,11 +1,16 @@
 """DataFrame and GroupedData.
 
 Counterpart of ``spark_rapids_tpu/api/dataframe.py``, cut to select
-(window functions lift into a Window node), filter, withColumn,
+(window functions lift into a Window node, explode/posexplode into a
+Generate node, struct and map outputs expand into their shredded flat
+columns), filter, withColumn,
 withColumnRenamed, groupBy/agg/count, rollup/cube/groupingSets,
 keyless agg, distinct, joins on column names or on expression
 conditions, crossJoin, orderBy/sort, limit, union, temp views, count,
-collect and to_pandas.  A DataFrame is a logical plan; collecting it
+collect and to_pandas (shredded struct and map columns reassemble in
+``to_arrow``), and a groupBy over ``window(...)`` (a sliding window
+through an Expand, as Spark's TimeWindowing rule).  A DataFrame is a
+logical plan; collecting it
 offers the plan to the distributed planner
 when the session holds a shard group, else (or when the planner declines)
 plans the query on the session's device, runs the operators and fetches
@@ -54,6 +59,8 @@ class DataFrame:
         return [n for n, _ in self.plan.schema]
 
     def select(self, *cols: Union[Col, str]) -> "DataFrame":
+        from spark_rapids_tpu_torch.ops.nested_ops import (
+            expand_nested_projections)
         exprs = [_expr(c) for c in cols]
         routed = self._route_batch_ids(exprs)
         if routed is not None:
@@ -61,7 +68,10 @@ class DataFrame:
         needs = _file_meta_needs(exprs, self.plan.schema)
         if needs:
             return self._with_file_meta(needs).select(*cols)
-        exprs = _expand_metadata(exprs, self.plan.schema)
+        exprs = expand_nested_projections(exprs, self.plan.schema)
+        gen = self._route_generate(exprs)
+        if gen is not None:
+            return gen
         win_idx = {i for i, e in enumerate(exprs) if _contains_window(e)}
         if not win_idx:
             return DataFrame(self.session, L.Project(exprs, self.plan))
@@ -95,6 +105,29 @@ class DataFrame:
             final.append(r if out_name is None else Alias(r, out_name))
         wplan = L.Window(wexprs, self.plan)
         return DataFrame(self.session, L.Project(final, wplan))
+
+    def _route_generate(self, exprs) -> Optional["DataFrame"]:
+        """F.explode / F.posexplode in a select become a Generate node
+        (Spark plans Generate the same way): the other expressions pass
+        through, repeated for each element."""
+        from spark_rapids_tpu_torch.api.functions import _ExplodeMarker
+
+        def marker_of(e):
+            inner = e.children[0] if isinstance(e, Alias) else e
+            return inner if isinstance(inner, _ExplodeMarker) else None
+
+        gens = [(i, e, marker_of(e)) for i, e in enumerate(exprs)
+                if marker_of(e) is not None]
+        if not gens:
+            return None
+        if len(gens) > 1:
+            raise ValueError("only one explode per select is supported")
+        i, e, m = gens[0]
+        required = [x for j, x in enumerate(exprs) if j != i]
+        col_name = e.alias if isinstance(e, Alias) else "col"
+        return DataFrame(self.session, L.Generate(
+            m.children[0], required, m.position, self.plan,
+            col_name=col_name))
 
     def _route_batch_ids(self, exprs) -> Optional["DataFrame"]:
         """monotonically_increasing_id() / spark_partition_id() need the
@@ -166,7 +199,59 @@ class DataFrame:
         return DataFrame(self.session, L.Project(exprs, self.plan))
 
     def groupBy(self, *cols: Union[Col, str]) -> "GroupedData":
-        return GroupedData(self, [_expr(c) for c in cols])
+        """A struct key (``F.window(...)``, ``F.struct(...)``) groups by
+        one key per field, named ``<struct>.<field>`` so that the output
+        reassembles the struct; a sliding window must be the only key."""
+        from spark_rapids_tpu_torch.ops.datetime_ops import TimeWindow
+        from spark_rapids_tpu_torch.ops.nested_ops import CreateNamedStruct
+        exprs: List[Expression] = []
+        for c in cols:
+            e = _expr(c)
+            inner = e
+            while isinstance(inner, Alias):
+                inner = inner.children[0]
+            if not isinstance(inner, CreateNamedStruct):
+                exprs.append(e)
+                continue
+            first = inner.pairs[0][1]
+            if isinstance(first, TimeWindow) and \
+                    first.slide_us < first.window_us:
+                if len(cols) != 1:
+                    raise ValueError("sliding window(...) must be the only "
+                                     "grouping column")
+                return self._group_by_sliding_window(e, first)
+            name = e.name if isinstance(e, Alias) else "struct"
+            exprs.extend(Alias(fe, f"{name}.{fn}") for fn, fe in inner.pairs)
+        return GroupedData(self, exprs)
+
+    def _group_by_sliding_window(self, aliased, tw) -> "GroupedData":
+        """Sliding windows: a row falls in up to ceil(window / slide)
+        overlapping windows.  An Expand makes one copy of each row per
+        overlap, a filter keeps the copies whose window holds the
+        timestamp, and the group keys are (start, end) (Spark's
+        TimeWindowing rule)."""
+        from spark_rapids_tpu_torch.exec.expand import Expand
+        from spark_rapids_tpu_torch.ops.datetime_ops import TimeWindow
+        name = aliased.name if isinstance(aliased, Alias) else "window"
+        s_col, e_col = f"{name}.start", f"{name}.end"
+        k = -(-tw.window_us // tw.slide_us)
+        base_names = [n for n, _ in self.plan.schema]
+        projections = []
+        for i in range(k):
+            shift = i * tw.slide_us
+            proj: List[Expression] = [UnresolvedColumn(n)
+                                      for n in base_names]
+            for field, col in (("start", s_col), ("end", e_col)):
+                proj.append(Alias(TimeWindow(tw.child, tw.window_us,
+                                             tw.slide_us, tw.start_us,
+                                             field, shift), col))
+            projections.append(proj)
+        expand = Expand(projections, base_names + [s_col, e_col],
+                        self.plan)
+        cond = preds.GreaterThan(UnresolvedColumn(e_col), tw.child)
+        return GroupedData(DataFrame(self.session, L.Filter(cond, expand)),
+                           [UnresolvedColumn(s_col),
+                            UnresolvedColumn(e_col)])
 
     group_by = groupBy
 
@@ -346,12 +431,17 @@ class DataFrame:
         return DataFrameWriter(self)
 
     def to_arrow(self):
+        """The result as an arrow table; shredded struct and map columns
+        reassemble here (``columnar/nested.assemble_table``)."""
         import pyarrow as pa
+        from spark_rapids_tpu_torch.columnar import nested
         batches = self._execute_batches()
         if not batches:
-            return empty_batch(self.plan.schema,
-                               self.session.device).to_arrow()
-        return pa.concat_tables(b.to_arrow() for b in batches)
+            table = empty_batch(self.plan.schema,
+                                self.session.device).to_arrow()
+        else:
+            table = pa.concat_tables(b.to_arrow() for b in batches)
+        return nested.assemble_table(table)
 
     def to_pandas(self):
         return self.to_arrow().to_pandas()
@@ -413,23 +503,6 @@ def _attach_file_meta(plan: L.LogicalPlan, needs: set):
         new.children = (child,)
         return new
     return None
-
-
-def _expand_metadata(exprs, schema) -> List[Expression]:
-    """A bare ``_metadata`` reference selects its four fields.  The port
-    has no struct columns: they come out as the flat columns
-    ``_metadata.file_path``, ``_metadata.file_name``,
-    ``_metadata.file_size`` and ``_metadata.file_modification_time``
-    (the JAX package's shredded layout of the struct)."""
-    out = []
-    for e in exprs:
-        if isinstance(e, UnresolvedColumn) and e.col_name == "_metadata" \
-                and "_metadata" not in {n for n, _ in schema}:
-            out.extend(UnresolvedColumn(n)
-                       for n in L.FileRelation.META_COLUMNS)
-        else:
-            out.append(e)
-    return out
 
 
 def _references(e: Expression) -> set:

@@ -10,7 +10,14 @@ comparisons, logic, null tests, ``isnan``, ``greatest``/``least``, casts,
 ``contains``, ``like``, ``rlike``), the string functions (``length``,
 case mapping, trims, pads, ``concat``/``concat_ws``, ``locate``,
 ``repeat``, ``substring``/``substring_index``, ``ascii``/``chr``,
-``regexp_replace``, ``replace``, ``translate``, ``split(...).getItem``),
+``regexp_replace``, ``replace``, ``translate``, ``split``, which is an
+array of strings on the host and ``split(...).getItem(n)`` on the card),
+``get_json_object``, the nested types (``array``, ``struct``,
+``create_map``, ``size``, ``element_at``, ``array_contains``,
+``sort_array``, ``array_min``/``array_max``, ``reverse``, ``slice``,
+``array_repeat``, ``map_keys``/``map_values``, ``getItem``/``getField``
+and ``[]`` on arrays, maps and structs, ``explode``/``posexplode`` in a
+select, ``collect_list``/``collect_set``), time windows (``window``),
 ``hash``/``md5``, ``monotonically_increasing_id``/``spark_partition_id``,
 ``when``/``otherwise``, ``coalesce``, the date parts, date and time
 arithmetic and formatting (``date_format``, ``unix_timestamp``,
@@ -176,28 +183,24 @@ class Col:
         return Col(S.Substring(self.expr, pos, length))
 
     def getItem(self, key) -> "Col":
-        """``split(c, d).getItem(n)``: the n-th part (the one array form
-        the port runs)."""
+        """A struct field (a str key), ``split(c, d)[n]`` (the device's
+        ``SplitPart``), an array's n-th element (0-based) or, on a map
+        column, the value of key ``key``."""
         if isinstance(key, str):
             return self.getField(key)
-        if isinstance(self.expr, RX.StringSplit) and self.expr.limit == -1:
+        from spark_rapids_tpu_torch.ops.collections_ops import GetArrayItem
+        from spark_rapids_tpu_torch.ops.json_ops import StringSplit
+        if isinstance(self.expr, StringSplit) and self.expr.limit == -1:
             return Col(RX.SplitPart(self.expr.children[0],
                                     self.expr.pattern, int(key)))
-        raise NotImplementedError(
-            "getItem over an array: nested types are not ported to the "
-            "PyTorch engine")
+        return Col(GetArrayItem(self.expr, _lit_expr(key)))
 
     __getitem__ = getItem
 
     def getField(self, field: str) -> "Col":
-        """A field of a struct column.  The port has no struct columns;
-        the one struct it reads, a file scan's ``_metadata``, is held as
-        flat ``_metadata.<field>`` columns, which this names."""
-        if not isinstance(self.expr, UnresolvedColumn):
-            raise NotImplementedError(
-                "getField on a computed struct: struct columns are not "
-                "ported")
-        return Col(UnresolvedColumn(f"{self.expr.col_name}.{field}"))
+        """A field of a struct column (its shredded flat column)."""
+        from spark_rapids_tpu_torch.ops.nested_ops import GetStructField
+        return Col(GetStructField(self.expr, field))
 
     def between(self, lo, hi) -> "Col":
         return Col(preds.And(
@@ -388,9 +391,17 @@ def translate(c, from_str: str, to_str: str) -> Col:
 
 
 def split(c, pattern: str, limit: int = -1) -> Col:
-    """split(str, regex): an array of strings, held only as
-    ``split(...).getItem(n)`` (nested types are not ported)."""
-    return Col(RX.StringSplit(_expr(c), pattern, limit))
+    """split(str, regex) -> array<string>, evaluated on the host (the CPU
+    fallback); ``split(...).getItem(n)`` is the device's ``SplitPart``."""
+    from spark_rapids_tpu_torch.ops.json_ops import StringSplit
+    return Col(StringSplit(_expr(c), pattern, limit))
+
+
+def get_json_object(c, path: str) -> Col:
+    """A JSONPath subset ($.field, $.a.b, $[n]) of a JSON string column,
+    evaluated on the host (the CPU fallback)."""
+    from spark_rapids_tpu_torch.ops.json_ops import GetJsonObject
+    return Col(GetJsonObject(_expr(c), path))
 
 
 # ------------------------------------------------------ hashes and ids
@@ -655,6 +666,167 @@ var_samp = variance
 
 def var_pop(c) -> Col:
     return _agg(agg.VariancePop, c)
+
+
+def collect_list(c) -> Col:
+    return _agg(agg.CollectList, c)
+
+
+def collect_set(c) -> Col:
+    return _agg(agg.CollectSet, c)
+
+
+# ------------------------------------------------- nested types, windows
+
+class _ExplodeMarker(Expression):
+    """A select-time marker that ``DataFrame.select`` turns into a
+    Generate node (Spark plans explode/posexplode the same way)."""
+
+    def __init__(self, child: Expression, position: bool):
+        self.children = (child,)
+        self.position = position
+
+    @property
+    def dtype(self):
+        return self.children[0].dtype.element
+
+    def with_children(self, children):
+        return _ExplodeMarker(children[0], self.position)
+
+    @property
+    def name(self) -> str:
+        return "col"
+
+
+def explode(c) -> Col:
+    return Col(_ExplodeMarker(_expr(c), position=False))
+
+
+def posexplode(c) -> Col:
+    return Col(_ExplodeMarker(_expr(c), position=True))
+
+
+def array(*cols) -> Col:
+    from spark_rapids_tpu_torch.ops.collections_ops import CreateArray
+    return Col(CreateArray(*[_expr(c) for c in cols]))
+
+
+def size(c) -> Col:
+    from spark_rapids_tpu_torch.ops.collections_ops import Size
+    return Col(Size(_expr(c)))
+
+
+def array_contains(c, value) -> Col:
+    from spark_rapids_tpu_torch.ops.collections_ops import ArrayContains
+    return Col(ArrayContains(_expr(c), _lit_expr(value)))
+
+
+def get_array_item(c, index) -> Col:
+    from spark_rapids_tpu_torch.ops.collections_ops import GetArrayItem
+    return Col(GetArrayItem(_expr(c), _lit_expr(index)))
+
+
+def element_at(c, index) -> Col:
+    """1-based array element (negative from the end), or a map's value
+    at a key."""
+    from spark_rapids_tpu_torch.ops.collections_ops import ElementAt
+    return Col(ElementAt(_expr(c), _lit_expr(index)))
+
+
+def sort_array(c, asc: bool = True) -> Col:
+    from spark_rapids_tpu_torch.ops.collections_ops import SortArray
+    return Col(SortArray(_expr(c), asc))
+
+
+def array_min(c) -> Col:
+    from spark_rapids_tpu_torch.ops.collections_ops import ArrayMin
+    return Col(ArrayMin(_expr(c)))
+
+
+def array_max(c) -> Col:
+    from spark_rapids_tpu_torch.ops.collections_ops import ArrayMax
+    return Col(ArrayMax(_expr(c)))
+
+
+def slice(c, start: int, length: int) -> Col:  # noqa: A001
+    from spark_rapids_tpu_torch.ops.collections_ops import Slice
+    return Col(Slice(_expr(c), start, length))
+
+
+def array_repeat(c, times: int) -> Col:
+    """A bare string is a column reference (as in PySpark); repeat a
+    literal string with ``F.lit``."""
+    from spark_rapids_tpu_torch.ops.collections_ops import ArrayRepeat
+    return Col(ArrayRepeat(_expr(c), times))
+
+
+def reverse(c) -> Col:
+    """reverse() of an array (element order) or a string (byte-wise on
+    the card: the ASCII-only incompatible class)."""
+    from spark_rapids_tpu_torch.ops.collections_ops import Reverse
+    return Col(Reverse(_expr(c)))
+
+
+def struct(*cols) -> Col:
+    """struct(c1, c2, ...): each field named by its column's name or
+    alias."""
+    from spark_rapids_tpu_torch.ops.nested_ops import CreateNamedStruct
+    pairs = []
+    for c in cols:
+        e = _expr(c)
+        if isinstance(e, Alias):
+            pairs.append((e.alias, e.children[0]))
+        else:
+            pairs.append((e.name, e))
+    return Col(CreateNamedStruct(pairs))
+
+
+def create_map(*entries) -> Col:
+    """create_map(k1, v1, k2, v2, ...)."""
+    from spark_rapids_tpu_torch.ops.nested_ops import CreateMap
+    return Col(CreateMap(*[_lit_expr(e) for e in entries]))
+
+
+def map_keys(c) -> Col:
+    from spark_rapids_tpu_torch.ops.nested_ops import MapKeys
+    return Col(MapKeys(_expr(c)))
+
+
+def map_values(c) -> Col:
+    from spark_rapids_tpu_torch.ops.nested_ops import MapValues
+    return Col(MapValues(_expr(c)))
+
+
+def get_map_value(c, key) -> Col:
+    from spark_rapids_tpu_torch.ops.nested_ops import GetMapValue
+    return Col(GetMapValue(_expr(c), _lit_expr(key)))
+
+
+def _parse_duration_us(s: str) -> int:
+    import re
+    m = re.fullmatch(
+        r"\s*(\d+)\s*(microsecond|millisecond|second|minute|hour|day|"
+        r"week)s?\s*", s)
+    if not m:
+        raise ValueError(f"cannot parse duration {s!r}")
+    unit = {"microsecond": 1, "millisecond": 1_000, "second": 1_000_000,
+            "minute": 60_000_000, "hour": 3_600_000_000,
+            "day": 86_400_000_000, "week": 604_800_000_000}[m.group(2)]
+    return int(m.group(1)) * unit
+
+
+def window(c, window_duration: str, slide_duration: Optional[str] = None,
+           start_time: str = "0 seconds") -> Col:
+    """Tumbling or sliding time windows: a (start, end) struct column
+    named ``window``, for a groupBy (the reference's GpuTimeWindow)."""
+    from spark_rapids_tpu_torch.ops.nested_ops import CreateNamedStruct
+    win = _parse_duration_us(window_duration)
+    slide = _parse_duration_us(slide_duration) if slide_duration else win
+    start = _parse_duration_us(start_time)
+    e = _expr(c)
+    return Col(Alias(CreateNamedStruct(
+        [("start", D.TimeWindow(e, win, slide, start, "start")),
+         ("end", D.TimeWindow(e, win, slide, start, "end"))]), "window"))
 
 
 # ------------------------------------------------------------------- windows

@@ -178,14 +178,21 @@ class TpuSession:
         """A DataFrame over a dict of numpy arrays (or lists with None
         for nulls), a pandas DataFrame, a pyarrow Table, or a
         ColumnarBatch already on the session's device.  The data is
-        copied to the device once, here."""
+        copied to the device once, here; struct and map columns shred
+        into flat columns (a dot in a column name is reserved for
+        them)."""
         import pandas as pd
         import pyarrow as pa
+        from spark_rapids_tpu_torch.columnar.nested import (
+            check_reserved_names)
         if isinstance(data, pd.DataFrame):
+            check_reserved_names(data.columns)
             batch = ColumnarBatch.from_pandas(data, device=self.device)
         elif isinstance(data, pa.Table):
+            check_reserved_names(data.column_names)
             batch = ColumnarBatch.from_arrow(data, device=self.device)
         elif isinstance(data, dict):
+            check_reserved_names(data.keys())
             batch = ColumnarBatch.from_pydict(data, device=self.device)
         elif isinstance(data, ColumnarBatch):
             if data.device != self.device:

@@ -2,7 +2,9 @@
 
 Counterpart of ``spark_rapids_tpu/columnar/batch.py``.  Batches flow
 device-resident between operators; crossing back to the host happens only
-at collect (``to_arrow``), in one counted fetch.
+at collect (``to_arrow``), in one counted fetch.  Struct and map columns
+shred into flat columns at ``from_arrow`` (``columnar/nested.py``); list
+columns upload from arrow's own offsets and values buffers.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 
 from spark_rapids_tpu_torch.columnar import dtypes as dts
 from spark_rapids_tpu_torch.columnar.column import (
-    Column, RowCount, decimal_unscaled, stage_parts)
+    Column, RowCount, check_offsets, decimal_unscaled, stage_parts)
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 
 Schema = Sequence[Tuple[str, DataType]]
@@ -106,8 +108,11 @@ class ColumnarBatch:
         """Columns from a pyarrow Table; arrow nulls become validity.
         Each column's chunks go end to end into one staging buffer per
         device buffer (``column.stage_parts``), without concatenating
-        them first."""
-        cols = {name: _column_from_arrow(table.column(name), device)
+        them first.  Struct and map columns shred first."""
+        from spark_rapids_tpu_torch.columnar import nested
+        if nested.has_nested(table):
+            table = nested.shred_table(table)
+        cols = {name: _column_from_arrow(table.column(name), device, name)
                 for name in table.column_names}
         return cls(cols, table.num_rows)
 
@@ -120,7 +125,9 @@ class ColumnarBatch:
                               device=device)
 
     def to_arrow(self):
-        """pyarrow Table of the batch's rows, fetched in one counted sync."""
+        """pyarrow Table of the batch's rows, fetched in one counted sync
+        (shredded struct and map columns stay flat: the DataFrame
+        reassembles them)."""
         import pyarrow as pa
         from spark_rapids_tpu_torch.utils import hostsync
         n = self.nrows
@@ -139,14 +146,14 @@ class ColumnarBatch:
             offsets = next(host) if c.offsets is not None else None
             validity = next(host) if c.validity is not None else None
             arrays[name] = Column.to_arrow(c.dtype, data, validity, n,
-                                           offsets)
+                                           offsets, c.dictionary)
         return pa.table(arrays)
 
     def to_pandas(self):
         return self.to_arrow().to_pandas()
 
 
-def _column_from_arrow(chunked, device) -> Column:
+def _column_from_arrow(chunked, device, name: str = "") -> Column:
     """One arrow column (a ChunkedArray) as a device column."""
     import pyarrow as pa
     import pyarrow.compute as pc
@@ -154,8 +161,12 @@ def _column_from_arrow(chunked, device) -> Column:
     if pa.types.is_dictionary(at):
         chunks = [c.dictionary_decode() for c in chunks]
         at = at.value_type
-    dt = dts.from_arrow_type(at)
     n = sum(len(c) for c in chunks)
+    if (pa.types.is_list(at) or pa.types.is_large_list(at)) and (
+            pa.types.is_string(at.value_type)
+            or pa.types.is_large_string(at.value_type)):
+        return _string_list_column(chunks, n, device, name)
+    dt = dts.from_arrow_type(at)
     validity = None
     if any(c.null_count for c in chunks):
         validity = stage_parts(
@@ -163,6 +174,9 @@ def _column_from_arrow(chunked, device) -> Column:
              for c in chunks], np.bool_, device)
     if dt.is_string:
         data, offsets = _string_buffers(chunks, n, device)
+        return Column(dt, data, n, validity=validity, offsets=offsets)
+    if dt.is_array:
+        data, offsets = _list_buffers(chunks, dt, device, name)
         return Column(dt, data, n, validity=validity, offsets=offsets)
     return Column(dt, stage_parts([_fixed_width(c, dt) for c in chunks],
                                   dt.storage, device), n, validity=validity)
@@ -210,17 +224,79 @@ def _string_buffers(chunks, n: int, device):
                             width == np.int32 else
                             (co[:-1] - co[0] + base).astype(np.int32))
         base += int(co[-1] - co[0])
-        if base >= (1 << 31):
-            raise ValueError("string offsets are int32: a column holds "
-                             "less than 2 GiB of chars")
+        check_offsets(base, "string column")
     offsets = stage_parts(offset_parts + [(1, base)], np.int32, device)
     return stage_parts(char_parts, np.uint8, device), offsets
+
+
+def _list_buffers(chunks, dt, device, name: str):
+    """(flat elements, int32 offsets) on ``device`` of arrow list chunks,
+    from their own offsets and values buffers; a null row is empty."""
+    import pyarrow as pa
+    value_parts, offset_parts, base = [], [], 0
+    for c in chunks:
+        k = len(c)
+        if not k:
+            continue
+        width = np.int64 if pa.types.is_large_list(c.type) else np.int32
+        co = np.frombuffer(c.buffers()[1], dtype=width)[
+            c.offset: c.offset + k + 1]
+        lo, hi = int(co[0]), int(co[-1])
+        vals = c.values.slice(lo, hi - lo)
+        if vals.null_count:
+            raise ValueError(f"array column {name!r}: null array elements "
+                             "not supported")
+        value_parts.append(_fixed_width(vals, dt.element))
+        offset_parts.append((co[:-1] - lo + base).astype(np.int32))
+        base += hi - lo
+        check_offsets(base, f"array column {name!r}")
+    offsets = stage_parts(offset_parts + [(1, base)], np.int32, device)
+    return stage_parts(value_parts, dt.storage, device), offsets
+
+
+def _string_list_column(chunks, n: int, device, name: str) -> Column:
+    """An arrow list<string> column as an ``array<string>``: int32 codes
+    into its sorted distinct strings, which stay on the host (the CPU
+    fallback's type; no device operator reads it)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from spark_rapids_tpu_torch.ops.json_ops import ARRAY_STRING
+    arr = pa.chunked_array(chunks, chunks[0].type if chunks else
+                           pa.list_(pa.string())).combine_chunks() \
+        if len(chunks) != 1 else chunks[0]
+    flat = pc.list_flatten(arr).cast(pa.string())
+    if flat.null_count:
+        raise ValueError(f"array column {name!r}: null array elements "
+                         "not supported")
+    table = pc.unique(flat)
+    table = table.take(pc.sort_indices(table))
+    codes = pc.index_in(flat, value_set=table).to_numpy(
+        zero_copy_only=False).astype(np.int32)
+    lens = pc.list_value_length(arr).fill_null(0).to_numpy(
+        zero_copy_only=False)
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    check_offsets(int(offsets[-1]), f"array column {name!r}")
+    valid = None
+    if arr.null_count:
+        valid = np.asarray(pc.is_valid(arr))
+    from spark_rapids_tpu_torch.columnar.column import (
+        _device_validity, to_device)
+    return Column(ARRAY_STRING, to_device(codes, device, copy=True), n,
+                  validity=_device_validity(valid, n, device),
+                  offsets=to_device(offsets.astype(np.int32), device),
+                  dictionary=table)
 
 
 def _column_from_list(values: list, device) -> Column:
     """The JAX package's ``from_pydict`` rule for a Python list."""
     if any(isinstance(v, str) for v in values):
         return Column.from_strings(values, device=device)
+    if any(isinstance(v, (list, tuple, np.ndarray)) for v in values):
+        flat = [e for v in values if v is not None for e in v]
+        element = dts.from_numpy_dtype(np.asarray(flat if flat else
+                                                  [0]).dtype)
+        return Column.from_arrays(values, element, device=device)
     present = [v for v in values if v is not None]
     if present and all(isinstance(v, _dt.date) for v in present):
         return Column.from_numpy(np.array(values, dtype=object),
@@ -239,9 +315,10 @@ def empty_batch(schema: Schema, device="cpu",
     (zero values, and for strings zero-length rows)."""
     cols = {}
     for name, dt in schema:
-        if dt.is_string:
+        if dt.has_offsets:
             cols[name] = Column(
-                dt, torch.zeros(0, dtype=torch.uint8, device=device), 0,
+                dt, torch.zeros(0, dtype=dts.torch_dtype(dt),
+                                device=device), 0,
                 offsets=torch.zeros(capacity + 1, dtype=torch.int32,
                                     device=device))
         else:

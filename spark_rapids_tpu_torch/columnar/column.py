@@ -3,8 +3,11 @@
 Counterpart of ``spark_rapids_tpu/columnar/column.py``.  A Column is a torch
 tensor of values plus an optional bool validity tensor (True = valid, None =
 no nulls) on one device, with a logical row count.  A string column keeps
-the JAX layout: uint8 chars plus int32 row offsets; a decimal column its
-unscaled int64 values (:func:`decimal_unscaled`, :func:`decimal_array`
+the JAX layout: uint8 chars plus int32 row offsets; an array column the
+same layout over its flat fixed-width elements (no null elements, as in
+the JAX package; an ``array<string>``, which only the CPU fallback makes,
+holds int32 codes into a host string table, its ``dictionary``); a
+decimal column its unscaled int64 values (:func:`decimal_unscaled`, :func:`decimal_array`
 convert arrow's 128-bit decimals without a Python object per row).  XLA
 needed every buffer padded to a power-of-two capacity; PyTorch does not,
 so columns built from host data are exact-length.  Operators that produce a data-dependent number
@@ -268,23 +271,29 @@ class RowCount:
         return "RowCount(<device>)"
 
 
+OFFSETS_LIMIT = 1 << 31   # int32 offsets: chars or elements per column
+
+
 class Column:
     """One device column: ``data`` (capacity rows; for strings the uint8
-    chars), optional ``validity``, for strings int32 ``offsets`` of
-    capacity + 1 entries starting at 0, and a logical row count no larger
-    than the capacity.  A string's chars may run past ``offsets[nrows]``
-    (padding every consumer ignores)."""
+    chars, for arrays the flat elements), optional ``validity``, for
+    strings and arrays int32 ``offsets`` of capacity + 1 entries starting
+    at 0, and a logical row count no larger than the capacity.  A
+    string's chars (an array's elements) may run past ``offsets[nrows]``
+    (padding every consumer ignores).  ``dictionary``: the host string
+    table of an ``array<string>``'s codes."""
 
-    __slots__ = ("dtype", "data", "validity", "offsets", "_row_count")
+    __slots__ = ("dtype", "data", "validity", "offsets", "_row_count",
+                 "dictionary")
 
     def __init__(self, dtype: DataType, data: torch.Tensor, nrows,
                  validity: Optional[torch.Tensor] = None,
-                 offsets: Optional[torch.Tensor] = None):
+                 offsets: Optional[torch.Tensor] = None, dictionary=None):
         if data.dim() != 1:
             raise ValueError("column data must be 1-D")
         if dtype.has_offsets != (offsets is not None):
             raise ValueError(f"{dtype} column: offsets must be given "
-                             "exactly for string columns")
+                             "exactly for string and array columns")
         rows = data.shape[0] if offsets is None else offsets.shape[0] - 1
         if validity is not None and validity.shape != (rows,):
             raise ValueError("validity must have one entry per row")
@@ -292,6 +301,7 @@ class Column:
         self.data = data
         self.validity = validity
         self.offsets = offsets
+        self.dictionary = dictionary
         self._row_count = RowCount.wrap(nrows)
 
     @property
@@ -377,9 +387,7 @@ class Column:
                 or (np.diff(offsets) < 0).any():
             raise ValueError("string offsets must start at 0 and never "
                              "decrease")
-        if offsets[-1] >= (1 << 31):
-            raise ValueError("string offsets are int32: a column holds "
-                             "less than 2 GiB of chars")
+        check_offsets(int(offsets[-1]), "string column")
         chars = np.ascontiguousarray(chars, dtype=np.uint8)
         if chars.shape[0] < offsets[-1]:
             raise ValueError("chars buffer shorter than the last offset")
@@ -388,16 +396,57 @@ class Column:
                    nrows, validity=_device_validity(validity, nrows, device),
                    offsets=to_device(offsets.astype(np.int32), device))
 
+    @classmethod
+    def from_arrays(cls, values: Sequence, element: DataType,
+                    validity: Optional[np.ndarray] = None,
+                    device="cpu") -> "Column":
+        """Array column from a list of lists (``None`` is a null row),
+        through arrow's list layout: the flat elements plus int32
+        offsets.  Null elements are refused, as in the JAX package;
+        string elements make an ``array<string>`` of codes into a sorted
+        host table."""
+        import pyarrow as pa
+        from spark_rapids_tpu_torch.columnar.batch import _column_from_arrow
+        valid = np.ones(len(values), dtype=np.bool_) if validity is None \
+            else np.asarray(validity, dtype=np.bool_)
+        rows = [None if v is None or not ok else list(v)
+                for v, ok in zip(values, valid)]
+        arr = pa.array(rows, pa.list_(dts.to_arrow_type(element)))
+        return _column_from_arrow(pa.chunked_array([arr]), device,
+                                  "values")
+
+    def to_pylist(self) -> list:
+        """The column's rows as Python values (one counted fetch)."""
+        from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+        return ColumnarBatch({"c": self}).to_arrow().column(0).to_pylist()
+
     @staticmethod
     def to_arrow(dtype: DataType, host_data: np.ndarray, host_validity,
-                 n: int, host_offsets=None):
+                 n: int, host_offsets=None, dictionary=None):
         """pyarrow array of the first ``n`` rows of host buffers fetched
         by ``ColumnarBatch.to_arrow``, typed as the JAX package types it
         (dates as ``date32``, timestamps as UTC microseconds, decimals as
-        ``decimal128``)."""
+        ``decimal128``, arrays as lists)."""
         import pyarrow as pa
         at = dts.to_arrow_type(dtype)
         valid = None if host_validity is None else host_validity[:n]
+        if dtype.is_array:
+            offs = host_offsets[: n + 1].astype(np.int32)
+            lo, hi = (int(offs[0]), int(offs[-1])) if n else (0, 0)
+            elems = host_data[lo:hi]
+            if dtype.element.is_string:
+                table = dictionary if dictionary is not None else \
+                    pa.array([], pa.string())
+                values = table.take(pa.array(elems, pa.int32()))
+            else:
+                values = Column.to_arrow(dtype.element, elems, None,
+                                         hi - lo)
+            bitmap = None if valid is None or valid.all() else \
+                pa.py_buffer(np.packbits(valid, bitorder="little"))
+            return pa.Array.from_buffers(
+                at, n, [bitmap, pa.py_buffer(offs - lo)],
+                null_count=-1 if bitmap is not None else 0,
+                children=[values])
         if dtype.is_string:
             offs = host_offsets[: n + 1].astype(np.int32)
             offs = offs - offs[0] if n else np.zeros(1, dtype=np.int32)
@@ -421,6 +470,15 @@ class Column:
     def __repr__(self) -> str:
         return (f"Column({self.dtype}, {self._row_count}, "
                 f"cap={self.capacity}, {self.device})")
+
+
+def check_offsets(total: int, what: str) -> None:
+    """Refuse a column past the int32 offsets: ``total`` chars or
+    elements in one batch, ``what`` naming the column."""
+    if total >= OFFSETS_LIMIT:
+        raise ValueError(
+            f"{what}: {total} values in one batch do not fit int32 "
+            f"offsets (the bound is {OFFSETS_LIMIT - 1})")
 
 
 def _none_validity(values: np.ndarray, validity):

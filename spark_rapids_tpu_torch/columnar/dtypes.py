@@ -5,9 +5,12 @@ the ported slices carry: boolean, the four integer widths, float and
 double, string (uint8 chars plus int32 row offsets), date (int32 days
 since the epoch), timestamp (int64 microseconds since the epoch, UTC) and
 DECIMAL_64 (``decimal(p,s)`` with p <= 18, the unscaled value in an
-int64).  Nested types come with later slices.  Each type names its numpy
-storage dtype, as in the JAX package, and :func:`torch_dtype` gives the
-matching torch dtype.
+int64), and the nested types in the JAX package's layout: an ARRAY of a
+fixed-width element is its flat element buffer plus int32 row offsets (the
+string chars layout), and a STRUCT or a MAP is a logical type over flat
+columns (``columnar/nested.py`` shreds them at ingest and reassembles them
+at the arrow output).  Each type names its numpy storage dtype, as in the
+JAX package, and :func:`torch_dtype` gives the matching torch dtype.
 """
 
 from __future__ import annotations
@@ -29,6 +32,41 @@ class DataType:
     # decimal only
     precision: Optional[int] = None
     scale: Optional[int] = None
+    # array only: the element type (``storage`` is then the element's
+    # storage dtype: flat element values plus int32 row offsets)
+    element: Optional["DataType"] = None
+    # struct only: ((field name, DataType), ...); a map has exactly the
+    # two pseudo-fields ("key", K) and ("value", V).  Neither lives on the
+    # device as a container: struct field "a" of column "s" is the flat
+    # column "s.a", a map "m" the two aligned array columns "m.__key" and
+    # "m.__value" (``columnar/nested.py``)
+    fields: Optional[tuple] = None
+
+    @property
+    def is_array(self) -> bool:
+        return self.element is not None
+
+    @property
+    def is_struct(self) -> bool:
+        return self.fields is not None and not self.name.startswith("map<")
+
+    @property
+    def is_map(self) -> bool:
+        return self.fields is not None and self.name.startswith("map<")
+
+    @property
+    def is_nested(self) -> bool:
+        return self.fields is not None
+
+    @property
+    def key_type(self) -> "DataType":
+        assert self.is_map
+        return self.fields[0][1]
+
+    @property
+    def value_type(self) -> "DataType":
+        assert self.is_map
+        return self.fields[1][1]
 
     @property
     def is_boolean(self) -> bool:
@@ -56,8 +94,9 @@ class DataType:
 
     @property
     def has_offsets(self) -> bool:
-        """True when the device layout is (flat chars, int32 offsets)."""
-        return self.is_string
+        """True when the device layout is (flat values, int32 offsets):
+        strings (chars) and arrays (elements)."""
+        return self.is_string or self.is_array
 
     @property
     def is_date(self) -> bool:
@@ -90,6 +129,39 @@ STRING = DataType("string", np.dtype(np.uint8))
 DATE32 = DataType("date", np.dtype(np.int32))  # days since unix epoch
 TIMESTAMP_US = DataType("timestamp", np.dtype(np.int64))  # micros, UTC
 
+
+def ArrayType(element: DataType) -> DataType:
+    """ARRAY<element> of a fixed-width element: the flat element buffer
+    plus int32 row offsets, as a string's chars, so gather, concatenation
+    and spill take arrays through the strings' offsets path."""
+    if element.has_offsets or element.is_nested:
+        raise ValueError(
+            f"nested element type {element} not supported (single-level "
+            "arrays of fixed-width elements only)")
+    return DataType(f"array<{element.name}>", element.storage,
+                    element=element)
+
+
+def StructType(fields) -> DataType:
+    """STRUCT<f1: t1, ...>: a logical grouping of shredded flat columns."""
+    fields = tuple((str(n), t) for n, t in fields)
+    if not fields:
+        raise ValueError("struct needs at least one field")
+    inner = ",".join(f"{n}:{t.name}" for n, t in fields)
+    return DataType(f"struct<{inner}>", np.dtype(np.uint8), fields=fields)
+
+
+def MapType(key: DataType, value: DataType) -> DataType:
+    """MAP<K, V> of fixed-width scalars, shredded to the two array columns
+    ``<name>.__key`` (ARRAY<K>) and ``<name>.__value`` (ARRAY<V>) with the
+    same row offsets."""
+    if key.has_offsets or value.has_offsets or key.is_nested \
+            or value.is_nested:
+        raise ValueError(
+            f"map<{key},{value}> unsupported: key/value must be "
+            "fixed-width scalar types")
+    return DataType(f"map<{key.name},{value.name}>", np.dtype(np.uint8),
+                    fields=(("key", key), ("value", value)))
 
 
 def DecimalType(precision: int, scale: int) -> DataType:
@@ -124,6 +196,8 @@ def dtype_from_name(name: str) -> DataType:
     name = name.strip().lower()
     if name in _BY_NAME:
         return _BY_NAME[name]
+    if name.startswith("array<") and name.endswith(">"):
+        return ArrayType(dtype_from_name(name[6:-1]))
     if name.startswith("decimal"):
         inner = name[name.index("(") + 1:name.index(")")]
         p, s = (int(x) for x in inner.split(","))
@@ -156,6 +230,13 @@ def from_numpy_dtype(dt) -> DataType:
 
 def from_arrow_type(at) -> DataType:
     import pyarrow as pa
+    if pa.types.is_struct(at):
+        return StructType((f.name, from_arrow_type(f.type)) for f in at)
+    if pa.types.is_map(at):
+        return MapType(from_arrow_type(at.key_type),
+                       from_arrow_type(at.item_type))
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow_type(at.value_type))
     for check, dt in ((pa.types.is_boolean, BOOL),
                       (pa.types.is_int8, INT8),
                       (pa.types.is_int16, INT16),
@@ -180,6 +261,14 @@ def to_arrow_type(dt: DataType):
     import pyarrow as pa
     if dt.is_decimal:
         return pa.decimal128(dt.precision, dt.scale)
+    if dt.is_array:
+        return pa.list_(to_arrow_type(dt.element))
+    if dt.is_map:
+        return pa.map_(to_arrow_type(dt.key_type),
+                       to_arrow_type(dt.value_type))
+    if dt.is_struct:
+        return pa.struct([pa.field(n, to_arrow_type(t))
+                          for n, t in dt.fields])
     return {"boolean": pa.bool_(), "tinyint": pa.int8(),
             "smallint": pa.int16(), "int": pa.int32(),
             "bigint": pa.int64(), "float": pa.float32(),

@@ -113,10 +113,12 @@ class TpuHashAggregateExec(TpuExec):
                      CONCAT_TIME, TREE_MERGE_STEPS):
             self._register_metric(name)
         self._in_dtypes = [dt for _, dt in child.schema]
+        self._single_pass = any(getattr(f, "single_pass", False)
+                                for f in self.funcs)
         self._buf_specs: List[agg.BufferSpec] = []
         self._buf_slices: List[slice] = []
         for f in self.funcs:
-            specs = f.buffers()
+            specs = [] if getattr(f, "single_pass", False) else f.buffers()
             self._buf_slices.append(
                 slice(len(self._buf_specs), len(self._buf_specs) + len(specs)))
             self._buf_specs.extend(specs)
@@ -335,7 +337,89 @@ class TpuHashAggregateExec(TpuExec):
             self.metrics[TREE_MERGE_STEPS] += 1
         return handles
 
+    # ----------------------------------------------------- single pass
+    def _collect_pass(self, merged: ColumnarBatch) -> ColumnarBatch:
+        """Every aggregate of the node in one grouped pass over the
+        concatenated input: collects as arrays, the rest through their
+        buffers and ``finalize``."""
+        ctx = batch_context(merged, self._in_dtypes)
+        mask = fold_conjuncts(ctx, self.pre_filters) if self.pre_filters \
+            else ctx.row_mask()
+        keys = [widen(e.emit(ctx), ctx.capacity) for e in self.group_exprs]
+        keys = [ColVal(dts.INT32, self._encoders[i].encode(
+            k, ctx.capacity).to(torch.int32)) if i in self._encoders else k
+            for i, k in enumerate(keys)]
+        collect_inputs, buffer_inputs, layout = [], [], []
+        for f in self.funcs:
+            c = None if f.child is None else \
+                widen(f.child.emit(ctx), ctx.capacity)
+            if getattr(f, "single_pass", False):
+                layout.append(len(collect_inputs))
+                collect_inputs.append((c, f.dedup))
+                continue
+            start = len(buffer_inputs)
+            for spec, cv in zip(f.buffers(), f.update_inputs(
+                    c, ctx.capacity, ctx.device)):
+                buffer_inputs.append((spec.kind, cv))
+            layout.append(slice(start, len(buffer_inputs)))
+        check_raise(ctx)
+        key_out, buf_out, arrays, n = agg.groupby_collect(
+            keys, collect_inputs, ctx.nrows, ctx.capacity,
+            buffer_inputs=buffer_inputs, row_mask=mask)
+        if n == 0 and not self.group_exprs:
+            return self._keyless_empty()
+        key_out = [self._encoders[i].decode(k.values)
+                   if i in self._encoders else k
+                   for i, k in enumerate(key_out)]
+        results = [arrays[ref] if isinstance(ref, int) else
+                   f.finalize(buf_out[ref])
+                   for f, ref in zip(self.funcs, layout)]
+        return self._batch(self.schema, list(key_out) + results, n)
+
+    def _keyless_empty(self) -> ColumnarBatch:
+        """Spark's one row for a keyless aggregate of no rows: an empty
+        array per collect, 0 per count, null for the rest."""
+        outs = []
+        for (_, dt), f in zip(self.schema, self.funcs):
+            if dt.is_array:
+                outs.append(ColVal(dt, torch.zeros(
+                    0, dtype=dts.torch_dtype(dt), device=self.device), None,
+                    torch.zeros(2, dtype=torch.int32, device=self.device)))
+            else:
+                outs.append(ColVal(dt, torch.zeros(
+                    1, dtype=dts.torch_dtype(dt), device=self.device),
+                    None if f.name == "count" else torch.zeros(
+                        1, dtype=torch.bool, device=self.device)))
+        return self._batch(self.schema, outs, 1)
+
+    def _single_pass_execute(self) -> Iterator[ColumnarBatch]:
+        catalog = self.spill_catalog()
+        handles = []
+        try:
+            for b in self._tallied():
+                handles.append(catalog.register(b))
+            if not handles:
+                if not self.group_exprs:
+                    yield self._keyless_empty()
+                return
+
+            def step():
+                with self.timer(CONCAT_TIME):
+                    merged = concat_batches([h.materialize()
+                                             for h in handles])
+                with self.timer(AGG_TIME):
+                    return self._collect_pass(merged)
+
+            out = with_retry_no_split(step, catalog=catalog)
+        finally:
+            for h in handles:
+                h.close()
+        yield out
+
     def do_execute(self) -> Iterator[ColumnarBatch]:
+        if self._single_pass:
+            yield from self._single_pass_execute()
+            return
         catalog = self.spill_catalog()
         handles = []
         try:

@@ -25,7 +25,8 @@ frames.
 Host frames keep the device's storage: integers, booleans and floats as
 pandas' nullable (masked) types, so an integer column with nulls stays
 exact instead of turning float; dates as int32 days and timestamps as
-int64 microseconds; strings as arrow-backed pandas strings.  Expressions
+int64 microseconds; strings as arrow-backed pandas strings; arrays
+(``array<string>`` too) as arrow-backed pandas lists.  Expressions
 evaluate over numpy arrays and their validity (``_eval``) with the
 device's semantics: Kleene AND / OR, integer overflow that wraps, null
 for a division by zero, Java's remainder, NaN as the largest float, LIKE
@@ -34,7 +35,11 @@ rules, as the card's, and the JAX package's CPU formatting of floats),
 and the string, regex, hash and date library (``_eval_library``) with CPU
 Spark's semantics: case mapping over all of Unicode, any pattern through
 Python's ``re`` (Java's ASCII classes), ``md5`` through ``hashlib``, a
-host Murmur3, ``date_format`` over the common Java pattern letters.  The
+host Murmur3, ``date_format`` over the common Java pattern letters;
+``get_json_object`` and ``split`` to an array of strings on the host
+(``ops/json_ops.py``), and the array, map and time-window expressions
+through their device emit over CPU tensors, as the decimals.  A Generate
+explodes through arrow's list kernels.  The
 JAX package's fallback builds pandas frames with numpy types instead, so
 an integer column with nulls becomes float there and loses precision past
 2^53; its ``_build_batch`` then fills those nulls with 0 before the cast.
@@ -104,7 +109,13 @@ def arrow_to_frame(table) -> pd.DataFrame:
         cols.append(col)
     # positional names: a joined schema may repeat a name
     tmp = pa.table(cols, names=[f"c{i}" for i in range(len(cols))])
-    df = tmp.to_pandas(types_mapper=_pd_types().get)
+    types = _pd_types()
+
+    def mapper(t):
+        if pa.types.is_list(t) or pa.types.is_large_list(t):
+            return pd.ArrowDtype(t)
+        return types.get(t)
+    df = tmp.to_pandas(types_mapper=mapper)
     for i, col in enumerate(cols):
         if pa.types.is_floating(col.type):
             # pandas' own conversion turns NaN into a null; Spark keeps
@@ -164,6 +175,9 @@ class _V:
         return len(self.valid)
 
     def series(self, index=None) -> pd.Series:
+        if self.dt.is_array:
+            return pd.Series(pd.arrays.ArrowExtensionArray(
+                _with_nulls(self.values, self.valid)), index=index)
         if self.dt.is_string:
             arr = _with_nulls(self.values, self.valid)
             return pd.Series(pd.array(arr, dtype=pd.StringDtype("pyarrow")),
@@ -201,7 +215,31 @@ def _from_series(s: pd.Series, dt: DataType) -> _V:
     valid = ~s.isna().to_numpy(dtype=np.bool_)
     if dt.is_string:
         return _V(dt, _lstr(pa.array(s, from_pandas=True)), valid)
+    if dt.is_array:
+        arr = s.array
+        arr = arr._pa_array if isinstance(
+            arr, pd.arrays.ArrowExtensionArray) else pa.array(
+            [None if not ok else list(v) for v, ok in zip(s, valid)])
+        return _V(dt, _list_array(arr, dt), valid)
     return _V(dt, s.to_numpy(dtype=dt.storage, na_value=0), valid)
+
+
+def _list_array(arr, dt: DataType):
+    """An arrow list array (or chunked array) as one chunk of ``dt``'s
+    arrow list type."""
+    import pyarrow as pa
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks() if arr.num_chunks != 1 else arr.chunk(0)
+    return arr.cast(dts.to_arrow_type(dt))
+
+
+def _take(v: _V, idx: np.ndarray) -> _V:
+    """The rows ``idx`` of a host column."""
+    import pyarrow as pa
+    if isinstance(v.values, (pa.Array, pa.ChunkedArray)):
+        return _V(v.dt, v.values.take(pa.array(idx, pa.int64())),
+                  v.valid[idx])
+    return _V(v.dt, v.values[idx], v.valid[idx])
 
 
 def _full(dt: DataType, n: int, value) -> _V:
@@ -229,16 +267,38 @@ def _isnull(v) -> bool:
 
 
 def _colval(v: _V):
-    """A host column as a ColVal over CPU tensors (views of its arrays)."""
+    """A host column as a ColVal over CPU tensors (views of its arrays;
+    an array column as its flat elements and int32 offsets, a null row
+    empty)."""
     import torch
     from spark_rapids_tpu_torch.ops.expressions import ColVal
+    valid = torch.from_numpy(np.ascontiguousarray(v.valid))
+    if v.dt.is_array:
+        import pyarrow.compute as pc
+        arr = _with_nulls(v.values, v.valid)
+        lens = pc.list_value_length(arr).fill_null(0).to_numpy(
+            zero_copy_only=False)
+        offsets = np.zeros(len(lens) + 1, dtype=np.int32)
+        np.cumsum(lens, out=offsets[1:])
+        flat = pc.list_flatten(arr)
+        elems = flat.to_numpy(zero_copy_only=False).astype(
+            v.dt.storage) if len(flat) else np.zeros(0, v.dt.storage)
+        return ColVal(v.dt, torch.from_numpy(np.ascontiguousarray(elems)),
+                      valid, torch.from_numpy(offsets))
     return ColVal(v.dt, torch.from_numpy(np.ascontiguousarray(v.values)),
-                  torch.from_numpy(np.ascontiguousarray(v.valid)))
+                  valid)
 
 
 def _from_colval(c, n: int) -> _V:
     """A ColVal over CPU tensors back as a host column of ``n`` rows."""
     import torch
+    if c.dtype.is_array:
+        from spark_rapids_tpu_torch.columnar.column import Column
+        valid = np.ones(n, dtype=np.bool_) if c.validity is None else \
+            c.validity.expand(n).numpy().astype(np.bool_)
+        arr = Column.to_arrow(c.dtype, c.values.numpy(), None, n,
+                              c.offsets.numpy())
+        return _V(c.dtype, arr, valid.copy())
     vals = c.values.expand(n) if c.values.dim() == 0 else c.values
     valid = np.ones(n, dtype=np.bool_) if c.validity is None else \
         c.validity.expand(n).numpy() if c.validity.dim() == 0 else \
@@ -510,6 +570,8 @@ def _eval(expr, df: pd.DataFrame) -> _V:
         return _V(dts.INT32, (_to_days(l) - _to_days(r)).astype(np.int32),
                   l.valid & r.valid)
     out = _eval_library(e, df)
+    if out is None:
+        out = _eval_nested(e, df)
     if out is not None:
         return out
     raise NotImplementedError(
@@ -969,10 +1031,102 @@ def _eval_library(e, df: pd.DataFrame) -> Optional[_V]:
     return None
 
 
-def _emit_over(e, children, n: int):
+def _eval_nested(e, df: pd.DataFrame) -> Optional[_V]:
+    """Host evaluation of the collection, map, time-window and JSON
+    expressions, or None for another class: JSON and split on the host
+    (``eval_host``), a string reverse by characters (CPU Spark's), the
+    rest through their device emit over CPU tensors."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.ops import collections_ops as C
+    from spark_rapids_tpu_torch.ops import datetime_ops as D
+    from spark_rapids_tpu_torch.ops import json_ops as J
+    from spark_rapids_tpu_torch.ops import nested_ops as NO
+    n = len(df)
+    if isinstance(e, (J.GetJsonObject, J.StringSplit)):
+        c = _eval(e.children[0], df)
+        vals = [e.eval_host(x) if x is not None else None
+                for x in _str_list(c)]
+        valid = np.array([x is not None for x in vals], dtype=np.bool_)
+        if isinstance(e, J.GetJsonObject):
+            return _strings(vals, valid)
+        return _V(e.dtype, pa.array(vals, pa.list_(pa.string())), valid)
+    if isinstance(e, C.Reverse) and e.dtype.is_string:
+        return _map_strings(_eval(e.child, df), lambda v: v[::-1])
+    if e.children and isinstance(e, (C.Size, C.ArrayContains,
+                                     C.GetArrayItem, C.SortArray,
+                                     C._ArrayExtreme, C.Reverse, C.Slice)) \
+            and e.children[0].dtype.is_array and \
+            e.children[0].dtype.element.is_string:
+        return _string_array_expr(e, df)
+    if isinstance(e, C.CreateArray):
+        children = [_eval(c, df) for c in e.children]
+        if not all(c.valid.all() for c in children):
+            raise ValueError("null array elements not supported")
+        for c in children:
+            c.valid = np.ones(n, dtype=np.bool_)
+        return _from_colval(_emit_over(e, [_colval(c) for c in children],
+                                       n, drop_validity=True), n)
+    if isinstance(e, (C.Size, C.ArrayContains, C.GetArrayItem, C.SortArray,
+                      C._ArrayExtreme, C.Reverse, C.Slice, C.ArrayRepeat,
+                      NO.GetMapValue, D.TimeWindow)):
+        return _from_colval(_emit_over(
+            e, [_colval(_eval(c, df)) for c in e.children], n), n)
+    return None
+
+
+def _string_array_expr(e, df: pd.DataFrame) -> _V:
+    """A collection expression over an ``array<string>`` (split's),
+    row by row in Python with Spark's semantics."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.ops import collections_ops as C
+    arr = _eval(e.children[0], df)
+    lists = _with_nulls(arr.values, arr.valid).to_pylist()
+    args = [_eval(c, df) for c in e.children[1:]]
+    arg = None if not args else (
+        _str_list(args[0]) if args[0].dt.is_string else
+        [v if ok else None for v, ok in zip(args[0].values.tolist(),
+                                            args[0].valid)])
+
+    def one(i, v):
+        if isinstance(e, C.Size):
+            return -1 if v is None else len(v)
+        if v is None or (arg is not None and arg[i] is None):
+            return None
+        if isinstance(e, C.ArrayContains):
+            return arg[i] in v
+        if isinstance(e, C.GetArrayItem):
+            j = int(arg[i])
+            if isinstance(e, C.ElementAt):
+                j = j - 1 if j > 0 else len(v) + j
+            return v[j] if 0 <= j < len(v) else None
+        if isinstance(e, C.SortArray):
+            return sorted(v, reverse=not e.ascending)
+        if isinstance(e, C.Reverse):
+            return v[::-1]
+        if isinstance(e, C.Slice):
+            st = e.start - 1 if e.start > 0 else len(v) + e.start
+            return [] if st < 0 else v[st:st + e.length]
+        if not v:
+            return None
+        return max(v) if e.is_max else min(v)
+
+    vals = [one(i, v) for i, v in enumerate(lists)]
+    valid = np.array([v is not None for v in vals], dtype=np.bool_)
+    if e.dtype.is_string:
+        return _strings(vals, valid)
+    if e.dtype.is_array:
+        return _V(e.dtype, pa.array(vals, pa.list_(pa.string())), valid)
+    filled = [0 if v is None else v for v in vals]
+    return _V(e.dtype, np.array(filled, dtype=e.dtype.storage), valid)
+
+
+def _emit_over(e, children, n: int, drop_validity: bool = False):
     """The device's emit of ``e`` over its evaluated ``children``."""
     from spark_rapids_tpu_torch.ops.expressions import (
-        BoundReference, EmitContext)
+        BoundReference, ColVal, EmitContext)
+    if drop_validity:
+        children = [ColVal(c.dtype, c.values, None, c.offsets)
+                    for c in children]
     refs = [BoundReference(i, c.dtype) for i, c in enumerate(children)]
     return e.with_children(refs).emit(
         EmitContext(list(children), n, n, "cpu"))
@@ -1522,9 +1676,11 @@ def host_runnable(node: L.LogicalPlan) -> bool:
         from spark_rapids_tpu_torch.plan.overrides import aggregate_outputs
         aggs = aggregate_outputs(list(node.group_exprs),
                                  list(node.agg_exprs))[0]
-        return all(a.func.name in _HOST_AGGREGATES for a in aggs)
+        return all(a.func.name in _HOST_AGGREGATES or
+                   getattr(a.func, "single_pass", False) for a in aggs)
     return isinstance(node, (L.Project, L.Filter, L.Limit, L.Union, Expand,
-                             L.FileRelation, L.InMemoryRelation, L.Sort))
+                             L.FileRelation, L.InMemoryRelation, L.Sort,
+                             L.Generate))
 
 
 _HOST_AGGREGATES = ("count", "sum", "min", "max", "avg")
@@ -1672,9 +1828,40 @@ class CpuFallbackExec(TpuExec):
         if isinstance(node, L.Sort):
             yield from self._execute_sort(node)
             return
+        if isinstance(node, L.Generate):
+            for df in self._child_frames(0):
+                yield self._build_batch(self._frame_of(
+                    self._explode(node, df)))
+            return
         reasons = f": {'; '.join(self.reasons)}" if self.reasons else ""
         raise NotImplementedError(
             f"no CPU fallback for {type(node).__name__}{reasons}")
+
+    @staticmethod
+    def _explode(node: L.Generate, df: pd.DataFrame) -> List[_V]:
+        """A Generate over one frame: arrow's list kernels give each
+        element's source row; null and empty arrays give no row."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        gens = [_eval(node.generator, df)] + (
+            [] if node.generator2 is None else [_eval(node.generator2, df)])
+        lists = [_with_nulls(g.values, g.valid) for g in gens]
+        parents = pc.list_parent_indices(lists[0]).to_numpy(
+            zero_copy_only=False).astype(np.int64)
+        m = len(parents)
+        out = [_take(_eval(e, df), parents) for e in node.required]
+        if node.position:
+            first = np.searchsorted(parents, parents, side="left")
+            out.append(_V(dts.INT32,
+                          (np.arange(m) - first).astype(np.int32),
+                          np.ones(m, dtype=np.bool_)))
+        for g, arr in zip(gens, lists):
+            flat = pc.list_flatten(arr)
+            edt = g.dt.element
+            vals = _lstr(flat) if edt.is_string else flat.to_numpy(
+                zero_copy_only=False).astype(edt.storage)
+            out.append(_V(edt, vals, np.ones(m, dtype=np.bool_)))
+        return out
 
     def _scan_files(self, node: L.FileRelation) -> Iterator[ColumnarBatch]:
         """A scan whose format is switched off: arrow record batches
@@ -1687,13 +1874,16 @@ class CpuFallbackExec(TpuExec):
                 "CPU fallback scan does not expose file metadata "
                 "columns; re-enable the columnar scan")
         import pyarrow as pa
+        from spark_rapids_tpu_torch.columnar.nested import shred_table
+        from spark_rapids_tpu_torch.io.readers import _file_column
         names = [n for n, _ in node.schema]
         got_any = False
         for rb in _dataset(node.paths, node.file_format).to_batches(
-                columns=names):
+                columns=list(dict.fromkeys(_file_column(n)
+                                           for n in names))):
             got_any = True
-            yield self._build_batch(arrow_to_frame(
-                pa.Table.from_batches([rb])))
+            table = shred_table(pa.Table.from_batches([rb]))
+            yield self._build_batch(arrow_to_frame(table.select(names)))
         if not got_any:
             yield self._build_batch(arrow_to_frame(
                 empty_batch(node.schema).to_arrow()))
@@ -1880,6 +2070,8 @@ class CpuFallbackExec(TpuExec):
         agg_list, out_named, _ = aggregate_outputs(group,
                                                    list(node.agg_exprs))
         funcs = [a.func for a in agg_list]
+        if any(getattr(f, "single_pass", False) for f in funcs):
+            return self._collect_frame(node, group, agg_list, out_named)
         for f in funcs:
             if f.name not in _HOST_AGGREGATES:
                 raise NotImplementedError(f"CPU fallback aggregate {f.name}")
@@ -1983,6 +2175,60 @@ class CpuFallbackExec(TpuExec):
                               [_eval(e, frame) for _, e in out_named])
 
 
+    def _collect_frame(self, node: L.Aggregate, group, agg_list,
+                       out_named) -> pd.DataFrame:
+        """An aggregate with collect_list / collect_set over the whole
+        child in pandas: groups in ascending key order (nulls last), a
+        list keeps its group's non-null values in input order, a set its
+        distinct non-null values ascending; count, sum, min, max and avg
+        beside them through pandas' grouping."""
+        import pyarrow as pa
+        df = self._child_frame(0)
+        n = len(df)
+        keys = [_eval(g, df) for g in group]
+        if keys:
+            kf = pd.DataFrame({i: k.series() for i, k in enumerate(keys)})
+            gid = kf.groupby(list(range(len(keys))), sort=True,
+                             dropna=False).ngroup().to_numpy()
+        else:
+            gid = np.zeros(n, dtype=np.int64)
+        ng = int(gid.max()) + 1 if n else (0 if keys else 1)
+        order = np.argsort(gid, kind="stable")
+        first = np.full(ng, -1, dtype=np.int64)
+        first[gid[order][::-1]] = order[::-1]
+        inner = [_take(k, first) for k in keys]
+        for a in agg_list:
+            f = a.func
+            c = None if f.child is None else _eval(f.child, df)
+            if getattr(f, "single_pass", False):
+                vals = c.series().to_numpy(dtype=object, na_value=None)
+                lists: List[list] = [[] for _ in range(ng)]
+                for i in order:
+                    if c.valid[i]:
+                        lists[gid[i]].append(vals[i])
+                if f.dedup:
+                    lists = [sorted(set(x), key=lambda v: (
+                        isinstance(v, float) and np.isnan(v), v))
+                        for x in lists]
+                inner.append(_V(a.dtype, pa.array(
+                    lists, dts.to_arrow_type(a.dtype)),
+                    np.ones(ng, dtype=np.bool_)))
+                continue
+            if f.name not in _HOST_AGGREGATES:
+                raise NotImplementedError(f"CPU fallback aggregate {f.name}")
+            series = pd.Series(np.ones(n)) if c is None else c.series()
+            grouped = series.groupby(gid)
+            how = {"avg": "mean"}.get(f.name, f.name)
+            got = getattr(grouped, how)().reindex(range(ng))
+            if f.name == "count":
+                got = got.fillna(0)
+            inner.append(_from_series(got.reset_index(drop=True), a.dtype))
+        frame = self._frame_of(inner)
+        nkeys = len(group)
+        return self._frame_of(inner[:nkeys] +
+                              [_eval(e, frame) for _, e in out_named])
+
+
 def _key_pairs(node: L.Join, left: pd.DataFrame, right: pd.DataFrame,
                how: str):
     """(left rows, right rows) of every pair whose keys are equal and not
@@ -2047,6 +2293,8 @@ def _to_arrow(v: _V):
     at = dts.to_arrow_type(v.dt)
     if v.dt.is_string:
         return _with_nulls(v.values, v.valid).cast(pa.string())
+    if v.dt.is_array:
+        return _with_nulls(v.values, v.valid).cast(at)
     mask = None if v.valid.all() else ~v.valid
     if v.dt.is_date:
         return pa.array(v.values.astype(np.int32), type=pa.int32(),

@@ -53,10 +53,33 @@ def _dataset(paths, file_format):
 
 
 def infer_file_schema(paths: List[str], file_format: str) -> Schema:
-    """The files' columns under the port's types; an arrow type the port
-    does not carry raises ``TypeError`` naming it."""
+    """The files' columns under the port's types, struct and map columns
+    shredded into their flat columns (``columnar/nested.py``); an arrow
+    type the port does not carry raises naming it."""
     dataset = _dataset(paths, file_format)
-    return [(f.name, dts.from_arrow_type(f.type)) for f in dataset.schema]
+    out: Schema = []
+    for f in dataset.schema:
+        out.extend(_flat_fields(f.name, dts.from_arrow_type(f.type)))
+    return out
+
+
+def _flat_fields(name: str, dt) -> Schema:
+    """A column's shredded (name, type) pairs."""
+    from spark_rapids_tpu_torch.columnar.nested import (
+        MAP_KEY_SUFFIX, MAP_VALUE_SUFFIX)
+    if dt.is_struct:
+        return [p for fn, ft in dt.fields
+                for p in _flat_fields(f"{name}.{fn}", ft)]
+    if dt.is_map:
+        return [(name + MAP_KEY_SUFFIX, dts.ArrayType(dt.key_type)),
+                (name + MAP_VALUE_SUFFIX, dts.ArrayType(dt.value_type))]
+    return [(name, dt)]
+
+
+def _file_column(name: str) -> str:
+    """The top-level file column a flat column comes from (a struct field
+    or a map half shreds from its column)."""
+    return name.split(".", 1)[0]
 
 
 def _column_name(e: Expression) -> Optional[str]:
@@ -215,11 +238,12 @@ def to_arrow_filter(expr: Expression, file_columns=None):
 
 def null_column(dt, nrows: int, device) -> Column:
     """An all-null column of ``nrows`` rows made on the device: zero
-    values (for strings, zero offsets and no chars) under a false
+    values (for strings and arrays, zero offsets and no values) under a false
     validity."""
     validity = torch.zeros(nrows, dtype=torch.bool, device=device)
-    if dt.is_string:
-        return Column(dt, torch.zeros(0, dtype=torch.uint8, device=device),
+    if dt.has_offsets:
+        return Column(dt, torch.zeros(0, dtype=dts.torch_dtype(dt),
+                                      device=device),
                       nrows, validity=validity,
                       offsets=torch.zeros(nrows + 1, dtype=torch.int32,
                                           device=device))
@@ -258,6 +282,9 @@ class TpuFileScanExec(TpuExec):
         self.columns = [n for n, _ in schema
                         if (columns is None or n in columns)
                         and n not in META_COLUMN_NAMES]
+        # the file columns read: a shredded column's whole top-level one
+        self.read_columns = list(dict.fromkeys(
+            _file_column(n) for n in self.columns))
         self.batch_rows = int(batch_rows)
         self.arrow_filter = arrow_filter
         self.reader_type = reader_type
@@ -346,7 +373,7 @@ class TpuFileScanExec(TpuExec):
         from spark_rapids_tpu_torch.io.multifile import iter_file_tables
         # None: every column, which lets the reader take whole files
         columns = None if len(self.columns) == len(self._schema) \
-            else self.columns
+            else self.read_columns
         for table in self._timed(iter_file_tables(
                 self.paths, self.file_format, columns,
                 self.arrow_filter, self.reader_type, self.batch_rows,
@@ -363,7 +390,7 @@ class TpuFileScanExec(TpuExec):
         def tables():
             for frag in dataset.get_fragments(filter=self.arrow_filter):
                 yield frag.path, frag.to_table(
-                    schema=dataset.schema, columns=self.columns,
+                    schema=dataset.schema, columns=self.read_columns,
                     filter=self.arrow_filter)
 
         for path, table in self._timed(tables()):
@@ -376,7 +403,8 @@ class TpuFileScanExec(TpuExec):
         device batches of up to ``batch_rows`` rows."""
         import pyarrow as pa
         dataset = _dataset(self.paths, self.file_format)
-        kwargs = {"columns": self.columns, "batch_size": self.batch_rows}
+        kwargs = {"columns": self.read_columns,
+                  "batch_size": self.batch_rows}
         if self.arrow_filter is not None:
             kwargs["filter"] = self.arrow_filter
         pending, rows = [], 0
@@ -417,7 +445,10 @@ def bucket_pruned_paths(node: FileRelation) -> List[str]:
 def make_file_scan_exec(node: FileRelation, conf,
                         device) -> TpuFileScanExec:
     from spark_rapids_tpu_torch.config import rapids_conf as rc
-    file_columns = {n for n, _ in node.schema} - META_COLUMN_NAMES
+    # a shredded column's flat name is no file column: filters on it stay
+    # in the engine
+    file_columns = {n for n, _ in node.schema
+                    if "." not in n} - META_COLUMN_NAMES
     arrow_filter = None
     for f in node.pushed_filters:
         af = to_arrow_filter(f, file_columns)

@@ -57,7 +57,9 @@ def write_batches(batches: Iterable[ColumnarBatch], path: str,
                 os.unlink(path)
         # mode == "append": write more files beside the old ones
 
-    tables = [b.to_arrow() for b in batches]
+    from spark_rapids_tpu_torch.columnar.nested import assemble_table
+    # shredded struct and map columns are written whole
+    tables = [assemble_table(b.to_arrow()) for b in batches]
     if not tables:
         os.makedirs(path, exist_ok=True)
         return WriteStats()

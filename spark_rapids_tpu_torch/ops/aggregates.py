@@ -377,6 +377,38 @@ class Last(First):
     _any_kind = "last_any"
 
 
+class CollectList(AggregateFunction):
+    """collect_list(x): each group's non-null values as an array, in input
+    order (the reference's CudfCollectList).  It runs in one grouped pass
+    over the whole input (``single_pass``: the exec concatenates its
+    input instead of the partial/merge pipeline): after the stable group
+    sort each group's values are contiguous, so the array is a
+    compaction, not a loop over groups."""
+
+    name = "collect_list"
+    single_pass = True
+    dedup = False
+
+    @property
+    def result_dtype(self):
+        return dts.ArrayType(self.child.dtype)
+
+    @property
+    def result_nullable(self):
+        return False
+
+    def buffers(self):
+        raise NotImplementedError("collect runs in the single-pass path")
+
+
+class CollectSet(CollectList):
+    """collect_set(x): each group's distinct non-null values, ascending
+    (the reference's CudfCollectSet; Spark leaves the order open)."""
+
+    name = "collect_set"
+    dedup = True
+
+
 # ------------------------------------------------------------------ helpers --
 
 def _row_mask(nrows, capacity: int, device, row_mask=None) -> torch.Tensor:
@@ -598,41 +630,143 @@ def _segment_reduce(kind: str, c: ColVal, seg_ids, num_segments: int,
     return out[:ns], counts
 
 
+def _sorted_groups(keys: Sequence[ColVal], nrows, capacity: int, device,
+                   row_mask=None):
+    """The sort path's grouping: ``(live, perm, valid_sorted,
+    sorted_keys, seg_ids, num_groups)``.  After the stable sort by the
+    keys the live rows form a prefix (``valid_sorted``); ``seg_ids`` is
+    each sorted row's group (``capacity``, the trash segment, past the
+    prefix); ``num_groups`` a 0-dim device tensor."""
+    from spark_rapids_tpu_torch.ops import selection
+    live = _row_mask(nrows, capacity, device, row_mask)
+    perm = sort_permutation(keys, live)
+    valid_sorted = torch.arange(capacity, device=device) < live.sum()
+    sorted_keys = selection.gather(keys, perm)
+    boundary = ~_keys_equal_prev(sorted_keys, capacity, device) & \
+        valid_sorted
+    seg_ids = torch.where(valid_sorted, torch.cumsum(boundary, 0) - 1,
+                          capacity)
+    return live, perm, valid_sorted, sorted_keys, seg_ids, boundary.sum()
+
+
+def _reduce_sorted(buffer_inputs, perm, seg_ids, capacity: int,
+                   valid_sorted) -> List[ColVal]:
+    """Each buffer input reduced per group of the sort path."""
+    from spark_rapids_tpu_torch.ops import selection
+    out = []
+    sorted_bufs = selection.gather([c for _, c in buffer_inputs], perm)
+    for (kind, _), sc in zip(buffer_inputs, sorted_bufs):
+        vals, counts = _segment_reduce(kind, sc, seg_ids, capacity,
+                                       valid_sorted)
+        out.append(ColVal(sc.dtype, vals, counts > 0))
+    return out
+
+
+def _first_rows(seg_ids, capacity: int) -> torch.Tensor:
+    """The first sorted row of each group (the key values' row)."""
+    first = torch.full((capacity + 1,), capacity, dtype=torch.int64,
+                       device=seg_ids.device)
+    first.scatter_reduce_(0, seg_ids,
+                          torch.arange(capacity, device=seg_ids.device),
+                          "amin")
+    return first[:capacity].clamp(0, max(capacity - 1, 0))
+
+
 def groupby_aggregate(keys: Sequence[ColVal],
                       buffer_inputs: Sequence[Tuple[str, ColVal]],
                       nrows, capacity: int, row_mask=None):
     """Sort-based group-by.  Returns (out_keys, out_buffers, num_groups):
     outputs have ``capacity`` rows, of which the first ``num_groups`` (a
     0-dim device tensor) are groups in ascending key order."""
+    from spark_rapids_tpu_torch.ops import selection
     device = (keys[0].values if keys else buffer_inputs[0][1].values).device
     keys = [widen(c, capacity) for c in keys]
     buffer_inputs = [(k, widen(c, capacity)) for k, c in buffer_inputs]
-    live = _row_mask(nrows, capacity, device, row_mask)
-    n_live = live.sum()
-    perm = sort_permutation(keys, live)
-    # after the sort the live rows form a prefix of length n_live
-    valid_sorted = torch.arange(capacity, device=device) < n_live
-    from spark_rapids_tpu_torch.ops import selection
-    sorted_keys = selection.gather(keys, perm)
-    sorted_bufs = selection.gather([c for _, c in buffer_inputs], perm)
-    boundary = ~_keys_equal_prev(sorted_keys, capacity, device) & \
-        valid_sorted
-    num_groups = boundary.sum()
-    seg_ids = torch.cumsum(boundary, 0) - 1
-    seg_ids = torch.where(valid_sorted, seg_ids, capacity)
-    out_bufs = []
-    for (kind, _), sc in zip(buffer_inputs, sorted_bufs):
-        vals, counts = _segment_reduce(kind, sc, seg_ids, capacity,
-                                       valid_sorted)
-        out_bufs.append(ColVal(sc.dtype, vals, counts > 0))
-    # representative (first) row of each group for the key values
-    first = torch.full((capacity + 1,), capacity, dtype=torch.int64,
-                       device=device)
-    first.scatter_reduce_(0, seg_ids, torch.arange(capacity, device=device),
-                          "amin")
-    first = first[:capacity].clamp(0, max(capacity - 1, 0))
-    out_keys = selection.gather(sorted_keys, first)
+    _, perm, valid_sorted, sorted_keys, seg_ids, num_groups = \
+        _sorted_groups(keys, nrows, capacity, device, row_mask)
+    out_bufs = _reduce_sorted(buffer_inputs, perm, seg_ids, capacity,
+                              valid_sorted)
+    out_keys = selection.gather(sorted_keys, _first_rows(seg_ids, capacity))
     return out_keys, out_bufs, num_groups
+
+
+def groupby_collect(keys: Sequence[ColVal], collect_inputs, nrows,
+                    capacity: int,
+                    buffer_inputs: Sequence[Tuple[str, ColVal]] = (),
+                    row_mask=None):
+    """Group by ``keys``, build an array per group for each ``(child,
+    dedup)`` of ``collect_inputs`` and reduce ``buffer_inputs`` as the
+    sort path does.  Returns ``(out_keys, out_buffers, arrays, n)``, each
+    output exactly ``n`` groups long (ascending keys, nulls first), the
+    arrays as ColVals with offsets; the group count and the arrays'
+    element totals come back in one counted fetch.
+
+    collect_list keeps each group's rows in input order (the group sort
+    is stable).  collect_set sorts each group's values once more, keyed
+    (keys, null flag, value): a value equal to the one before it in its
+    group is dropped, and so are nulls."""
+    from spark_rapids_tpu_torch.columnar.column import check_offsets
+    from spark_rapids_tpu_torch.ops import selection
+    device = (keys[0].values if keys else collect_inputs[0][0].values).device
+    keys = [widen(c, capacity) for c in keys]
+    buffer_inputs = [(k, widen(c, capacity)) for k, c in buffer_inputs]
+    live, perm, valid_sorted, sorted_keys, seg_ids, num_groups = \
+        _sorted_groups(keys, nrows, capacity, device, row_mask)
+    out_bufs = _reduce_sorted(buffer_inputs, perm, seg_ids, capacity,
+                              valid_sorted)
+    pending = []
+    for child, dedup in collect_inputs:
+        child = widen(child, capacity)
+        if dedup:
+            null_flag = torch.zeros(capacity, dtype=torch.int8,
+                                    device=device) if child.validity is None \
+                else (~child.validity).to(torch.int8)
+            order = _order_keys(child.values) + [null_flag] + \
+                _sortable_keys(keys, live)
+            perm2 = torch.arange(capacity, device=device)
+            for k in order:
+                perm2 = perm2[torch.argsort(k[perm2], stable=True)]
+            schild, *skeys = selection.gather([child] + list(keys), perm2)
+            same = _keys_equal_prev(skeys, capacity, device)
+            seg = torch.where(valid_sorted,
+                              torch.cumsum(~same & valid_sorted, 0) - 1,
+                              capacity)
+            v = schild.values
+            prev = torch.roll(v, 1)
+            same_val = v == prev
+            if v.dtype.is_floating_point:
+                same_val = same_val | (torch.isnan(v) & torch.isnan(prev))
+            if schild.validity is not None:
+                # a null row's lane may hold a valid value: runs merge
+                # only valid with valid
+                vv = schild.validity
+                same_val = same_val & vv & torch.roll(vv, 1)
+            keep = valid_sorted & ~(same & same_val)
+        else:
+            schild = selection.gather([child], perm)[0]
+            keep, seg = valid_sorted, seg_ids
+        if schild.validity is not None:
+            keep = keep & schild.validity
+        lengths = torch.zeros(capacity + 1, dtype=torch.int64,
+                              device=device).index_add_(
+            0, seg, keep.to(torch.int64))[:capacity]
+        order, total = selection.compact_plan(keep)
+        pending.append((child.dtype, schild.values, lengths, order, total))
+    n, *totals = hostsync.fetch_all([num_groups] +
+                                    [p[4] for p in pending])
+    n = int(n)
+    arrays = []
+    for (dt, values, lengths, order, _), total in zip(pending, totals):
+        check_offsets(int(total), f"collect over {dt}")
+        offsets = torch.zeros(n + 1, dtype=torch.int64, device=device)
+        torch.cumsum(lengths[:n], 0, out=offsets[1:])
+        arrays.append(ColVal(dts.ArrayType(dt), values[order[:int(total)]],
+                             None, offsets.to(torch.int32)))
+    out_keys = selection.gather(sorted_keys, _first_rows(seg_ids,
+                                                         capacity)[:n])
+    out_bufs = [ColVal(b.dtype, b.values[:n], b.validity[:n])
+                for b in out_bufs]
+    return out_keys, out_bufs, arrays, n
 
 
 # ------------------------------------------------- coded (sort-free) path --

@@ -2,8 +2,8 @@
 
 Counterpart of ``spark_rapids_tpu/ops/concat.py``: same-schema batches
 append on the device, with no host round trip for the data.  Deferred row
-counts, and the chars each string column holds, resolve in one counted
-fetch (exact-length outputs need them).
+counts, and the chars (elements) each string (array) column holds,
+resolve in one counted fetch (exact-length outputs need them).
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Sequence
 import torch
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import Column, RowCount
+from spark_rapids_tpu_torch.columnar.column import (
+    Column, RowCount, check_offsets)
 
 
 def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
@@ -51,9 +52,7 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
             for c, b, e in zip(cols, batches, ends):
                 parts.append(c.offsets[: b.nrows] + base)
                 base += e
-            if base >= (1 << 31):
-                raise ValueError(f"column {name!r}: {base} chars do not "
-                                 "fit int32 offsets")
+            check_offsets(base, f"column {name!r}")
             parts.append(torch.tensor([base], dtype=torch.int32,
                                       device=data.device))
             offsets = torch.cat(parts)

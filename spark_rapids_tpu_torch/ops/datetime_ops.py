@@ -9,10 +9,10 @@ proleptic Gregorian, UTC as in the JAX package), ``LastDay``,
 (``DateAdd``, ``DateSub``, ``DateDiff``, ``AddMonths``,
 ``MonthsBetween``), ``TruncDate``, epoch seconds (``UnixTimestamp``,
 ``ToUnixTimestamp``, ``FromUnixTime``), ``TimeAdd`` and
-``DateFormatClass`` over its fixed-width pattern subset.  A timestamp
-reads as its UTC day; a date meets the time functions at midnight.
-``TimeWindow`` waits for the nested types (``F.window`` returns a
-struct).
+``DateFormatClass`` over its fixed-width pattern subset, and
+``TimeWindow`` (the edges of ``F.window``'s (start, end) struct).  A
+timestamp reads as its UTC day; a date meets the time functions at
+midnight.
 
 Where the JAX package departs from Spark the port keeps Spark's answer
 (``ROADMAP.md`` queue 3): ``months_between`` takes Spark's end-of-month
@@ -552,3 +552,46 @@ class FromUnixTime(UnaryExpression):
         if v is not None and v.dim() == 0:
             v = v.expand(ctx.capacity)
         return ColVal(dts.STRING, chars, v, offsets)
+
+
+class TimeWindow(UnaryExpression):
+    """window(ts, windowDuration[, slideDuration[, startTime]]): one edge
+    of a row's time window (the reference's GpuTimeWindow): the timestamp
+    floored to its slide bucket, the start or the end.
+    ``functions.window`` pairs a start and an end into the (start, end)
+    struct.  ``shift_us``: a sliding window's i-th overlap is its bucket
+    shifted back by i slides (the DataFrame expands one row per overlap
+    through an Expand, as Spark does)."""
+
+    def __init__(self, child: Expression, window_us: int, slide_us: int,
+                 start_us: int = 0, field: str = "start",
+                 shift_us: int = 0):
+        super().__init__(child)
+        self.window_us = int(window_us)
+        self.slide_us = int(slide_us)
+        self.start_us = int(start_us)
+        self.field = field
+        self.shift_us = int(shift_us)
+
+    def with_children(self, children):
+        return TimeWindow(children[0], self.window_us, self.slide_us,
+                          self.start_us, self.field, self.shift_us)
+
+    @property
+    def dtype(self):
+        return dts.TIMESTAMP_US
+
+    def cache_key(self):
+        return ("TimeWindow", self.child.cache_key(), self.window_us,
+                self.slide_us, self.start_us, self.field, self.shift_us)
+
+    def edge(self, ts: torch.Tensor) -> torch.Tensor:
+        """The window edge of int64 microseconds ``ts``."""
+        start = ts - torch.remainder(ts - self.start_us, self.slide_us) \
+            - self.shift_us
+        return start if self.field == "start" else start + self.window_us
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        c = self.child.emit(ctx)
+        return ColVal(dts.TIMESTAMP_US, self.edge(_to_micros(c)),
+                      c.validity)

@@ -170,8 +170,22 @@ class UnresolvedColumn(Expression):
         for i, (name, dt) in enumerate(schema):
             if name == self.col_name:
                 return BoundReference(i, dt, name=name)
-        raise KeyError(f"column {self.col_name!r} not in schema "
-                       f"{[n for n, _ in schema]}")
+        # a bare reference to a shredded map column reads its key array
+        # (size(m) ...); a whole struct or map projection expands
+        # earlier, in select()
+        from spark_rapids_tpu_torch.columnar.nested import (
+            MAP_KEY_SUFFIX, is_shredded_map)
+        flat = [n for n, _ in schema]
+        if is_shredded_map(self.col_name, flat):
+            return UnresolvedColumn(self.col_name + MAP_KEY_SUFFIX).bind(
+                schema)
+        members = [n for n in flat if n.startswith(self.col_name + ".")]
+        if members:
+            raise KeyError(
+                f"column {self.col_name!r} is a shredded struct "
+                f"({members}); access fields via getField or select it "
+                "whole")
+        raise KeyError(f"column {self.col_name!r} not in schema {flat}")
 
     @property
     def name(self) -> str:

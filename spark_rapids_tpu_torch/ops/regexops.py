@@ -627,26 +627,3 @@ class SplitPart(Expression):
         validity = combine_validity(_validity_of(c, cap), have)
         return ColVal(dts.STRING, chars, validity, offsets)
 
-
-class StringSplit(Expression):
-    """split(s, pattern): an array of strings, which the port cannot hold
-    until the nested types are ported; ``F.split(s, d).getItem(n)``
-    becomes a ``SplitPart``."""
-
-    def __init__(self, child: Expression, pattern: str, limit: int = -1):
-        self.children = (child,)
-        self.pattern = pattern
-        self.limit = int(limit)
-
-    def with_children(self, children):
-        return StringSplit(children[0], self.pattern, self.limit)
-
-    @property
-    def dtype(self):
-        raise NotImplementedError(
-            "split() returns an array<string>: nested types are not ported "
-            "to the PyTorch engine (split(s, d).getItem(n) is)")
-
-    def cache_key(self):
-        return ("StringSplit", self.pattern, self.limit,
-                self.children[0].cache_key())

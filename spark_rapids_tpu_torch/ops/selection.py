@@ -4,9 +4,10 @@ Counterpart of ``spark_rapids_tpu/ops/selection.py``.  ``compact`` keeps
 the JAX package's sort-free formulation (a prefix sum gives each kept row
 its target, one scatter builds the permutation).  A string gather rebuilds
 offsets from the gathered lengths and maps every output byte to its
-source byte with one searchsorted, as the JAX package does; its chars
-buffer is sized on the host, so the kept row count and the chars it needs
-come back in one counted fetch.
+source byte with one searchsorted, as the JAX package does (an array
+column takes the same path, element for byte); its chars buffer is sized
+on the host, so the kept row count and the chars it needs come back in
+one counted fetch.
 """
 
 from __future__ import annotations

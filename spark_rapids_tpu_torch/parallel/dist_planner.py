@@ -833,6 +833,21 @@ class DistPlanner:
         return ColumnarBatch(out, total)
 
 
+def _nested_reason(node: L.LogicalPlan) -> List[str]:
+    """Arrays (maps are two arrays) and explodes run on one device: the
+    sharded operators move no offsets column.  A struct is flat columns
+    and shards as they do."""
+    if isinstance(node, L.Generate):
+        return ["nested data (explode) runs on one device"]
+    # a scan moves only the columns the plan reads (the pushdown pass)
+    read = getattr(node, "required_columns", None)
+    arrays = [n for n, dt in node.schema if dt.is_array and
+              (read is None or n in read)]
+    if arrays:
+        return [f"nested data (array columns {arrays}) runs on one device"]
+    return []
+
+
 def try_distributed(session, plan: L.LogicalPlan):
     """Entry point from DataFrame execution: a list holding one batch when
     the plan ran on the session's shard group, else None: the plan runs
@@ -857,7 +872,7 @@ def try_distributed(session, plan: L.LogicalPlan):
     stack = [plan]
     while stack:
         node = stack.pop()
-        reasons = node_reasons(node, session.conf)
+        reasons = node_reasons(node, session.conf) + _nested_reason(node)
         if reasons:
             session.last_dist_explain = (
                 f"fallback: {type(node).__name__}: " + "; ".join(reasons))

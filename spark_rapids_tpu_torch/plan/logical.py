@@ -4,8 +4,8 @@ Counterpart of ``spark_rapids_tpu/plan/logical.py``, cut to the nodes the
 ported slices plan: an in-memory relation, a file relation, Range,
 Project (also the plan node of ``withColumnRenamed``), Filter,
 Aggregate, Join (equi-join keys and an optional residual condition),
-Sort, Limit, Union and Window (``exec/expand.py`` holds Expand, as in
-the JAX package).  The
+Sort, Limit, Union, Window and Generate (``exec/expand.py`` holds
+Expand, as in the JAX package).  The
 DataFrame API builds them and ``plan/overrides.py`` lowers them to
 physical operators.
 """
@@ -301,6 +301,62 @@ class BatchId(LogicalPlan):
 
     def describe(self):
         return "BatchId"
+
+
+class Generate(LogicalPlan):
+    """explode / posexplode of one array generator over the child (the
+    reference's GpuGenerateExec); ``required`` are the child expressions
+    repeated for each element.  A generator naming a shredded map column
+    explodes into ``key`` and ``value`` (Spark's map explode): the two
+    arrays share their offsets, so both ride one row expansion."""
+
+    def __init__(self, generator: Expression, required, position: bool,
+                 child: LogicalPlan, col_name: str = "col",
+                 pos_name: str = "pos"):
+        from spark_rapids_tpu_torch.columnar.nested import (
+            MAP_KEY_SUFFIX, MAP_VALUE_SUFFIX, is_shredded_map)
+        from spark_rapids_tpu_torch.ops.expressions import UnresolvedColumn
+        names = [n for n, _ in child.schema]
+        self.map_mode = isinstance(generator, UnresolvedColumn) and \
+            is_shredded_map(generator.col_name, names)
+        if self.map_mode:
+            base = generator.col_name
+            self.generator = UnresolvedColumn(
+                base + MAP_KEY_SUFFIX).bind(child.schema)
+            self.generator2 = UnresolvedColumn(
+                base + MAP_VALUE_SUFFIX).bind(child.schema)
+        else:
+            self.generator = generator.bind(child.schema)
+            self.generator2 = None
+        self.required = [e.bind(child.schema) for e in required]
+        self.position = position
+        self.col_name = col_name
+        self.pos_name = pos_name
+        taken = {e.name for e in self.required}
+        clash = {"key", "value"} if self.map_mode else {col_name}
+        if position:
+            clash |= {pos_name}
+        if taken & clash:
+            raise ValueError(
+                f"explode output name(s) {sorted(taken & clash)} collide "
+                "with pass-through columns; alias the explode (e.g. "
+                ".alias('elem'))")
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        from spark_rapids_tpu_torch.exec.generate import generate_schema
+        return generate_schema(self.generator, self.required, self.position,
+                               self.col_name, self.pos_name,
+                               self.generator2)
+
+    def describe(self):
+        kind = "posexplode" if self.position else "explode"
+        return f"Generate[{kind}({self.generator.name})]"
 
 
 class Window(LogicalPlan):

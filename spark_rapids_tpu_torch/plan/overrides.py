@@ -11,7 +11,11 @@ LIKE pattern the device does not run, a regex or ``date_format`` pattern
 outside the device subset, ``spark.rapids.sql.regexp.enabled`` and
 ``spark.rapids.sql.incompatibleOps.enabled`` (ASCII case mapping and
 byte-semantics regexes are incompatible expressions, as in the JAX
-package), a window function or frame outside the ported set, a residual condition on a join that is not inner, a float
+package), a window function or frame outside the ported set, a residual condition on a join that is not inner, a host-only
+expression (``get_json_object``, ``split`` to an array of strings), a
+nested case the device does not run (an array sort, group or join key,
+an explode of a non-array, an ``array<string>`` input, collect beside a
+string min/max), a float
 aggregate under ``variableFloatAgg.enabled=false``, or a type outside the
 expression's signature.  With ``spark.rapids.sql.optimizer.enabled`` the
 cost-based optimizer (``plan/cbo.py``) may add reasons.  A node without
@@ -23,7 +27,8 @@ tree (``spark.rapids.sql.explain`` prints it) and ``last_cbo`` the
 optimizer's decisions.
 
 The converters cover in-memory and file relations, Range, Project,
-Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window and BatchId;
+Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window, Generate and
+BatchId;
 ``_plan_aggregate``, the pushdown pass into scans, the
 ``Limit(Sort) -> TopN`` rewrite and the fusion pass follow the JAX
 planner: a Project/Filter chain under an Aggregate folds into the
@@ -50,10 +55,14 @@ from spark_rapids_tpu_torch.exec.window import (
     TpuWindowExec, WindowExpression, group_by_spec)
 from spark_rapids_tpu_torch.exec.fusion import (
     FusedStageExec, compose_chain, fusion_metrics)
+from spark_rapids_tpu_torch.exec.generate import TpuGenerateExec
 from spark_rapids_tpu_torch.ops import arithmetic as A
+from spark_rapids_tpu_torch.ops import collections_ops as C
 from spark_rapids_tpu_torch.ops import datetime_ops as D
 from spark_rapids_tpu_torch.ops import decimal_ops as DEC
+from spark_rapids_tpu_torch.ops import json_ops as J
 from spark_rapids_tpu_torch.ops import misc_exprs as ME
+from spark_rapids_tpu_torch.ops import nested_ops as NO
 from spark_rapids_tpu_torch.ops import predicates as P
 from spark_rapids_tpu_torch.ops import regexops as RX
 from spark_rapids_tpu_torch.ops import stringops as S
@@ -71,20 +80,23 @@ from spark_rapids_tpu_torch.plan.logical import AggregateExpression
 
 class ExprRule:
     def __init__(self, cls: Type[Expression], sig: ts.TypeSig,
-                 incompat: str = ""):
+                 incompat: str = "", host_only: str = ""):
         self.cls = cls
         self.sig = sig
         # non-empty: a documented difference from CPU Spark; the
         # expression runs on the device only under
         # spark.rapids.sql.incompatibleOps.enabled
         self.incompat = incompat
+        # non-empty: why the expression never runs on the device (its
+        # node always takes the CPU fallback)
+        self.host_only = host_only
 
 
 _EXPR_RULES: Dict[Type[Expression], ExprRule] = {}
 
 
-def expr_rule(cls, sig=ts.COMMON, incompat=""):
-    _EXPR_RULES[cls] = ExprRule(cls, sig, incompat)
+def expr_rule(cls, sig=ts.COMMON, incompat="", host_only=""):
+    _EXPR_RULES[cls] = ExprRule(cls, sig, incompat, host_only)
 
 
 # a class the port lacks gets its rule when it is ported
@@ -132,6 +144,32 @@ for _c in (DEC.PromotePrecision, DEC.CheckOverflow, DEC.MakeDecimal,
            DEC.UnscaledValue):
     expr_rule(_c, ts.NUMERIC)
 
+# collections (collectionOperations.scala and the complex-type rules)
+for _c in (C.CreateArray, C.SortArray, C.Slice):
+    expr_rule(_c, ts.ARRAY)
+for _c in (C.Size, C.ArrayContains, C.GetArrayItem, C.ElementAt,
+           D.TimeWindow):
+    expr_rule(_c)
+# the element type is the result: the signature admits what the
+# segmented reduction handles
+for _c in (C.ArrayMin, C.ArrayMax):
+    expr_rule(_c, ts.BOOLEAN + ts.NUMERIC)
+expr_rule(C.ArrayRepeat, ts.ARRAY,
+          incompat="array_repeat(NULL, n) yields a NULL row, not an array "
+                   "of nulls (null elements have no device representation)")
+expr_rule(C.Reverse, ts.COMMON + ts.ARRAY,
+          incompat="string reverse is byte-wise (ASCII-only)")
+# structs and maps: most of these resolve when they bind
+# (ops/nested_ops.py); GetMapValue runs
+for _c in (NO.GetStructField, NO.CreateNamedStruct, NO.CreateMap,
+           NO.MapKeys, NO.MapValues, NO.GetMapValue):
+    expr_rule(_c)
+expr_rule(J.GetJsonObject, host_only="JSONPath evaluation runs on the host "
+          "(CPU fallback), as in the JAX package")
+expr_rule(J.StringSplit, ts.ALL,
+          host_only="an array<string> has no device representation "
+          "(split(s, d).getItem(n) runs on the device)")
+
 # aggregates whose float sums reorder across chunks
 _FLOAT_SUM_AGGREGATES = ("sum", "avg", "var_pop", "var_samp", "stddev_pop",
                          "stddev_samp")
@@ -139,7 +177,7 @@ _FLOAT_SUM_AGGREGATES = ("sum", "avg", "var_pop", "var_samp", "stddev_pop",
 # the plan nodes with a device operator (TpuOverrides._convert_node)
 _PLAN_CONVERTERS = (L.InMemoryRelation, L.FileRelation, L.Range, L.Union,
                     Expand, L.Window, L.Project, L.Filter, L.Aggregate,
-                    L.Join, L.Sort, L.Limit, L.BatchId)
+                    L.Join, L.Sort, L.Limit, L.BatchId, L.Generate)
 
 _FORMAT_GATES = {fmt: (rc.FORMAT_ENABLED[fmt], rc.FORMAT_READ_ENABLED[fmt])
                  for fmt in rc.FORMAT_ENABLED}
@@ -195,6 +233,9 @@ class ExprMeta(BaseMeta):
                 f"expression {name} disabled by "
                 f"spark.rapids.sql.expression.{name}")
         rule = _EXPR_RULES.get(type(expr))
+        if rule is not None and rule.host_only:
+            self.will_not_work(f"{name} runs on the host only: "
+                               f"{rule.host_only}")
         if rule is not None and rule.incompat and \
                 not self.conf.get(rc.INCOMPAT_ENABLED):
             self.will_not_work(
@@ -257,7 +298,14 @@ class ExprMeta(BaseMeta):
             reason = func.supported_reason()
             if reason:
                 self.will_not_work(reason)
+            collect = getattr(func, "single_pass", False)
+            if expr.dtype.is_array and not collect:
+                self.will_not_work(
+                    f"aggregate {func.name} over array values not "
+                    "supported (only collect_list/collect_set produce "
+                    "arrays)")
             if child is not None and child.dtype.has_offsets and \
+                    not collect and \
                     func.name not in ("count", "min", "max", "first",
                                       "last"):
                 # string min/max run over order-preserving dictionary
@@ -321,7 +369,55 @@ def node_reasons(node: L.LogicalPlan, conf: rc.RapidsConf) -> List[str]:
             "non-equi join conditions only supported for inner joins on "
             f"the device (the {node.join_type} join's residual semantics "
             "need the nested-loop join)")
+    return out + nested_reasons(node)
+
+
+def nested_reasons(node: L.LogicalPlan) -> List[str]:
+    """The nested cases the device does not run (the JAX planner's
+    rules): an ``array<string>`` input (host only), an array sort, group
+    or join key, a collect beside a string-valued min/max/first/last (the
+    single pass stages no dictionary for them), an explode of a
+    non-array."""
+    out = []
+    for c in node.children:
+        for cn, cdt in c.schema:
+            if cdt.is_array and cdt.element.is_string:
+                out.append(f"input column {cn!r} is array<string>, a "
+                           "host-only type (no device representation)")
+    try:
+        if isinstance(node, L.Sort) and any(
+                e.dtype.is_array for e, _, _ in node.orders):
+            out.append("array sort keys not supported on the device")
+        if isinstance(node, L.Aggregate):
+            if any(e.dtype.is_array for e in node.group_exprs):
+                out.append("array group-by keys not supported on the "
+                           "device")
+            funcs = [x.func for e in node.agg_exprs
+                     for x in _walk_aggs(e)]
+            if any(getattr(f, "single_pass", False) for f in funcs) and \
+                    any(f.child is not None and f.child.dtype.has_offsets
+                        and not getattr(f, "single_pass", False)
+                        for f in funcs):
+                out.append("collect aggregates combined with string-valued "
+                           "min/max/first/last fall back to CPU")
+        if isinstance(node, L.Generate) and \
+                not node.generator.dtype.is_array:
+            out.append(f"explode needs an array column, got "
+                       f"{node.generator.dtype}")
+        if isinstance(node, L.Join) and any(
+                k.dtype.is_array for k in node.left_keys):
+            out.append("array join keys not supported on the device")
+    except (RuntimeError, TypeError, ValueError) as e:
+        out.append(str(e))
     return out
+
+
+def _walk_aggs(e: Expression):
+    if isinstance(e, AggregateExpression):
+        yield e
+        return
+    for c in e.children:
+        yield from _walk_aggs(c)
 
 
 class PlanMeta(BaseMeta):
@@ -443,6 +539,10 @@ def _node_expressions(node: L.LogicalPlan) -> List[Expression]:
         return [e for _, e in node.window_exprs]
     if isinstance(node, L.Project):
         return list(node.exprs)
+    if isinstance(node, L.Generate):
+        gens = [node.generator] + ([node.generator2]
+                                   if node.generator2 is not None else [])
+        return gens + list(node.required)
     if isinstance(node, L.Filter):
         return [node.condition]
     if isinstance(node, L.Aggregate):
@@ -699,6 +799,12 @@ class TpuOverrides:
             return self._sort(node.orders, children[0])
         if isinstance(node, L.BatchId):
             return ME.TpuBatchIdExec(children[0])
+        if isinstance(node, L.Generate):
+            return TpuGenerateExec(node.generator, node.required,
+                                   node.position, children[0],
+                                   col_name=node.col_name,
+                                   pos_name=node.pos_name,
+                                   generator2=node.generator2)
         assert isinstance(node, L.Limit), type(node)
         return TpuLocalLimitExec(node.n, children[0])
 

@@ -32,14 +32,6 @@ AGG_FNS = {"sum", "count", "avg", "mean", "min", "max", "first", "last",
 
 WINDOW_RANK_FNS = {"row_number", "rank", "dense_rank", "percent_rank"}
 
-# the JAX package's SQL functions over nested types (arrays, structs,
-# maps, split's array of strings, the window struct): the port raises
-# NotImplementedError for each until the nested types are ported
-_JAX_FUNCS = {
-    "size", "array", "element_at", "map_keys", "map_values", "array_min",
-    "array_max", "reverse", "slice", "array_repeat", "get_json_object",
-    "split", "window", "struct"}
-
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
@@ -96,6 +88,11 @@ class Scope:
             return hits[0][1], rest
         if self.sources:
             all_cols = self.all_columns()
+            if name not in all_cols and any(
+                    c.startswith(name + ".") for c in all_cols):
+                # a shredded struct or map: its fields are the flat
+                # columns "name.field" (the JAX resolver raises here)
+                return name, rest
             if name not in all_cols:
                 raise KeyError(
                     f"column {name!r} not found; available: {all_cols}")
@@ -192,8 +189,17 @@ class Resolver:
             # keys materialize as hidden columns first
             key_cols: List[str] = []
             pre_exprs = []
+            # a struct key (window(...), struct(...)) groups through
+            # DataFrame.groupBy, which shreds it (and expands a sliding
+            # window); the JAX resolver materializes it and fails
+            struct_keys: Dict[str, object] = {}
             for i, g in enumerate(stmt.group_by):
-                if isinstance(g, A.ColRef):
+                if isinstance(g, A.FuncCall) and g.window is None and \
+                        g.name in ("window", "struct"):
+                    hidden = f"__g{i}"
+                    struct_keys[hidden] = self._expr(g, scope).alias(hidden)
+                    key_cols.append(hidden)
+                elif isinstance(g, A.ColRef):
                     name, rest = scope.resolve(g.parts)
                     if rest:
                         raise ValueError(
@@ -243,7 +249,8 @@ class Resolver:
                     [[key_cols[i] for i in s] for s in stmt.group_sets],
                     *key_cols).agg(*aggs.values())
             else:
-                df = df.group_by(*key_cols).agg(*aggs.values())
+                df = df.group_by(*[struct_keys.get(k, k)
+                                   for k in key_cols]).agg(*aggs.values())
             # post-agg scope: original aliases keep their surviving
             # group keys so qualified refs (c.name) still resolve; the
             # anonymous source holds only the hidden names
@@ -567,6 +574,8 @@ class Resolver:
         fn = {"sum": F.sum, "count": F.count, "avg": F.avg,
               "mean": F.avg, "min": F.min, "max": F.max,
               "first": F.first, "last": F.last,
+              "collect_list": F.collect_list,
+              "collect_set": F.collect_set,
               "stddev": F.stddev, "stddev_samp": F.stddev_samp,
               "stddev_pop": F.stddev_pop, "variance": F.variance,
               "var_samp": F.var_samp, "var_pop": F.var_pop}.get(node.name)
@@ -662,6 +671,10 @@ class Resolver:
             "months_between": F.months_between, "ascii": F.ascii,
             "char": F.chr, "chr": F.chr, "md5": F.md5, "hash": F.hash,
             "to_unix_timestamp": F.to_unix_timestamp,
+            "size": F.size, "array": F.array, "element_at": F.element_at,
+            "map_keys": F.map_keys, "map_values": F.map_values,
+            "array_min": F.array_min, "array_max": F.array_max,
+            "reverse": F.reverse, "struct": F.struct,
         }
         if n in simple:
             return simple[n](*args)
@@ -711,8 +724,18 @@ class Resolver:
                              lit_arg(2) if len(args) > 2 else "")
         if n == "translate":
             return F.translate(args[0], lit_arg(1), lit_arg(2))
-        if n in _JAX_FUNCS:
-            raise _not_ported(f"the SQL function {n}()")
+        if n == "slice":
+            return F.slice(args[0], int(lit_arg(1)), int(lit_arg(2)))
+        if n == "array_repeat":
+            return F.array_repeat(args[0], int(lit_arg(1)))
+        if n == "get_json_object":
+            return F.get_json_object(args[0], lit_arg(1))
+        if n == "split":
+            return F.split(args[0], lit_arg(1),
+                           int(lit_arg(2)) if len(args) > 2 else -1)
+        if n == "window":
+            return F.window(args[0], lit_arg(1),
+                            lit_arg(2) if len(args) > 2 else None)
         raise ValueError(f"unknown SQL function {n!r}")
 
     def _expr(self, node, scope: Scope):
@@ -727,10 +750,10 @@ class Resolver:
             return F.lit(node.value)
         if isinstance(node, A.ColRef):
             name, rest = scope.resolve(node.parts)
-            if rest:
-                raise _not_ported(
-                    f"struct field access ({'.'.join(node.parts)})")
-            return F.col(name)
+            c = F.col(name)
+            for field in rest:
+                c = c.getField(field)
+            return c
         if isinstance(node, A.BinOp):
             left = self._expr(node.left, scope)
             right = self._expr(node.right, scope)

@@ -297,13 +297,19 @@ def test_views_and_columns(sessions):
 def test_unported_construct_raises_with_its_name(text, missing, sessions):
     """A construct outside the port raises NotImplementedError naming
     it, whether it is caught while lowering the SQL or when the CPU
-    fallback meets a node it has no branch for (a window) or a function
-    over the nested types (``size``).  ``md5`` is tagged by name and runs
-    in the CPU fallback, with the JAX package's answer.  The numeric
-    functions, the variance family, ``first``, decimal casts, the string
-    functions and casts to strings have since been ported: they run on
-    the device, with the JAX package's answer."""
+    fallback meets a node it has no branch for (a window).  ``md5`` is
+    tagged by name and runs in the CPU fallback, with the JAX package's
+    answer.  The numeric functions, the variance family, ``first``,
+    decimal casts, the string functions and casts to strings have since
+    been ported: they run on the device, with the JAX package's answer.
+    ``size`` is ported with the nested types: over a string it is
+    Spark's type mismatch, a ``TypeError`` naming it (the JAX package
+    answers the string's byte length)."""
     s = sessions["default"]
+    if text in TYPE_ERRORS:
+        with pytest.raises(TypeError, match="Size"):
+            s.sql(text).collect()
+        return
     if text in PORTED_ANSWERS:
         df = s.sql(text)
         assert "CpuFallbackExec" not in df.explain()
@@ -319,6 +325,8 @@ def test_unported_construct_raises_with_its_name(text, missing, sessions):
         s.sql(text).collect()
 
 
+# the cases above that are a type mismatch since the function is ported
+TYPE_ERRORS = {"SELECT size(note) FROM orders"}
 # the cases above that the CPU fallback answers
 FALLBACK_ANSWERS = {"SELECT md5(note) FROM orders"}
 # the cases above that the device now answers
