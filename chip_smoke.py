@@ -84,6 +84,22 @@ just before it and read just after:
   through parquet and back; all at SF0.1 on the card equal to the
   engine on the CPU (a spawned process); ``hash_insert``,
   ``hash_probe`` and ``masked_multi_reduce`` each launched;
+- the ``udf`` phase over the same tables: UD1-UD9 (``models/udf.py``:
+  TPC-H q6 and q1's shape as compiled Python UDFs, a black-box UDF over
+  the 1.5M customers, a ``tpu_udf`` torch function, ``mapInPandas``,
+  ``applyInPandas``, grouped-aggregate and window pandas UDFs,
+  ``cogroup``, a cached slice of lineitem read by three queries, a pivot
+  over the lineitem-orders join) in strict test mode, one warm and one
+  timed run bit for bit (rows/s, launches, host syncs and the Python
+  execs' host ms), each equal to numpy's or pandas' answers (computed by
+  the process that generated the tables); UD1 bit for bit tpch22's q6,
+  UD2 with the hash path off, UD3 through 4 pool workers equal to inline
+  (the pool ran, nothing degraded), UD4's torch function bit for bit its
+  column form, UD8's cached answers equal to the uncached plan's (float
+  sums within 1e-12), the cache's bytes and host ms; all at SF0.1 on the
+  card equal to the engine on the CPU (a spawned process);
+  ``hash_insert``, ``hash_probe`` (UD8c's join to one month of orders)
+  and ``masked_multi_reduce`` each launched;
 - the ``files`` phase: the same SF10 tables written as parquet through
   ``DataFrame.write.parquet`` (lineitem and orders as 16 files each),
   then the 22 queries over ``session.read.parquet`` with the pipeline on
@@ -171,8 +187,8 @@ just before it and read just after:
   one logical shard (and q1 against numpy).
 
 Answers are checked against numpy / pandas oracles on the same host data.
-The single-device tpch22, tpch_sql, strings_dates, nested, files, memory
-and tpcds phases plan
+The single-device tpch22, tpch_sql, strings_dates, nested, udf, files,
+memory and tpcds phases plan
 in strict test mode (``spark.rapids.sql.test.enabled``): a node of
 theirs that would fall back to the CPU fails the run.
 
@@ -181,8 +197,8 @@ and kernel build time, one line per check, rows/s per query, a
 ``{"kernels": [...]}`` line (per kernel: the first shape's times at the
 top level, other shapes under ``other_shapes``, the main path's launches
 in total, by phase for the tpch22, fallback, tpch_sql, strings_dates,
-nested, files, tpcds, tpcds_decimal, numeric, sharded_tpch and memory
-phases, and by shape),
+nested, udf, files, tpcds, tpcds_decimal, numeric, sharded_tpch and
+memory phases, and by shape),
 and last
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the ``ok`` line.  Without a CUDA
@@ -240,15 +256,17 @@ FILES_REPS = 1
 TPCDS_REPS = 1
 # the nested phase's cuts of earlier phases, past the two its issue names
 # (FILES_PIPELINE_OFF, TPCDS_FLOAT_SUBSET): the tpch22 phase times one run
-# after the warm one (three before), the files phase times these 11 of
-# the 22 and the tpcds phase these 15 of the 29 (each checked bit for bit
-# against its warm run; the others run once), M2 sorts 4 input batches
-# (8 before) and the sharded file pass has SHARDED_BUDGET_S
+# after the warm one (three before), the files phase times 11 of the 22
+# and the tpcds phase 15 of the 29 (FILES_TIMED, TPCDS_TIMED: each checked
+# bit for bit against its warm run; the others run once), M2 sorts 4
+# input batches (8 before) and the sharded file pass has SHARDED_BUDGET_S
 TPCH22_REPS = 1
-FILES_TIMED = ("q1", "q3", "q5", "q6", "q9", "q10", "q12", "q13", "q14",
-               "q18", "q21")
-TPCDS_TIMED = ("q3", "q7", "q19", "q27", "q34", "q42", "q46", "q47",
-               "q52", "q55", "q61", "q67", "q88", "q96", "q98")
+# the udf phase's cuts (its run took the script past 1080 s): the files
+# phase times these 5 of the 22 (11 before: q1, q5, q9, q10, q12 and q21
+# cut, 21.7 s of timed runs) and the tpcds phase these 7 of the 29 (15
+# before: q7, q19, q27, q46, q47, q67, q88 and q98 cut, 19.7 s)
+FILES_TIMED = ("q3", "q6", "q13", "q14", "q18")
+TPCDS_TIMED = ("q3", "q34", "q42", "q52", "q55", "q61", "q96")
 # the strings_dates phase's cuts of earlier phases: the decimal pass runs
 # q67 once (its warm run is its checked run), and M3 runs these 11 of the
 # 22 under the budget (q18 spills and tree-merges)
@@ -1843,6 +1861,211 @@ def run_nested(torch, K, fm, ND, batches, card_line, total, oracle,
     return time.perf_counter() - t_phase
 
 
+UDF_BUDGET_S = 60.0
+UDF_WORKERS = 4          # UD3 again through the worker pool
+UDF_CHECK_SF = 0.1       # UD1-UD9 on the card against the engine on the CPU
+PYTHON_METRICS = ("argFetchTime", "pythonTime", "resultUploadTime")
+
+
+def udf_session(batches, hash_on=True, workers=0, device=None):
+    """A strict-mode session over the TPC-H views: the Python execs are
+    device-side nodes, so no CPU fallback is allowed."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.models import tpch_sql
+    conf = dict(tpch_conf(hash_on), **{
+        "spark.rapids.sql.test.allowedNonTpu": "none",
+        "spark.rapids.sql.python.numWorkers": workers})
+    s = TpuSession(conf) if device is None else TpuSession(conf,
+                                                           device=device)
+    tpch_sql.register(s, {k: s.create_dataframe(b)
+                          for k, b in batches.items()})
+    return s
+
+
+def udf_answers(F, UD, s):
+    """UD1-UD9 on session ``s`` as arrow tables (UD8 over a cached
+    slice)."""
+    base = UD.lineitem_1995(F, s).cache()
+    return {name: UD.build(F, s, name, base if name in UD.UD8 else None)
+            .to_arrow() for name in UD.NAMES}
+
+
+def udf_cpu_answers(sf, conn):
+    """In a process of its own: UD1-UD9 on the engine on the CPU at scale
+    ``sf`` (the SF0.1 check's reference)."""
+    import torch
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models import udf as UD
+    try:
+        s = udf_session(device_tables(tpch.gen_table_columns(sf), "cpu"),
+                        device="cpu")
+        conn.send(udf_answers(F, UD, s))
+        s.stop()
+    except BaseException as exc:
+        conn.send(exc)
+        raise
+    finally:
+        conn.close()
+
+
+def exec_nodes(plan):
+    out, stack = [], [plan]
+    while stack:
+        node = stack.pop()
+        out.append(node)
+        stack.extend(node.children)
+    return out
+
+
+def python_ms(plan) -> dict:
+    """Host ms of the plan's Python execs, per metric (the argument fetch,
+    the Python code, the result upload)."""
+    out = {m: 0.0 for m in PYTHON_METRICS}
+    for node in exec_nodes(plan):
+        for m in PYTHON_METRICS:
+            if m in node.metrics:
+                out[m] += node.metrics[m].value / 1e6
+    return out
+
+
+def run_udf(torch, K, fm, UD, batches, card_line, total, refs_fn, cpu_proc,
+            q6_answer):
+    """The udf phase over the SF10 tables on the card: UD1-UD9 in strict
+    test mode, each once warm and once timed (bit for bit), against numpy
+    and pandas (``refs_fn()`` waits for their answers: ``(refs, seconds
+    computing)``); UD1 bit for bit equal to tpch22's q6
+    (``q6_answer``); UD2 with the hash path off; UD3 with the worker pool
+    (``UDF_WORKERS``) against inline, the pool run without degrading;
+    UD4's torch function against the same query with columns; UD8's
+    cached reads against the uncached plan, the cache's bytes and host
+    ms; every query at ``UDF_CHECK_SF`` on the card against the engine on
+    the CPU (from ``cpu_proc``).  Returns the phase's seconds."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.udf import worker_pool as WP
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    refs, secs = refs_fn()
+    print(f"udf: numpy's and pandas' answers took {secs:.3f} s on the "
+          f"host; waited {time.perf_counter() - t0:.3f} s for them",
+          flush=True)
+    s = udf_session(batches)
+    base = UD.lineitem_1995(F, s).cache()
+    plain = UD.lineitem_1995(F, s)
+    answers, rates, syncs, py_ms = {}, {}, {}, {}
+    python_nodes = ("TpuArrowEvalPythonExec", "InPandasExec")
+    for name in UD.NAMES:
+        held = {}
+
+        def build(name=name):
+            held["df"] = UD.build(F, s, name,
+                                  base if name in UD.UD8 else None)
+            return held["df"]
+        rows = sum(batches[k].nrows for k in UD.TABLES[name])
+        label = f"udf {name}"
+        got, launches, fus, rates[name] = drive(
+            torch, K, fm, build, rows, card_line, label, reps=1,
+            extra={"host_syncs": host_sync_metrics}, same_bits=True,
+            arrow=True)
+        total.add(launches)
+        answers[name] = got
+        syncs[name] = fus["host_syncs"]
+        plan = held["df"]._last_exec
+        tree = plan.tree_string()
+        py_ms[name] = python_ms(plan)
+        if name in UD.UD8:
+            ok, why = arrow_match(got, UD.build(F, s, name, plain)
+                                  .to_arrow(), PATH_RTOL)
+            check(ok, f"{label}: the cached plan equals the uncached one "
+                  f"(keys and counts exactly, float sums within rel "
+                  f"{PATH_RTOL}) {why}")
+            check("TpuCachedScanExec" in tree and
+                  tree.count("TpuScanExec") == (name == "ud8c"),
+                  f"{label}: the timed run read the cache (no lineitem "
+                  "scan)")
+        ok, why = UD.check(name, got, refs)
+        check(ok, f"{label}: equals numpy / pandas (keys, counts and order "
+              f"exactly, floats within rel {UD.FLOAT_RTOL}) {why}")
+        n_eval = tree.count("TpuArrowEvalPythonExec")
+        check(n_eval == (1 if name in UD.ARROW_EVAL else 0),
+              f"{label}: {n_eval} TpuArrowEvalPythonExec in the plan")
+        if name in ("ud1", "ud2", "ud4", "ud4c"):
+            check(not any(p in tree for p in python_nodes),
+                  f"{label}: no Python node in the plan")
+        print(f"{label}: {got.num_rows} rows; launches "
+              + ", ".join(f"{k} {launches[k]}" for k in launches
+                          if k != "by_shape")
+              + f"; host syncs {fus['host_syncs']}; Python nodes' host ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in py_ms[name].items()),
+              flush=True)
+        if name == "ud8a":
+            check("TpuMaterializeCacheExec" not in tree,
+                  f"{label}: the timed run read the cache")
+    entry = s.cache_manager.lookup(base.plan)
+    print(f"udf ud8: cache {entry.cached_bytes} bytes compressed, "
+          f"{entry.raw_bytes} raw, {len(entry.frames)} frames; host ms "
+          f"framing {entry.frame_ns / 1e6:.3f}, restoring "
+          f"{entry.restore_ns / 1e6:.3f} (over every read)", flush=True)
+    base.unpersist()
+    tree = s.plan(UD.build(F, s, "ud8b", base).plan).tree_string()
+    check("Cache" not in tree, "udf ud8: no cache node after unpersist")
+    # UD1 is tpch22's q6, bit for bit
+    got = answers["ud1"].column("revenue").to_pylist()[0]
+    check(float(got).hex() == float(q6_answer).hex(),
+          f"udf ud1: revenue {got!r} equals tpch22's q6 {q6_answer!r} bit "
+          "for bit")
+    check(answers["ud4"].equals(answers["ud4c"]),
+          "udf ud4: the torch function equals the columns' form bit for "
+          "bit")
+    s.stop()
+    off = udf_session(batches, hash_on=False)
+    ok, why = arrow_match(UD.build(F, off, "ud2").to_arrow(),
+                          answers["ud2"], PATH_RTOL)
+    check(ok, f"udf ud2: hash off equals hash on (floats within rel "
+          f"{PATH_RTOL}) {why}")
+    off.stop()
+    pool = udf_session(batches, workers=UDF_WORKERS)
+    for name in ("ud3g", "ud3x"):
+        WP.pool_metrics.reset()
+        t0 = time.perf_counter()
+        got = UD.build(F, pool, name).to_arrow()
+        snap = WP.pool_metrics.snapshot()
+        check(got.equals(answers[name]),
+              f"udf {name}: {UDF_WORKERS} workers equal inline bit for bit")
+        check(snap["poolChunks"] >= UDF_WORKERS and
+              snap["degradedToInline"] == 0,
+              f"udf {name}: the pool ran ({snap}) and nothing degraded")
+        print(f"udf {name} with {UDF_WORKERS} workers: "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms; pool {snap}",
+              flush=True)
+    pool.stop()
+    WP.shutdown_pool()
+    answers.clear()
+    del refs
+    print("udf rows/s on " + card_line + ": " + json.dumps(
+        {k: float(f"{v:.6e}") for k, v in rates.items()}), flush=True)
+    print("udf host syncs: " + json.dumps(syncs), flush=True)
+    # at SF0.1 against the engine on the CPU
+    t0 = time.perf_counter()
+    small = device_tables(tpch.gen_table_columns(UDF_CHECK_SF),
+                          torch.device(DEVICE))
+    s = udf_session(small)
+    got = udf_answers(F, UD, s)
+    s.stop()
+    want = receive_cpu_answers(*cpu_proc, f"udf SF{UDF_CHECK_SF}")
+    for name in UD.NAMES:
+        ok, why = arrow_match(got[name], want[name], QUERY_RTOL)
+        check(ok, f"udf SF{UDF_CHECK_SF} {name}: the card equals the CPU "
+              f"(floats within rel {QUERY_RTOL}) {why}")
+    print(f"udf SF{UDF_CHECK_SF}: {len(got)} queries on the card, then the "
+          f"CPU's answers, in {time.perf_counter() - t0:.3f} s", flush=True)
+    return time.perf_counter() - t_phase
+
+
 def tpcds_device_tables(data, device):
     """Every TPC-DS table (pandas, from ``tpcds.gen_tables``) as one
     batch on ``device``, through arrow as ``create_dataframe`` takes it."""
@@ -1998,12 +2221,14 @@ def generated_tables(sf, where, conn):
     into the directory ``where``, then ``(path, seconds generating)``
     down ``conn``; then, from the same columns, numpy's answers of the
     nested phase (``models/nested.references``), pickled beside them, and
-    ``(path, seconds computing)``: computed here, they take no share of
+    ``(path, seconds computing)``, and the same for the udf phase
+    (``models/udf.references``): computed here, they take no share of
     the card-driving process's interpreter."""
     sys.path.insert(0, str(ROOT))
     try:
         from spark_rapids_tpu_torch.models import nested as ND
         from spark_rapids_tpu_torch.models import tpch
+        from spark_rapids_tpu_torch.models import udf as UD
         t0 = time.perf_counter()
         tables = tpch.gen_table_columns(sf)
         seconds = time.perf_counter() - t0
@@ -2012,8 +2237,15 @@ def generated_tables(sf, where, conn):
         t0 = time.perf_counter()
         refs = ND.references(ND.host_columns(
             {t: tables[t] for t in ("lineitem", "orders", "supplier")}))
-        del tables
         conn.send((_pickled(refs, str(Path(where) / "nested_refs.pkl")),
+                   time.perf_counter() - t0))
+        del refs
+        t0 = time.perf_counter()
+        refs = UD.references(UD.host_columns(
+            {t: tables[t] for t in ("lineitem", "orders", "customer",
+                                    "supplier")}))
+        del tables
+        conn.send((_pickled(refs, str(Path(where) / "udf_refs.pkl")),
                    time.perf_counter() - t0))
     except BaseException as exc:
         conn.send(exc)
@@ -2031,6 +2263,14 @@ def receive_tables(proc, conn, label):
 
 def receive_nested_refs(proc, conn, label):
     """(numpy's nested answers, seconds computing) from
+    :func:`generated_tables` (which goes on to the udf phase's:
+    :func:`receive_udf_refs`)."""
+    got, seconds = _item(conn)
+    return _unpickled(got), seconds
+
+
+def receive_udf_refs(proc, conn, label):
+    """(numpy's and pandas' udf answers, seconds computing) from
     :func:`generated_tables`, which then ends."""
     got, seconds = _received(proc, conn, label, _item)
     return _unpickled(got), seconds
@@ -4389,8 +4629,9 @@ def main() -> int:
               f"tpch_sql launched {k} {sql_launches.counts[k]}x")
     total.extend(sql_launches)
 
-    # the nested phase's SF0.1 answers on the CPU, meanwhile
+    # the nested and udf phases' SF0.1 answers on the CPU, meanwhile
     nd_cpu = start_process(nested_cpu_answers, ND_CHECK_SF)
+    udf_cpu = start_process(udf_cpu_answers, UDF_CHECK_SF)
 
     # the strings_dates phase: SD1-SD10 over the same tables
     from spark_rapids_tpu_torch.models import strings_dates
@@ -4415,6 +4656,20 @@ def main() -> int:
         check(nd_launches.counts[k] >= 1,
               f"nested launched {k} {nd_launches.counts[k]}x")
     total.extend(nd_launches)
+
+    # the udf phase: UD1-UD9 over the same tables
+    from spark_rapids_tpu_torch.models import udf as UD
+    udf_launches = PathLaunches(K.launches.NAMES)
+    udf_s = run_udf(torch, K, fm, UD, tpch_batches, card_line,
+                    udf_launches, lambda: receive_udf_refs(
+                        *tpch_gen, "udf answers"), udf_cpu,
+                    df_answers["q6"]["revenue"][0])
+    print(f"udf phase {udf_s:.3f} s (budget {UDF_BUDGET_S} s); launches "
+          f"{udf_launches.counts}", flush=True)
+    for k in ("masked_multi_reduce", "hash_insert", "hash_probe"):
+        check(udf_launches.counts[k] >= 1,
+              f"udf launched {k} {udf_launches.counts[k]}x")
+    total.extend(udf_launches)
 
     # the sharded_tpch phase, in three passes: the 44 queries in memory
     # here, the 22 over the files phase's parquet inside that phase, and
@@ -4545,6 +4800,7 @@ def main() -> int:
                       "tpch_sql": sql_launches.counts,
                       "strings_dates": sd_launches.counts,
                       "nested": nd_launches.counts,
+                      "udf": udf_launches.counts,
                       "files": files_launches.counts,
                       "tpcds": ds_launches.counts,
                       "tpcds_decimal": dec_launches.counts,

@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
                             [memory] [fallback] [tpcds_decimal]
-                            [strings_dates] [nested]
+                            [strings_dates] [nested] [udf]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -45,6 +45,13 @@ only when asked for) ``chip_smoke.py``'s nested phase over the SF10
 tables (its checks included), then one trace each of ND1 (collect_list
 and collect_set per order over 60M lines, and the collection functions
 over the 15M arrays) and ND5 (a map per line, read back and summed),
+and (``udf``, only when asked for) ``chip_smoke.py``'s udf phase over
+the SF10 tables (its checks included), then UD3 (``models/udf.py``: the
+black-box ``phone_cc`` over all of SF10 customer, grouped by it) through
+``chip_smoke.UDF_WORKERS`` pool workers and UD8's q1-form group-by reading
+its cached slice of lineitem, each traced after a warm run, with the
+Python execs' host time fetching the arguments, in Python and uploading
+the results, and the cache's bytes and host time,
 and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
@@ -280,6 +287,8 @@ def main() -> int:
         profile_strings_dates(torch, TpuSession, tpch, card_line)
     if "nested" in sys.argv[1:]:
         profile_nested(torch, tpch, card_line)
+    if "udf" in sys.argv[1:]:
+        profile_udf(torch, tpch, card_line)
     if "sharded_tpch" in sys.argv[1:]:
         return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
@@ -343,6 +352,62 @@ def profile_nested(torch, tpch, card_line):
                 card_line, run=lambda s=s, name=name: ND.build(
                     F, s, name).to_arrow())
         s.stop()
+
+
+def profile_udf(torch, tpch, card_line):
+    """``chip_smoke.py``'s udf phase (its checks included) over the SF10
+    tables, then UD3 through the worker pool and UD8's cached read, each
+    traced after a warm run, with the Python execs' host ms per metric
+    (argument fetch, Python, result upload) of the traced run and the
+    cache's bytes."""
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.exec.fusion import fusion_metrics as fm
+    from spark_rapids_tpu_torch.models import udf as UD
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.udf import worker_pool as WP
+    cpu = cs.start_process(cs.udf_cpu_answers, cs.UDF_CHECK_SF)
+    t0 = time.perf_counter()
+    cols = tpch.gen_table_columns(cs.TPCH_SF)
+    host = UD.host_columns({t: cols[t] for t in
+                            ("lineitem", "orders", "customer", "supplier")})
+    refs = cs.OnThread(lambda: UD.references(host))
+    batches = cs.device_tables(cols, torch.device(cs.DEVICE))
+    del cols, host
+    print(f"TPC-H SF{cs.TPCH_SF} generated and on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    K.library()
+    s = cs.udf_session(batches)
+    q6 = tpch.q6({"lineitem": s.table("lineitem")}).to_pandas()
+    s.stop()
+    total = cs.PathLaunches(K.launches.NAMES)
+    secs = cs.run_udf(torch, K, fm, UD, batches, card_line, total,
+                      lambda: (refs.result(), refs.seconds), cpu,
+                      q6["revenue"][0])
+    print(f"udf phase {secs:.3f} s; launches {total.counts}", flush=True)
+    s = cs.udf_session(batches, workers=cs.UDF_WORKERS)
+    base = UD.lineitem_1995(F, s).cache()
+    for name in ("ud3g", "ud8b"):
+        held = {}
+
+        def run(name=name):
+            held["df"] = UD.build(F, s, name,
+                                  base if name in UD.UD8 else None)
+            return held["df"].to_arrow()
+        WP.pool_metrics.reset()
+        profile(torch, None, f"{name.upper()} SF{cs.TPCH_SF}"
+                + (f", {cs.UDF_WORKERS} pool workers" if name == "ud3g"
+                   else ", cached read"), card_line, run=run)
+        ms = cs.python_ms(held["df"]._last_exec)
+        print("  Python execs' host ms of the traced run: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items())
+            + f"; pool {WP.pool_metrics.snapshot()}", flush=True)
+    entry = s.cache_manager.lookup(base.plan)
+    print(f"  cache: {entry.cached_bytes} bytes compressed, "
+          f"{entry.raw_bytes} raw, {len(entry.frames)} frames; host ms "
+          f"framing {entry.frame_ns / 1e6:.3f}, restoring "
+          f"{entry.restore_ns / 1e6:.3f} (the traced read)", flush=True)
+    s.stop()
+    WP.shutdown_pool()
 
 
 def profile_tpcds_decimal(torch, card_line):

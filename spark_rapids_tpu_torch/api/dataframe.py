@@ -9,7 +9,11 @@ keyless agg, distinct, joins on column names or on expression
 conditions, crossJoin, orderBy/sort, limit, union, temp views, count,
 collect and to_pandas (shredded struct and map columns reassemble in
 ``to_arrow``), and a groupBy over ``window(...)`` (a sliding window
-through an Expand, as Spark's TimeWindowing rule).  A DataFrame is a
+through an Expand, as Spark's TimeWindowing rule), and user code and
+reuse: ``cache``/``persist``/``unpersist``, ``mapInPandas``,
+``groupBy().applyInPandas``, grouped-aggregate pandas UDFs in ``agg``,
+window pandas UDFs in ``select``, ``cogroup`` and ``pivot`` (the values
+listed).  A DataFrame is a
 logical plan; collecting it
 offers the plan to the distributed planner
 when the session holds a shard group, else (or when the planner declines)
@@ -44,6 +48,105 @@ def _conjuncts(e: Expression) -> List[Expression]:
     return [e]
 
 
+def _has_udf_call(e: Expression) -> bool:
+    from spark_rapids_tpu_torch.udf.python_exec import UDFCall
+    return isinstance(e, UDFCall) or any(_has_udf_call(c)
+                                         for c in e.children)
+
+
+def _parse_schema(schema):
+    """``"a int, b string"`` or ``[(name, DataType)]`` -> a schema."""
+    from spark_rapids_tpu_torch.columnar.dtypes import dtype_from_name
+    if isinstance(schema, str):
+        out = []
+        for part in schema.split(","):
+            name, tname = part.strip().split(None, 1)
+            out.append((name, dtype_from_name(tname)))
+        return out
+    return list(schema)
+
+
+class PivotedGroupedData:
+    """``groupBy(k).pivot(p, [v1, v2]).agg(...)``: each aggregate over x
+    becomes, per pivot value v, the same aggregate over ``CASE WHEN p = v
+    THEN x END`` (every aggregate ignores nulls), so no new operator is
+    needed and the answer is GpuPivotFirst's."""
+
+    def __init__(self, df: "DataFrame", group_exprs, pivot_expr, values):
+        self.df = df
+        self.group_exprs = group_exprs
+        self.pivot_expr = pivot_expr
+        self.values = values
+
+    def agg(self, *aggs: Col) -> "DataFrame":
+        import copy
+        from spark_rapids_tpu_torch.ops.expressions import Literal
+        from spark_rapids_tpu_torch.plan.logical import AggregateExpression
+        agg_exprs = [_expr(a) for a in aggs]
+        out: List[Expression] = []
+        for v in self.values:
+            for e in agg_exprs:
+                alias = e.alias if isinstance(e, Alias) else None
+                inner = e.children[0] if isinstance(e, Alias) else e
+                if not isinstance(inner, AggregateExpression):
+                    raise ValueError("pivot aggregates must be aggregate "
+                                     "expressions")
+                func = copy.copy(inner.func)
+                cond = preds.EqualTo(self.pivot_expr, Literal(v))
+                if func.child is not None:
+                    child_name = func.child.name
+                    func.child = preds.CaseWhen([(cond, func.child)])
+                else:
+                    # count(*): count the rows where p = v
+                    child_name = "*"
+                    func.child = preds.CaseWhen([(cond, Literal(1))])
+                if len(agg_exprs) == 1:
+                    name = str(v)
+                else:
+                    name = f"{v}_{alias}" if alias else \
+                        f"{v}_{func.name}({child_name})"
+                out.append(Alias(AggregateExpression(func), name))
+        return DataFrame(self.df.session, L.Aggregate(
+            self.group_exprs, out, self.df.plan))
+
+    def sum(self, c) -> "DataFrame":  # noqa: A003
+        from spark_rapids_tpu_torch.api import functions as F
+        return self.agg(F.sum(c))
+
+    def count(self) -> "DataFrame":
+        from spark_rapids_tpu_torch.api import functions as F
+        return self.agg(F.count(Col(self.pivot_expr)))
+
+    def min(self, c) -> "DataFrame":  # noqa: A003
+        from spark_rapids_tpu_torch.api import functions as F
+        return self.agg(F.min(c))
+
+    def max(self, c) -> "DataFrame":  # noqa: A003
+        from spark_rapids_tpu_torch.api import functions as F
+        return self.agg(F.max(c))
+
+    def avg(self, c) -> "DataFrame":
+        from spark_rapids_tpu_torch.api import functions as F
+        return self.agg(F.avg(c))
+
+
+class CoGroupedData:
+    """``a.groupBy(k).cogroup(b.groupBy(k2)).applyInPandas(fn, schema)``:
+    ``fn(left_group, right_group)`` per key of the union of keys
+    (GpuFlatMapCoGroupsInPandasExec)."""
+
+    def __init__(self, left: "GroupedData", right: "GroupedData"):
+        self.left = left
+        self.right = right
+
+    def applyInPandas(self, fn, schema) -> "DataFrame":
+        return DataFrame(self.left.df.session, L.CoGroupMapInPandas(
+            fn, _parse_schema(schema),
+            [e.name for e in self.left.group_exprs],
+            [e.name for e in self.right.group_exprs],
+            self.left.df.plan, self.right.df.plan))
+
+
 class DataFrame:
     def __init__(self, session, plan: L.LogicalPlan):
         self.session = session
@@ -61,6 +164,9 @@ class DataFrame:
     def select(self, *cols: Union[Col, str]) -> "DataFrame":
         from spark_rapids_tpu_torch.ops.nested_ops import (
             expand_nested_projections)
+        routed = self._route_pandas_windows(cols)
+        if routed is not None:
+            return routed
         exprs = [_expr(c) for c in cols]
         routed = self._route_batch_ids(exprs)
         if routed is not None:
@@ -105,6 +211,36 @@ class DataFrame:
             final.append(r if out_name is None else Alias(r, out_name))
         wplan = L.Window(wexprs, self.plan)
         return DataFrame(self.session, L.Project(final, wplan))
+
+    def _route_pandas_windows(self, cols) -> Optional["DataFrame"]:
+        """Window pandas UDF calls become a WindowInPandas node, then the
+        requested columns are selected over it.  Their result columns take
+        internal names, so replacing an existing column (withColumn)
+        never duplicates a schema entry."""
+        from spark_rapids_tpu_torch.api.functions import _PandasWindowCall
+
+        def call_of(c):
+            if isinstance(c, _PandasWindowCall):
+                return c, c.out_name
+            return None, None
+
+        marked = [call_of(c) for c in cols]
+        if not any(m for m, _ in marked):
+            return None
+        prefix = "_pw"
+        while any(n.startswith(prefix) for n in self.columns):
+            prefix += "_"
+        calls, final = [], []
+        for c, (m, out_name) in zip(cols, marked):
+            if m is None:
+                final.append(c)
+                continue
+            internal = f"{prefix}{len(calls)}"
+            calls.append((internal, m.call.fn, m.call.arg_name,
+                          m.call.return_type, m.spec_data()))
+            final.append(Col(Alias(UnresolvedColumn(internal), out_name)))
+        base = DataFrame(self.session, L.WindowInPandas(calls, self.plan))
+        return base.select(*final)
 
     def _route_generate(self, exprs) -> Optional["DataFrame"]:
         """F.explode / F.posexplode in a select become a Generate node
@@ -175,6 +311,14 @@ class DataFrame:
 
     def withColumn(self, name: str, c: Col) -> "DataFrame":
         """Replace the column ``name`` in place, or append it."""
+        from spark_rapids_tpu_torch.api.functions import _PandasWindowCall
+        if isinstance(c, _PandasWindowCall):
+            wrapped = c.alias(name)
+            names = self.columns
+            cols = [wrapped if n == name else n for n in names]
+            if name not in names:
+                cols.append(wrapped)
+            return self.select(*cols)
         wrapped = Alias(_expr(c), name)
         names = [n for n, _ in self.plan.schema]
         exprs: List[Expression] = [
@@ -389,6 +533,30 @@ class DataFrame:
     def createOrReplaceTempView(self, name: str) -> None:
         self.session.register_view(name, self)
 
+    # ---------------------------------------------------------- caching --
+    def cache(self) -> "DataFrame":
+        """Mark this plan for caching: the first action that runs it
+        materializes it as compressed host frames, and every later query
+        holding this plan reads them (``exec/cache.py``)."""
+        self.session.cache_manager.register(self.plan)
+        return self
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        self.session.cache_manager.unregister(self.plan)
+        return self
+
+    @property
+    def is_cached(self) -> bool:
+        return self.session.cache_manager.lookup(self.plan) is not None
+
+    def mapInPandas(self, fn, schema) -> "DataFrame":
+        """``fn(iterator of pandas frames) -> iterator of frames`` over
+        the batches, its output coerced to ``schema``."""
+        return DataFrame(self.session, L.MapInPandas(
+            fn, _parse_schema(schema), self.plan))
+
     def _execute_batches(self) -> List[ColumnarBatch]:
         """Run the plan: distributed when the session's shard group takes
         it, else on the session's device, through the asynchronous
@@ -523,10 +691,59 @@ class GroupedData:
         self.sets = sets  # rollup / cube / grouping sets: index lists
 
     def agg(self, *aggs: Col) -> DataFrame:
+        from spark_rapids_tpu_torch.api.functions import _PandasAggCall
         if self.sets is not None:
             return self._agg_grouping_sets(aggs)
+        pandas_aggs = [a for a in aggs if isinstance(a, _PandasAggCall)]
+        if pandas_aggs:
+            if len(pandas_aggs) != len(aggs):
+                raise ValueError("cannot mix grouped-agg pandas UDFs with "
+                                 "built-in aggregates")
+            return DataFrame(self.df.session, L.AggInPandas(
+                [e.name for e in self.group_exprs],
+                [(a.out_name, a.fn, a.arg_name, a.return_type)
+                 for a in pandas_aggs], self.df.plan))
+        df, group_exprs, agg_exprs = self._extract_udf_calls(
+            [_expr(a) for a in aggs])
         return DataFrame(self.df.session, L.Aggregate(
-            self.group_exprs, [_expr(a) for a in aggs], self.df.plan))
+            group_exprs, agg_exprs, df.plan))
+
+    def _extract_udf_calls(self, agg_exprs):
+        """UDF calls in the keys or inside the aggregates move into a
+        projection below the aggregate, as Spark's
+        ExtractPythonUDFFromAggregate rule moves them: a black-box call
+        then runs in ``TpuArrowEvalPythonExec`` and the aggregate on the
+        device."""
+        from spark_rapids_tpu_torch.udf.python_exec import UDFCall
+        exprs = list(self.group_exprs) + list(agg_exprs)
+        if not any(_has_udf_call(e) for e in exprs):
+            return self.df, self.group_exprs, agg_exprs
+        names = self.df.columns
+        prefix = "__udf"
+        while any(n.startswith(prefix) for n in names):
+            prefix += "_"
+        pre: List[Expression] = []
+
+        def lift(e):
+            if isinstance(e, UDFCall):
+                hidden = f"{prefix}{len(pre)}"
+                pre.append(Alias(e, hidden))
+                return UnresolvedColumn(hidden)
+            if not e.children:
+                return e
+            return e.with_children([lift(c) for c in e.children])
+
+        def keep_name(e):
+            if not _has_udf_call(e):
+                return e
+            if isinstance(e, Alias):
+                return Alias(lift(e.children[0]), e.alias)
+            return Alias(lift(e), e.name)
+
+        group = [keep_name(e) for e in self.group_exprs]
+        aggs = [keep_name(e) for e in agg_exprs]
+        base = self.df.select(*([UnresolvedColumn(n) for n in names] + pre))
+        return base, group, aggs
 
     def _agg_grouping_sets(self, aggs) -> DataFrame:
         """Rollup / cube / grouping sets: an Expand (one projection per
@@ -621,3 +838,44 @@ class GroupedData:
     def count(self) -> DataFrame:
         from spark_rapids_tpu_torch.api import functions as F
         return self.agg(F.count().alias("count"))
+
+    def _simple(self, fname, *cols) -> DataFrame:
+        from spark_rapids_tpu_torch.api import functions as F
+        fn = getattr(F, fname)
+        keys = {e.name for e in self.group_exprs}
+        names = cols or [n for n, dt in self.df.plan.schema
+                         if (dt.is_integral or dt.is_floating or
+                             dt.is_decimal) and n not in keys]
+        return self.agg(*[fn(c).alias(f"{fname}({c})") for c in names])
+
+    def sum(self, *cols) -> DataFrame:  # noqa: A003
+        return self._simple("sum", *cols)
+
+    def avg(self, *cols) -> DataFrame:
+        return self._simple("avg", *cols)
+
+    mean = avg
+
+    def min(self, *cols) -> DataFrame:  # noqa: A003
+        return self._simple("min", *cols)
+
+    def max(self, *cols) -> DataFrame:  # noqa: A003
+        return self._simple("max", *cols)
+
+    def pivot(self, col, values) -> PivotedGroupedData:
+        """One output column per listed pivot value (GpuPivotFirst,
+        AggregateFunctions.scala:530).  The values must be listed: Spark's
+        form without them needs a distinct scan first."""
+        if values is None:
+            raise ValueError("pivot needs its values listed")
+        return PivotedGroupedData(self.df, self.group_exprs, _expr(col),
+                                  list(values))
+
+    def applyInPandas(self, fn, schema) -> DataFrame:
+        """``fn(group frame) -> frame`` per group of the keys."""
+        return DataFrame(self.df.session, L.MapInPandas(
+            fn, _parse_schema(schema), self.df.plan,
+            group_names=[e.name for e in self.group_exprs]))
+
+    def cogroup(self, other: "GroupedData") -> CoGroupedData:
+        return CoGroupedData(self, other)

@@ -25,8 +25,12 @@ arithmetic and formatting (``date_format``, ``unix_timestamp``,
 ``input_file_name`` and ``_metadata`` field access over file scans, sort
 keys, the sum / avg / count / min / max / first / last aggregates and the
 variance family, ``grouping``/``grouping_id`` (rollup, cube, grouping
-sets), and window functions (``Window`` specs, ``.over``: the ranking
-functions, ``lead``/``lag`` and the ``window_*`` aggregates).
+sets), window functions (``Window`` specs, ``.over``: the ranking
+functions, ``lead``/``lag`` and the ``window_*`` aggregates), and user
+code: ``udf`` (compiled from bytecode, else a black box; ``pandas_udf``
+is ``udf``, as in the JAX package), ``tpu_udf`` (a torch function as an
+expression) and ``pandas_agg_udf`` (grouped-aggregate and window pandas
+UDFs).
 """
 
 from __future__ import annotations
@@ -1007,3 +1011,172 @@ def grouping(c) -> Col:
     """1 when the grouping column is aggregated away in this row, else 0
     (int32, as in the JAX package, where Spark returns tinyint)."""
     return Col(_GroupingMarker(_expr(c)))
+
+
+# --------------------------------------------------------------------- udfs
+
+def _return_type(rt) -> DataType:
+    return dtype_from_name(rt) if isinstance(rt, str) else rt
+
+
+def udf(f=None, returnType="string"):
+    """A Python UDF (``F.udf(fn, "double")`` or ``@F.udf(returnType=...)``).
+
+    The udf-compiler analog: when the call's node binds it, the function's
+    bytecode compiles to an expression tree over the typed arguments
+    (``udf/compiler.py``, computing what the function computes in
+    Python); otherwise it runs as a host black box, row by row
+    (``TpuArrowEvalPythonExec``).  A compiled function's result has the
+    type its expression gives, as in the JAX package; ``returnType`` types
+    the black box's."""
+
+    def wrap(fn):
+        rt = _return_type(returnType)
+
+        def call(*cols) -> Col:
+            from spark_rapids_tpu_torch.udf.python_exec import UDFCall
+            return Col(UDFCall(fn, rt, [_expr(c) for c in cols]))
+
+        call.__name__ = getattr(fn, "__name__", "udf")
+        call.fn = fn
+        return call
+
+    if f is not None:
+        return wrap(f)
+    return wrap
+
+
+# as in the JAX package, a scalar pandas UDF is a row-wise UDF
+pandas_udf = udf
+
+
+def tpu_udf(f=None, returnType="double"):
+    """A user torch function as a columnar expression (the RapidsUDF
+    analog, ``RapidsUDF.java:40``; the name is the JAX package's):
+    ``fn(*tensors) -> tensor`` over the argument columns' values, run
+    inside the enclosing stage (``udf/python_exec.TorchUDF``)."""
+
+    def wrap(fn):
+        rt = _return_type(returnType)
+
+        def call(*cols) -> Col:
+            from spark_rapids_tpu_torch.udf.python_exec import TorchUDF
+            return Col(TorchUDF(fn, rt, [_expr(c) for c in cols]))
+
+        call.__name__ = getattr(fn, "__name__", "tpu_udf")
+        call.fn = fn
+        return call
+
+    if f is not None:
+        return wrap(f)
+    return wrap
+
+
+class _PandasAggCall(Col):
+    """A grouped-aggregate pandas UDF call: ``GroupedData.agg`` routes it
+    into an AggInPandas node (it is never evaluated as an expression)."""
+
+    def __init__(self, fn, return_type, arg_name: str):
+        self.fn = fn
+        self.return_type = return_type
+        self.arg_name = arg_name
+        self.out_name = f"{getattr(fn, '__name__', 'udf')}({arg_name})"
+
+    @property
+    def expr(self):
+        raise TypeError("grouped-agg pandas UDFs are only valid inside "
+                        "groupBy().agg()")
+
+    @expr.setter
+    def expr(self, v):  # pragma: no cover
+        pass
+
+    def alias(self, name: str) -> "_PandasAggCall":
+        out = _PandasAggCall(self.fn, self.return_type, self.arg_name)
+        out.out_name = name
+        return out
+
+    def over(self, window: "Window") -> "_PandasWindowCall":
+        """The window form: one call per frame, its value for the frame's
+        anchor row (GpuWindowInPandasExec)."""
+        return _PandasWindowCall(self, window)
+
+
+class _PandasWindowCall(Col):
+    """A pandas UDF over a window: ``DataFrame.select`` routes it into a
+    WindowInPandas node."""
+
+    def __init__(self, call: _PandasAggCall, window: "Window"):
+        self.call = call
+        self.window = window
+        self.out_name = call.out_name
+
+    @property
+    def expr(self):
+        raise TypeError("windowed pandas UDFs are only valid in select()")
+
+    @expr.setter
+    def expr(self, v):  # pragma: no cover
+        pass
+
+    def alias(self, name: str) -> "_PandasWindowCall":
+        out = _PandasWindowCall(self.call, self.window)
+        out.out_name = name
+        return out
+
+    def spec_data(self):
+        """(partition names, [(order name, descending, nulls first)],
+        frame): the host execution needs plain column names, one null
+        order, and a rows frame or the running range frame."""
+        from spark_rapids_tpu_torch.exec.window import Frame
+
+        def name_of(e, what):
+            if isinstance(e, UnresolvedColumn):
+                return e.col_name
+            raise ValueError(f"windowed pandas UDFs: {what} must be plain "
+                             f"columns, got {e}")
+
+        w = self.window
+        parts = [name_of(e, "partitionBy") for e in w._partition]
+        orders = [(name_of(e, "orderBy"), d, nf) for e, d, nf in w._orders]
+        if len({nf for _, _, nf in orders}) > 1:
+            # pandas sorts with one na_position
+            raise ValueError(
+                "windowed pandas UDFs require a consistent nulls-first/"
+                "nulls-last across orderBy keys")
+        frame = w._frame
+        if frame is None:
+            frame = Frame("range", None, 0) if orders else \
+                Frame("rows", None, None)
+        elif frame.kind == "range":
+            if not (frame.lo is None and frame.hi in (0, None)):
+                raise ValueError(
+                    "windowed pandas UDFs support rows-based frames and "
+                    "the running range frame only")
+            if not orders:
+                raise ValueError("a range window frame requires orderBy")
+        return parts, orders, frame
+
+
+def pandas_agg_udf(f=None, returnType="double"):
+    """A grouped-aggregate pandas UDF (Spark's ``pandas_udf`` of type
+    GROUPED_AGG): ``fn(pd.Series) -> scalar``, one call per group
+    (GpuAggregateInPandasExec); ``.over(window)`` makes it a window
+    pandas UDF."""
+
+    def wrap(fn):
+        rt = _return_type(returnType)
+
+        def call(col_name) -> _PandasAggCall:
+            if not isinstance(col_name, str):
+                raise TypeError("grouped-agg pandas UDFs take a column "
+                                "NAME argument")
+            return _PandasAggCall(fn, rt, col_name)
+
+        call.__name__ = getattr(fn, "__name__", "udf")
+        call.fn = fn
+        return call
+
+    if f is not None:
+        return wrap(f)
+    return wrap

@@ -13,6 +13,8 @@ do); the hand-written kernels' plain versions then run instead.
 ``session.overrides.last_explain`` says which and why
 (``DataFrame.explain()`` prints it under the physical plan).  With
 ``spark.rapids.sql.test.enabled`` any such fallback raises instead.
+``session.cache_manager`` holds the plans ``df.cache()`` marked
+(``exec/cache.py``); the planner reads a cached plan from its frames.
 
 A session may hold a shard group, and then offers every collected plan to
 the distributed planner first (``parallel/dist_planner.py``):
@@ -114,8 +116,13 @@ class TpuSession:
             RapidsConf(conf)
         self.device = resolve_device(device)
         self._init_memory()
+        from spark_rapids_tpu_torch.exec.cache import CacheManager
+        # the plans df.cache() marked, and their frames once materialized
+        self.cache_manager = CacheManager()
         self.overrides = TpuOverrides(self.conf, self.device,
-                                      self.memory_catalog)
+                                      self.memory_catalog,
+                                      semaphore=self.semaphore,
+                                      cache_manager=self.cache_manager)
         self.stopped = False
         # distributed execution: the shard group, the planner's verdict
         # on the last query and its operators' stage statistics
@@ -276,4 +283,5 @@ class TpuSession:
         close, orphaned spill files go, and the catalog's own directory
         is removed."""
         self.stopped = True
+        self.cache_manager.clear()
         self.memory_catalog.close()

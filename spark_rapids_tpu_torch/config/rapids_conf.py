@@ -226,6 +226,21 @@ AGG_MERGE_CHUNK_ROWS = conf(
     "(a tree reduction) instead of one concatenation of every partial, "
     "so the merge working set stays bounded.", _to_int, _positive)
 
+UDF_COMPILER_ENABLED = conf(
+    "spark.rapids.sql.udfCompiler.enabled", False,
+    "Compile Python UDF bytecode into TPU expression trees "
+    "(reference udf-compiler, RapidsConf.scala:519).  As in the JAX "
+    "package, nothing reads it: F.udf compiles whenever it can.",
+    _to_bool)
+
+PYTHON_NUM_WORKERS = conf(
+    "spark.rapids.sql.python.numWorkers", 0,
+    "Worker processes for black-box Python UDF evaluation (0 = inline "
+    "on the driver thread; the concurrentPythonWorkers analog). "
+    "Spawn-started and reused across batches; unpicklable functions "
+    "fall back to inline.", _to_int,
+    lambda v: None if v >= 0 else "must be >= 0")
+
 CONCURRENT_TPU_TASKS = conf(
     "spark.rapids.sql.concurrentTpuTasks", 1,
     "Number of tasks that may issue work to the device concurrently "

@@ -38,7 +38,9 @@ Python's ``re`` (Java's ASCII classes), ``md5`` through ``hashlib``, a
 host Murmur3, ``date_format`` over the common Java pattern letters;
 ``get_json_object`` and ``split`` to an array of strings on the host
 (``ops/json_ops.py``), and the array, map and time-window expressions
-through their device emit over CPU tensors, as the decimals.  A Generate
+through their device emit over CPU tensors, as the decimals; a black-box
+Python UDF row by row (a Project whose UDF sits in another UDF's
+arguments runs here, as in the JAX package).  A Generate
 explodes through arrow's list kernels.  The
 JAX package's fallback builds pandas frames with numpy types instead, so
 an integer column with nulls becomes float there and loses precision past
@@ -569,6 +571,9 @@ def _eval(expr, df: pd.DataFrame) -> _V:
         l, r = _eval(e.left, df), _eval(e.right, df)
         return _V(dts.INT32, (_to_days(l) - _to_days(r)).astype(np.int32),
                   l.valid & r.valid)
+    from spark_rapids_tpu_torch.udf.python_exec import PythonUDF
+    if isinstance(e, PythonUDF):
+        return _eval_python_udf(e, df)
     out = _eval_library(e, df)
     if out is None:
         out = _eval_nested(e, df)
@@ -576,6 +581,54 @@ def _eval(expr, df: pd.DataFrame) -> _V:
         return out
     raise NotImplementedError(
         f"CPU fallback cannot evaluate {type(e).__name__}")
+
+
+def _py_values(v: _V) -> list:
+    """A host column's rows as Python values, as arrow gives them (the
+    black-box UDF's argument convention: ``None`` for null, a date as a
+    ``datetime.date``)."""
+    from spark_rapids_tpu_torch.columnar.column import Column
+    if isinstance(v.values, (list, tuple)):
+        return [x if ok else None for x, ok in zip(v.values, v.valid)]
+    if v.dt.is_string or v.dt.is_array:
+        return _with_nulls(v.values, v.valid).to_pylist()
+    return Column.to_arrow(v.dt, v.values, v.valid, len(v)).to_pylist()
+
+
+def _eval_python_udf(e, df: pd.DataFrame) -> _V:
+    """A black-box Python UDF over the frame, row by row: the CPU branch
+    of a projection whose UDF sits in another UDF's arguments (the JAX
+    fallback's ``PythonUDF`` evaluation); a null argument gives null."""
+    import pyarrow as pa
+    n = len(df)
+    args = [_py_values(_eval(c, df)) for c in e.children]
+    if args:
+        out = [None if any(a is None for a in row) else e.fn(*row)
+               for row in zip(*args)]
+    else:
+        out = [e.fn() for _ in range(n)]
+    dt = e.dtype
+    valid = np.array([x is not None for x in out], dtype=np.bool_)
+    if dt.is_string:
+        return _V(dt, pa.array([None if x is None else str(x) for x in out],
+                               type=pa.large_string()), valid)
+    if dt.is_array:
+        return _V(dt, _list_array(pa.array(out), dt), valid)
+    if dt.is_decimal or dt.is_datetime:
+        arr = pa.array(out, type=dts.to_arrow_type(dt))
+        return _from_colval(_device_column(arr), n)
+    return _V(dt, np.array([0 if x is None else x for x in out],
+                           dtype=dt.storage), valid)
+
+
+def _device_column(arr):
+    """An arrow array as a ColVal over CPU tensors (the storage the
+    device uses: days, microseconds, unscaled decimals)."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar.batch import _column_from_arrow
+    from spark_rapids_tpu_torch.ops.expressions import ColVal
+    c = _column_from_arrow(pa.chunked_array([arr]), "cpu")
+    return ColVal(c.dtype, c.data, c.validity, c.offsets)
 
 
 # ------------------------------------------- the string, date and hash library
@@ -1136,13 +1189,18 @@ def _device_evaluated():
     """Expression classes the fallback evaluates through their device
     emit over CPU tensors (``_via_torch``): the decimal plumbing and the
     numeric function library, whose int64 rounding, Java shifts and
-    float functions then match the card's rules exactly."""
+    float functions then match the card's rules exactly, a user's torch
+    function (``TorchUDF``) and the UDF compiler's Python-semantics
+    operators."""
     from spark_rapids_tpu_torch.ops import arithmetic as A
     from spark_rapids_tpu_torch.ops import decimal_ops as DEC
+    from spark_rapids_tpu_torch.udf.compiler import PY_EXPRESSIONS
+    from spark_rapids_tpu_torch.udf.python_exec import TorchUDF
     return (DEC.PromotePrecision, DEC.CheckOverflow, DEC.MakeDecimal,
             DEC.UnscaledValue, A.Pmod, A.UnaryPositive, A._MathUnary,
             A._FloorCeil, A._MathBinary, A._RoundBase, A.BitwiseOr,
-            A.BitwiseXor, A.BitwiseNot, A.ShiftLeft, A.ShiftRightUnsigned)
+            A.BitwiseXor, A.BitwiseNot, A.ShiftLeft, A.ShiftRightUnsigned,
+            TorchUDF) + PY_EXPRESSIONS
 
 
 def _eval_pandas(expr, df: pd.DataFrame) -> pd.Series:

@@ -27,7 +27,8 @@ residual on inner joins), Sort, Limit over Sort (TopN), Limit, Union of
 fixed-width columns, and ``collect``.  Columns the plan never reads
 (``plan/overrides._pushdown_pass``) are not encoded or moved: they
 travel as zero-stride placeholders.  Not lowered: Window, Expand and
-Generate, Union over strings, a full outer USING join on string keys.
+Generate, Union over strings, a full outer USING join on string keys,
+user code (a Python or torch UDF, a pandas node) and a cached plan.
 """
 
 from __future__ import annotations
@@ -848,13 +849,37 @@ def _nested_reason(node: L.LogicalPlan) -> List[str]:
     return []
 
 
+def _user_code_reason(node: L.LogicalPlan, cache_manager) -> List[str]:
+    """User code and reuse run on one device: a Python or torch UDF in
+    the node's expressions, a pandas node, or a cached plan (as the JAX
+    planner keeps UDFs off the sharded path)."""
+    from spark_rapids_tpu_torch.plan.overrides import (
+        PANDAS_NODES, _node_expressions)
+    from spark_rapids_tpu_torch.udf.python_exec import PythonUDF, TorchUDF
+    if isinstance(node, PANDAS_NODES):
+        return [f"pandas UDF node {type(node).__name__} runs on one device"]
+    if cache_manager is not None and cache_manager.lookup(node) is not None:
+        return ["a cached plan runs on one device"]
+
+    def udfs(e):
+        if isinstance(e, (PythonUDF, TorchUDF)):
+            yield type(e).__name__
+        for c in e.children:
+            yield from udfs(c)
+    found = sorted({u for e in _node_expressions(node) for u in udfs(e)})
+    if found:
+        return [f"user code ({', '.join(found)}) runs on one device"]
+    return []
+
+
 def try_distributed(session, plan: L.LogicalPlan):
     """Entry point from DataFrame execution: a list holding one batch when
     the plan ran on the session's shard group, else None: the plan runs
     on one device, through the CPU fallback where the planner tags it
     off, with the reason on ``session.last_dist_explain``.  A plan node
     that does not run on the device (a per-exec disable, a disabled file
-    format, a residual on a join that is not inner) sends the whole plan
+    format, a residual on a join that is not inner), user code (a Python
+    or torch UDF, a pandas node) and a cached plan send the whole plan
     there; an expression is tagged after it is lowered, so one over an
     encoded string column still runs distributed as a lookup over its
     dictionary."""
@@ -868,11 +893,13 @@ def try_distributed(session, plan: L.LogicalPlan):
     if not session.conf.get(rc.DISTRIBUTED_ENABLED):
         session.last_dist_explain = "distributed disabled by conf"
         return None
-    _pushdown_pass(plan)
+    cache_manager = getattr(session, "cache_manager", None)
+    _pushdown_pass(plan, cache_manager)
     stack = [plan]
     while stack:
         node = stack.pop()
-        reasons = node_reasons(node, session.conf) + _nested_reason(node)
+        reasons = node_reasons(node, session.conf) + \
+            _nested_reason(node) + _user_code_reason(node, cache_manager)
         if reasons:
             session.last_dist_explain = (
                 f"fallback: {type(node).__name__}: " + "; ".join(reasons))

@@ -4,7 +4,8 @@ Counterpart of ``spark_rapids_tpu/plan/logical.py``, cut to the nodes the
 ported slices plan: an in-memory relation, a file relation, Range,
 Project (also the plan node of ``withColumnRenamed``), Filter,
 Aggregate, Join (equi-join keys and an optional residual condition),
-Sort, Limit, Union, Window and Generate (``exec/expand.py`` holds
+Sort, Limit, Union, Window, Generate and the pandas nodes (MapInPandas,
+AggInPandas, WindowInPandas, CoGroupMapInPandas; ``exec/expand.py`` holds
 Expand, as in the JAX package).  The
 DataFrame API builds them and ``plan/overrides.py`` lowers them to
 physical operators.
@@ -377,3 +378,103 @@ class Window(LogicalPlan):
     def schema(self) -> Schema:
         return list(self.child.schema) + \
             [(n, e.dtype) for n, e in self.window_exprs]
+
+
+class MapInPandas(LogicalPlan):
+    """``df.mapInPandas(fn, schema)``, or with ``group_names``
+    ``groupBy(keys).applyInPandas(fn, schema)``."""
+
+    def __init__(self, fn, out_schema: Schema, child: LogicalPlan,
+                 group_names: Optional[Sequence[str]] = None):
+        self.fn = fn
+        self._schema = list(out_schema)
+        self.group_names = list(group_names) if group_names else None
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def describe(self):
+        kind = "FlatMapGroupsInPandas" if self.group_names \
+            else "MapInPandas"
+        return f"{kind}[{getattr(self.fn, '__name__', 'fn')}]"
+
+
+class AggInPandas(LogicalPlan):
+    """``groupBy().agg(grouped-aggregate pandas UDFs)``."""
+
+    def __init__(self, group_names: Sequence[str], aggs: Sequence[tuple],
+                 child: LogicalPlan):
+        self.group_names = list(group_names)
+        self.aggs = list(aggs)  # (name, fn, arg_name, dtype)
+        self.children = (child,)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        child_schema = dict(self.child.schema)
+        return [(n, child_schema[n]) for n in self.group_names] + \
+            [(name, dt) for name, _, _, dt in self.aggs]
+
+    def describe(self):
+        return f"AggInPandas[{[n for n, *_ in self.aggs]}]"
+
+
+class WindowInPandas(LogicalPlan):
+    """Pandas UDFs over window frames: the child's columns plus one
+    column per call."""
+
+    def __init__(self, calls: Sequence[tuple], child: LogicalPlan):
+        # (out_name, fn, arg_name, dtype, (partition_names, orders, frame))
+        self.calls = list(calls)
+        self.children = (child,)
+        child_names = {n for n, _ in child.schema}
+        for out_name, _, arg, _, (parts, orders, _) in self.calls:
+            if out_name in child_names:
+                raise ValueError(
+                    f"windowed pandas UDF output {out_name!r} collides "
+                    "with a child column (select() assigns internal "
+                    "names: build it through select)")
+            for c in [arg] + list(parts) + [n for n, _, _ in orders]:
+                if c not in child_names:
+                    raise KeyError(f"windowed pandas UDF references "
+                                   f"unknown column {c!r}")
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def schema(self) -> Schema:
+        return list(self.child.schema) + \
+            [(name, dt) for name, _, _, dt, _ in self.calls]
+
+    def describe(self):
+        return f"WindowInPandas[{[n for n, *_ in self.calls]}]"
+
+
+class CoGroupMapInPandas(LogicalPlan):
+    """``a.groupBy(k).cogroup(b.groupBy(k2)).applyInPandas(fn, schema)``."""
+
+    def __init__(self, fn, out_schema: Schema, left_names, right_names,
+                 left: LogicalPlan, right: LogicalPlan):
+        self.fn = fn
+        self._schema = list(out_schema)
+        self.left_names = list(left_names)
+        self.right_names = list(right_names)
+        self.children = (left, right)
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    def describe(self):
+        return "CoGroupMapInPandas"

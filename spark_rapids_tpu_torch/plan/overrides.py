@@ -27,12 +27,18 @@ tree (``spark.rapids.sql.explain`` prints it) and ``last_cbo`` the
 optimizer's decisions.
 
 The converters cover in-memory and file relations, Range, Project,
-Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window, Generate and
-BatchId;
+Filter, Aggregate, Join, Sort, Limit, Union, Expand, Window, Generate,
+BatchId and the pandas nodes (MapInPandas, AggInPandas, WindowInPandas,
+CoGroupMapInPandas: device-side nodes running the user's pandas code); a
+Project whose only obstacles are black-box Python UDFs becomes a
+``TpuArrowEvalPythonExec`` (before strict mode is asked), and a node that
+``df.cache()`` marked reads its cache (``exec/cache.py``), or
+materializes it on its first run;
 ``_plan_aggregate``, the pushdown pass into scans, the
 ``Limit(Sort) -> TopN`` rewrite and the fusion pass follow the JAX
-planner: a Project/Filter chain under an Aggregate folds into the
-aggregate (its predicates become the row mask), and any other chain of
+planner (neither crosses a cached node): a Project/Filter chain under an
+Aggregate folds into the aggregate (its predicates become the row mask),
+and any other chain of
 two or more members collapses into one FusedStageExec.  Both rewrites take
 only members that run on the device, so a CPU Filter never folds into a
 device aggregate.
@@ -170,14 +176,32 @@ expr_rule(J.StringSplit, ts.ALL,
           host_only="an array<string> has no device representation "
           "(split(s, d).getItem(n) runs on the device)")
 
+# user code: a user torch function evaluates inside the stage (the
+# RapidsUDF analog); the compiler's Python-semantics operators
+# (udf/compiler.py); a black-box PythonUDF has no rule and no emit, so its
+# projection takes TpuArrowEvalPythonExec (TpuOverrides._udf_only_failure)
+from spark_rapids_tpu_torch.udf.compiler import (  # noqa: E402
+    PyCompare, PyFloorDiv, PyMod, PyPow, PyRound)
+from spark_rapids_tpu_torch.udf.python_exec import (  # noqa: E402
+    TorchUDF, find_python_udfs, replace_udfs)
+
+expr_rule(TorchUDF, ts.ALL)
+expr_rule(PyCompare)
+for _c in (PyFloorDiv, PyMod, PyPow, PyRound):
+    expr_rule(_c, ts.NUMERIC)
+
 # aggregates whose float sums reorder across chunks
 _FLOAT_SUM_AGGREGATES = ("sum", "avg", "var_pop", "var_samp", "stddev_pop",
                          "stddev_samp")
 
+# the nodes whose operator runs the user's pandas code
+PANDAS_NODES = (L.MapInPandas, L.AggInPandas, L.WindowInPandas,
+                L.CoGroupMapInPandas)
 # the plan nodes with a device operator (TpuOverrides._convert_node)
 _PLAN_CONVERTERS = (L.InMemoryRelation, L.FileRelation, L.Range, L.Union,
                     Expand, L.Window, L.Project, L.Filter, L.Aggregate,
-                    L.Join, L.Sort, L.Limit, L.BatchId, L.Generate)
+                    L.Join, L.Sort, L.Limit, L.BatchId,
+                    L.Generate) + PANDAS_NODES
 
 _FORMAT_GATES = {fmt: (rc.FORMAT_ENABLED[fmt], rc.FORMAT_READ_ENABLED[fmt])
                  for fmt in rc.FORMAT_ENABLED}
@@ -573,7 +597,7 @@ def _names(exprs, schema) -> Optional[set]:
     return out if out <= names else None
 
 
-def _pushdown_pass(plan: L.LogicalPlan) -> None:
+def _pushdown_pass(plan: L.LogicalPlan, cache_manager=None) -> None:
     """Column pruning and filter pushdown into the plan's FileRelations,
     set afresh on every planning (``required_columns`` back to None and
     ``pushed_filters`` emptied where nothing applies).  An
@@ -587,12 +611,19 @@ def _pushdown_pass(plan: L.LogicalPlan) -> None:
     and through joins (each side reads what the join's consumers, keys
     and condition name on it), which the JAX pass does not.  A relation
     reached twice in one plan reads the union of both requirements and
-    takes no filter unless both paths push the same ones.  The JAX pass
-    treats a cached plan node as a barrier; the port has no cache, and
-    the barrier comes with it."""
+    takes no filter unless both paths push the same ones.
+
+    A cached plan node (``cache_manager``) is a barrier, as in the JAX
+    pass: a query's filters and pruning pushed below it would make the
+    cache a filtered or pruned subset, wrong for every later reader.  At a
+    cached node the pass starts afresh (every column, no filter), for the
+    prunings through joins and projections as for the filters."""
     found = {}
 
     def visit(node, required, filters):
+        if cache_manager is not None and \
+                cache_manager.lookup(node) is not None:
+            required, filters = None, []
         if isinstance(node, (L.FileRelation, L.InMemoryRelation)):
             seen = found.get(id(node))
             if seen is None:
@@ -649,12 +680,18 @@ def _pushdown_pass(plan: L.LogicalPlan) -> None:
 
 class TpuOverrides:
     """Logical plan -> TpuExec tree on one device, with the CPU fallback;
-    its operators bound to ``catalog`` (the session's spill catalog)."""
+    its operators bound to ``catalog`` (the session's spill catalog), its
+    Python execs to ``semaphore`` (the session's admission semaphore,
+    released while Python runs), and the cached plans of
+    ``cache_manager`` (``exec/cache.py``) read from their cache."""
 
-    def __init__(self, conf: rc.RapidsConf, device, catalog=None):
+    def __init__(self, conf: rc.RapidsConf, device, catalog=None,
+                 semaphore=None, cache_manager=None):
         self.conf = conf
         self.device = device
         self.catalog = catalog
+        self.semaphore = semaphore
+        self.cache_manager = cache_manager
         self.fusion_enabled = conf.get(rc.FUSION_ENABLED)
         self.hash_enabled = conf.get(rc.PALLAS_HASH_ENABLED)
         self.hash_table_slots = conf.get(rc.PALLAS_HASH_TABLE_SLOTS) \
@@ -689,7 +726,7 @@ class TpuOverrides:
         return meta
 
     def apply(self, plan: L.LogicalPlan):
-        _pushdown_pass(plan)
+        _pushdown_pass(plan, self.cache_manager)
         meta = self.tag(plan)
         self._chain_nodes = set()
         return self._bind(self._convert(meta))
@@ -723,17 +760,40 @@ class TpuOverrides:
         by_bytes = max(1, self.conf.get(rc.BATCH_SIZE_BYTES) // row_bytes)
         return min(self.conf.get(rc.BATCH_ROW_CAPACITY), by_bytes)
 
+    def _cached(self, node) -> bool:
+        return self.cache_manager is not None and \
+            self.cache_manager.lookup(node) is not None
+
     def _convert(self, meta: PlanMeta):
+        """A cached node reads its cache once materialized, and
+        materializes it on its first run (``exec/cache.py``)."""
+        entry = None if self.cache_manager is None else \
+            self.cache_manager.lookup(meta.wrapped)
+        if entry is None:
+            return self._convert_uncached(meta)
+        from spark_rapids_tpu_torch import native
+        from spark_rapids_tpu_torch.exec.cache import (
+            TpuCachedScanExec, TpuMaterializeCacheExec)
+        if entry.materialized:
+            return TpuCachedScanExec(entry, self.device)
+        return TpuMaterializeCacheExec(
+            entry, self._convert_uncached(meta),
+            codec_level=native.codec_level(
+                self.conf.get(rc.SHUFFLE_COMPRESSION_CODEC)))
+
+    def _convert_uncached(self, meta: PlanMeta):
         node = meta.wrapped
         if isinstance(node, L.Aggregate) and not meta.reasons:
             fused = self._try_fuse_aggregate(meta)
             if fused is not None:
                 return fused
         # Limit(Sort) -> TopN (the TakeOrderedAndProject rewrite), when
-        # both run on the device
+        # both run on the device and the Sort is not cached (its whole
+        # result must be read or materialized)
         if isinstance(node, L.Limit) and not meta.reasons and \
                 isinstance(node.child, L.Sort) and \
-                not meta.child_metas[0].reasons:
+                not meta.child_metas[0].reasons and \
+                not self._cached(node.child):
             sort_meta = meta.child_metas[0]
             return TpuTopNExec(node.n, node.child.orders,
                                self._convert(sort_meta.child_metas[0]))
@@ -744,6 +804,15 @@ class TpuOverrides:
         children = [self._convert(c) for c in meta.child_metas]
         if not meta.reasons:
             return self._convert_node(node, children)
+        if self._udf_only_failure(meta):
+            # a projection of black-box Python UDFs: everything but the
+            # calls runs on the device (GpuArrowEvalPythonExec)
+            from spark_rapids_tpu_torch.udf.python_exec import (
+                TpuArrowEvalPythonExec)
+            return TpuArrowEvalPythonExec(
+                node.exprs, children[0],
+                num_workers=self.conf.get(rc.PYTHON_NUM_WORKERS),
+                semaphore=self.semaphore)
         name = type(node).__name__
         if self.conf.get(rc.TEST_ENABLED):
             allowed = [a.strip() for a in
@@ -805,8 +874,54 @@ class TpuOverrides:
                                    col_name=node.col_name,
                                    pos_name=node.pos_name,
                                    generator2=node.generator2)
+        if isinstance(node, PANDAS_NODES):
+            return self._pandas(node, children)
         assert isinstance(node, L.Limit), type(node)
         return TpuLocalLimitExec(node.n, children[0])
+
+    def _pandas(self, node, children):
+        from spark_rapids_tpu_torch.udf import python_exec as PE
+        kw = {"device": self.device, "semaphore": self.semaphore}
+        if isinstance(node, L.MapInPandas):
+            if node.group_names:
+                return PE.TpuFlatMapGroupsInPandasExec(
+                    node.fn, node.schema, node.group_names, children[0],
+                    **kw)
+            return PE.TpuMapInPandasExec(node.fn, node.schema, children[0],
+                                         **kw)
+        if isinstance(node, L.AggInPandas):
+            return PE.TpuAggregateInPandasExec(node.group_names, node.aggs,
+                                               children[0], **kw)
+        if isinstance(node, L.WindowInPandas):
+            return PE.TpuWindowInPandasExec(node.calls, children[0], **kw)
+        return PE.TpuFlatMapCoGroupsInPandasExec(
+            node.fn, node.schema, node.left_names, node.right_names,
+            children[0], children[1], **kw)
+
+    def _udf_only_failure(self, meta: PlanMeta) -> bool:
+        """Whether the node is a projection whose only obstacles are
+        black-box PythonUDF calls: no node-level reason, no UDF nested in
+        another's arguments (that Project takes the CPU fallback, as in
+        the JAX planner), and every expression runs on the device with
+        each call replaced by a typed placeholder, and every call's
+        arguments run there too."""
+        node = meta.wrapped
+        if not isinstance(node, L.Project) or \
+                node_reasons(node, self.conf):
+            return False
+        found = False
+        for e in node.exprs:
+            udfs = find_python_udfs(e)
+            args = [a for u in udfs for a in u.children]
+            if any(find_python_udfs(a) for a in args):
+                return False
+            found = found or bool(udfs)
+            mapping = {id(u): BoundReference(0, u.return_type, name="_udf")
+                       for u in udfs}
+            if any(tag_expression(x, self.conf)
+                   for x in [replace_udfs(e, mapping)] + args):
+                return False
+        return found
 
     def _sort(self, orders, child_exec) -> TpuSortExec:
         return TpuSortExec(
@@ -857,12 +972,13 @@ class TpuOverrides:
             projs.append(Alias(BoundReference(p, pdt, pname), want))
         return TpuProjectExec(projs, cur)
 
-    @staticmethod
-    def _fusible_member(meta: PlanMeta) -> bool:
+    def _fusible_member(self, meta: PlanMeta, head: bool = False) -> bool:
         """A chain member the fuser can take: a Project or Filter that
-        runs on the device."""
+        runs on the device and, below the chain's head, is not cached (a
+        cached node's batches are materialized or read at its
+        boundary)."""
         return isinstance(meta.wrapped, (L.Project, L.Filter)) and \
-            not meta.reasons
+            not meta.reasons and (head or not self._cached(meta.wrapped))
 
     def _try_fuse_chain(self, meta: PlanMeta) -> Optional[FusedStageExec]:
         """Collapse a maximal run of device Project/Filter members into
@@ -874,7 +990,7 @@ class TpuOverrides:
         cur = meta
         members: List[str] = []
         ids: List[int] = []
-        while self._fusible_member(cur):
+        while self._fusible_member(cur, head=not members):
             node = cur.wrapped
             exprs, conds = compose_chain(exprs, conds, node,
                                          node.child.schema)

@@ -148,13 +148,30 @@ def test_conf_docs_generate():
 
 
 @pytest.mark.parametrize("key", [
-    # the UDF compiler is not ported: a key nothing reads is rejected,
-    # not silently ignored
-    "spark.rapids.sql.udfCompiler.enabled"])
+    # serving is not ported: a key nothing reads is rejected, not
+    # silently ignored
+    "spark.rapids.tpu.serving.resultCache.enabled"])
 def test_unread_reference_keys_rejected(key):
     JaxConf({key: "false"})
     with pytest.raises(ValueError, match="unknown configuration key"):
         RapidsConf({key: "false"})
+
+
+def test_udf_keys_registered():
+    """The UDF keys, with the reference's defaults and checks (the UDF
+    compiler reads its key no more than the reference does: ``F.udf``
+    compiles whenever it can)."""
+    reg = rc._REGISTRY
+    for key in ("spark.rapids.sql.udfCompiler.enabled",
+                "spark.rapids.sql.python.numWorkers"):
+        assert reg[key].default == JaxConf.registry()[key].default
+    assert RapidsConf({"spark.rapids.sql.python.numWorkers": "3"}).get(
+        rc.PYTHON_NUM_WORKERS) == 3
+    for conf in (RapidsConf, JaxConf):
+        with pytest.raises(ValueError, match=">= 0"):
+            conf({"spark.rapids.sql.python.numWorkers": "-1"}).get(
+                conf.registry()["spark.rapids.sql.python.numWorkers"]
+                if conf is JaxConf else rc.PYTHON_NUM_WORKERS)
 
 
 @pytest.mark.parametrize("key", [
