@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 
     python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
                             [memory] [fallback] [tpcds_decimal]
-                            [strings_dates] [nested] [udf]
+                            [strings_dates] [nested] [udf] [serving]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -51,7 +51,10 @@ black-box ``phone_cc`` over all of SF10 customer, grouped by it) through
 ``chip_smoke.UDF_WORKERS`` pool workers and UD8's q1-form group-by reading
 its cached slice of lineitem, each traced after a warm run, with the
 Python execs' host time fetching the arguments, in Python and uploading
-the results, and the cache's bytes and host time,
+the results, and the cache's bytes and host time, and (``serving``, only
+when asked for) ``chip_smoke.py``'s serving phase over the SF10 tables
+(its checks included), then one device-only trace of SV1's three
+concurrent TPC-H streams with each stream's wall and admission wait,
 and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
@@ -163,12 +166,15 @@ SPILL_TIMES = ("spill_to_host_ns", "checksum_ns", "serialize_ns",
                "disk_write_ns", "disk_read_ns", "restore_ns")
 
 
-def profile(torch, query, label, card_line, run=None, catalog=None):
+def profile(torch, query, label, card_line, run=None, catalog=None,
+            host_ops=True):
     """``query``: a DataFrame, or a function that builds one (a SQL
     statement, built anew in the traced run: its scalar subqueries run
     there); ``run`` replaces the collect (``to_pandas``); with
     ``catalog``, the spill
-    catalog's host times of the traced run are printed too."""
+    catalog's host times of the traced run are printed too.
+    ``host_ops=False`` traces the device only (a long run's host ops
+    would swamp the profiler)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
 
@@ -180,8 +186,10 @@ def profile(torch, query, label, card_line, run=None, catalog=None):
     host_sync_metrics.reset()
     dict_time.reset()
     spill0 = catalog.stats() if catalog is not None else None
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with tprofile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -289,6 +297,8 @@ def main() -> int:
         profile_nested(torch, tpch, card_line)
     if "udf" in sys.argv[1:]:
         profile_udf(torch, tpch, card_line)
+    if "serving" in sys.argv[1:]:
+        profile_serving(torch, tpch, card_line)
     if "sharded_tpch" in sys.argv[1:]:
         return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
@@ -408,6 +418,78 @@ def profile_udf(torch, tpch, card_line):
           f"{entry.restore_ns / 1e6:.3f} (the traced read)", flush=True)
     s.stop()
     WP.shutdown_pool()
+
+
+def profile_serving(torch, tpch, card_line):
+    """``chip_smoke.py``'s serving phase (its checks included, against
+    the 22 answers of one run each) over the SF10 tables, then one
+    device trace of SV1's three streams after a warm run, with each
+    stream's wall and its queries' admission wait beside it."""
+    import tempfile
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.tools.eventlog import parse_event_log
+    t0 = time.perf_counter()
+    cols = tpch.gen_table_columns(cs.TPCH_SF)
+    batches = cs.device_tables(cols, torch.device(cs.DEVICE))
+    del cols
+    print(f"TPC-H SF{cs.TPCH_SF} generated and on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    K.library()
+    workdir = tempfile.mkdtemp(prefix="profile_serving_")
+    s = cs.serving_session(batches, "")
+    t = cs.stream_tables(s, batches)
+    answers = {n: q(t).to_pandas() for n, q in tpch.QUERIES.items()}
+    s.stop()
+    total = cs.PathLaunches(K.launches.NAMES)
+    secs = cs.run_serving(torch, K, tpch, batches, answers, card_line,
+                          total, workdir)
+    print(f"serving phase {secs:.3f} s (budget {cs.SERVING_BUDGET_S} s); "
+          f"launches {total.counts}", flush=True)
+    streams = {k: [f"q{i}" for i in v] for k, v in cs.TPCH_STREAMS.items()}
+    # the same 66 queries one after another on one thread, then all three
+    # streams at once with the pipeline off (three threads, not six)
+    # streams at once with the pipeline off (three threads, not six), and
+    # with the interpreter handing its lock over every 0.5 ms, not 5 ms
+    one = {0: [q for k in sorted(streams) for q in streams[k]]}
+    interval = sys.getswitchinterval()
+    for label, sub, extra, switch in (
+            ("serial (one thread)", one, {}, interval),
+            ("3 streams, pipeline off", streams,
+             {"spark.rapids.tpu.pipeline.enabled": False}, interval),
+            ("3 streams, switch interval 0.5 ms", streams, {}, 0.0005)):
+        s = cs.serving_session(batches, "", **extra)
+        mem0 = cs.memory_counters(torch)
+        torch.cuda.synchronize()
+        sys.setswitchinterval(switch)
+        try:
+            _, walls, _, _, wall = cs.run_streams(tpch, s, batches, sub, [])
+            torch.cuda.synchronize()
+        finally:
+            sys.setswitchinterval(interval)
+        print(f"SV1's 66 queries, {label}: wall {wall:.3f} s, queries "
+              f"summed {sum(sum(w) for w in walls.values()):.3f} s; memory "
+              f"{cs.memory_counters(torch, mem0)} on {card_line}",
+              flush=True)
+        s.stop()
+    held = {}
+
+    def run():
+        s = cs.serving_session(batches, tempfile.mkdtemp(dir=workdir))
+        starts = cs.query_starts(s)
+        held["out"] = cs.run_streams(tpch, s, batches, streams, starts)
+        path = s.events.path
+        s.stop()
+        held["app"] = parse_event_log(path)
+    profile(torch, None, f"SV1 TPC-H throughput SF{cs.TPCH_SF}, "
+            f"{len(streams)} streams x 22", card_line, run=run,
+            host_ops=False)
+    _, _, stream_s, qids, wall = held["out"]
+    ends = {q.query_id: q for q in held["app"].queries}
+    for k in sorted(stream_s):
+        wait = sum(ends[q].admission.get("waitMs", 0.0) for q in qids[k])
+        print(f"  stream {k}: wall {stream_s[k]:.3f} s, admission wait "
+              f"{wait:.3f} ms ({wait / 1e3 / stream_s[k]:.6f} of its "
+              f"wall); the three streams' wall {wall:.3f} s", flush=True)
 
 
 def profile_tpcds_decimal(torch, card_line):

@@ -6,4 +6,4 @@ Hopper GPU.  It imports neither ``jax`` nor anything of the JAX package.
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+from spark_rapids_tpu_torch.version import __version__  # noqa: F401

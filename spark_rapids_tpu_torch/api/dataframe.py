@@ -19,6 +19,11 @@ offers the plan to the distributed planner
 when the session holds a shard group, else (or when the planner declines)
 plans the query on the session's device, runs the operators and fetches
 the result in one counted sync.
+
+Every action (``collect``, ``to_pandas``, ``to_arrow``, a write) runs in
+the query envelope of ``_execute_batches``: a per-query context,
+admission, the recovery driver, a watchdog query scope per attempt, and
+QueryStart/QueryEnd records when the session has an event log.
 """
 
 from __future__ import annotations
@@ -557,41 +562,273 @@ class DataFrame:
         return DataFrame(self.session, L.MapInPandas(
             fn, _parse_schema(schema), self.plan))
 
+    # ------------------------------------------------------------ actions --
     def _execute_batches(self) -> List[ColumnarBatch]:
-        """Run the plan: distributed when the session's shard group takes
-        it, else on the session's device, through the asynchronous
-        pipeline unless ``spark.rapids.tpu.pipeline.enabled`` is off."""
+        """Run the plan inside the query envelope (reference
+        ``api/dataframe.py:600-753``, without the result cache, plan
+        templates and the shared stage store): a ``QueryContext`` (the
+        per-query scope for event attribution, budgets and injection
+        scoping, whose exit purges stale thread-ident adoptions), then
+        admission (a typed ``AdmissionFault`` rejects this query only),
+        then the recovery driver, which re-drives classified transient
+        faults down the ladder (retry -> spill -> smaller batches -> one
+        device -> CPU) and re-raises fatal ones untouched."""
+        import contextlib
+
+        import torch
+
+        from spark_rapids_tpu_torch.robustness.driver import QueryRetryDriver
+        from spark_rapids_tpu_torch.serving.context import QueryContext
+        # a new thread's current CUDA device is cuda:0: a query driven
+        # from any thread runs with the session's device current, and
+        # issues its work to that device's default stream, which every
+        # query of the session shares (exec/pipeline.py)
+        dev = self.session.device
+        on_device = torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext()
+        with on_device, QueryContext(self.session) as ctx:
+            ctx.admit()
+            driver = QueryRetryDriver(self.session)
+            try:
+                return driver.run(self._attempt_batches)
+            except Exception as exc:
+                # a fatal or exhausted ladder still writes its recovery
+                # and watchdog trail, so a post-mortem sees what was
+                # tried
+                self._flush_fatal_trail(driver, exc)
+                raise
+
+    def _flush_fatal_trail(self, driver, exc: BaseException) -> None:
+        ev = getattr(self.session, "events", None)
+        if ev is None or not ev.enabled:
+            return
+        from spark_rapids_tpu_torch.robustness.watchdog import (
+            watchdog_metrics)
+        try:
+            ev.emit(
+                "QueryFatal",
+                queryId=getattr(self.session, "_current_qid", None),
+                error=f"{type(exc).__name__}: {exc}",
+                recovery=list(getattr(driver, "trail", [])),
+                watchdog=watchdog_metrics.snapshot(),
+                checkpoint={})
+        except Exception:
+            pass  # the post-mortem record must never mask the fault
+
+    def _attempt_batches(self, mode) -> List[ColumnarBatch]:
+        """One attempt in a watchdog query scope: a stale cancellation
+        token of an earlier attempt is cleared, and the query's deadline
+        (``serving.deadlineBudgetMs``, else
+        ``watchdog.queryDeadlineMs``) bounds this attempt's wall time:
+        an overrun is a retryable TimeoutFault at the next checkpoint."""
+        from spark_rapids_tpu_torch.robustness import watchdog
+        from spark_rapids_tpu_torch.serving import context as qc
+        ctx = qc.current()
+        deadline = ctx.deadline_budget_ms \
+            if ctx is not None and ctx.deadline_budget_ms else None
+        with watchdog.query_scope(self.session, deadline_ms=deadline):
+            return self._attempt_batches_impl(mode)
+
+    def _admission_info(self) -> dict:
+        """What admission cost this query (QueryEnd payload)."""
+        from spark_rapids_tpu_torch.serving import context as qc
+        ctx = qc.current()
+        return ctx.admission_info() if ctx is not None else {}
+
+    def _sharing_info(self) -> dict:
+        """The QueryEnd ``sharing`` dict: the interleaver's wait and
+        slice accounting; empty (and absent from the event) when the
+        interleaver is off."""
+        from spark_rapids_tpu_torch.serving import context as qc
+        ctx = qc.current()
+        out = {}
+        if ctx is not None:
+            out.update(ctx.sharing)
+            t = ctx.interleave_ticket
+            if t is not None:
+                out["interleave"] = t.info()
+        return out
+
+    def _attempt_batches_impl(self, mode) -> List[ColumnarBatch]:
+        import time as _time
+        from spark_rapids_tpu_torch.api.session import TpuSession
+        # conf resolved at call time follows the session EXECUTING the
+        # query, not the last-constructed one
+        TpuSession._active = self.session
+        # a failure before this attempt draws its qid must not inherit
+        # the previous query's id on its RecoveryAction events
+        self.session._current_qid = None
+        group = getattr(self.session, "shards", None)
+        if group is not None and \
+                (not mode.use_mesh or mode.batch_scale != 1.0):
+            self.session.last_dist_explain = (
+                "demoted: single-device replan (query recovery)"
+                if mode.batch_scale == 1.0 else
+                "demoted: single-device split-batch replan "
+                "(query recovery)")
+        if mode.use_mesh and mode.batch_scale == 1.0 and \
+                not mode.cpu_only and group is not None:
+            # a sharded session offers the plan to the distributed
+            # planner first; a plan it declines falls through to the
+            # single-device engine, which opens its own envelope.  The
+            # split rung skips this: the sharded plan has no batch knob
+            from spark_rapids_tpu_torch.parallel.shuffle import (
+                shuffle_metrics)
+            from spark_rapids_tpu_torch.utils import tracing
+            events = getattr(self.session, "events", None)
+            t0 = _time.perf_counter()
+            wire0 = shuffle_metrics.snapshot()
+            # the envelope opens BEFORE execution, so what the attempt
+            # emits on the way (RecoveryAction, WatchdogTrip) carries
+            # this attempt's qid
+            qid = None
+            if events is not None and events.enabled:
+                qid = next(self.session._query_ids)
+                self.session._current_qid = qid
+                events.emit(
+                    "QueryStart", queryId=qid,
+                    logicalPlan=self.plan.tree_string(),
+                    physicalPlan="DistributedPlan",
+                    explain="distributed attempt")
+
+            def _end(status, shuffle):
+                # the span drain runs for every exit, events on or off
+                wall_ms = (_time.perf_counter() - t0) * 1e3
+                spans = tracing.finish_query(self.session, qid,
+                                             wall_ms, status)
+                if qid is not None:
+                    sh = self._sharing_info()
+                    events.emit(
+                        "QueryEnd", queryId=qid, status=status,
+                        durationMs=round(wall_ms, 3),
+                        metrics={}, spill={}, retry={},
+                        distributed=True, shuffle=shuffle,
+                        fusion={}, spans=spans,
+                        admission=self._admission_info(),
+                        **({"sharing": sh} if sh else {}),
+                        explain=self.session.last_dist_explain)
+
+            try:
+                dist = try_distributed(self.session, self.plan)
+            except Exception as exc:
+                _end(f"failed: {type(exc).__name__}: {exc}", {})
+                raise
+            if dist is not None:
+                wire1 = shuffle_metrics.snapshot()
+                _end("success", {k: wire1[k] - wire0[k] for k in wire1})
+                return dist
+            _end("success", {})
+        overrides = None
+        if mode.batch_scale != 1.0:
+            # split rung: re-plan with the scan and coalesce batch sizes
+            # scaled down, through a one-off planner (batch sizes are
+            # captured into the operators at plan time), so the
+            # session's conf never changes under concurrent queries
+            from spark_rapids_tpu_torch.config import rapids_conf as rc
+            from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
+            conf = self.session.conf
+            for entry in (rc.READER_BATCH_SIZE_ROWS, rc.BATCH_SIZE_BYTES):
+                conf = conf.set(entry.key, max(
+                    1, int(conf.get(entry) * mode.batch_scale)))
+            overrides = TpuOverrides(
+                conf, self.session.device, self.session.memory_catalog,
+                semaphore=self.session.semaphore,
+                cache_manager=self.session.cache_manager)
+        return self._run_single_process(mode, overrides)
+
+    def _drive(self, exec_plan) -> List[ColumnarBatch]:
+        """Materialize the plan's batches through the asynchronous
+        pipeline unless ``spark.rapids.tpu.pipeline.enabled`` is off.
+        With the fair interleaver on, every batch pull passes its
+        round-robin gate (on the pipeline's worker when pipelined: the
+        thread that dispatches)."""
         from spark_rapids_tpu_torch.config import rapids_conf as rc
-        got = try_distributed(self.session, self.plan)
-        if got is not None:
-            return got
-        exec_plan = self.session.plan(self.plan)
-        self._last_exec = exec_plan
         conf = self.session.conf
+        source = exec_plan.execute()
+        sched = getattr(self.session, "interleaver", None)
+        if sched is not None:
+            from spark_rapids_tpu_torch.serving import context as qc
+            ctx = qc.current()
+            ticket = getattr(ctx, "interleave_ticket", None) \
+                if ctx is not None else None
+            if ticket is not None:
+                source = sched.interleaved(source, ticket)
+        if not conf.get(rc.PIPELINE_ENABLED):
+            self.session.last_pipeline_stats = None
+            return list(source)
+        from spark_rapids_tpu_torch.exec.pipeline import (
+            PipelineStats, pipelined)
+        stats = PipelineStats(conf.get(rc.PIPELINE_DEPTH))
+        try:
+            return list(pipelined(source, stats.depth, stats,
+                                  self.session.device,
+                                  self.session.memory_catalog))
+        finally:
+            self.session.last_pipeline_stats = stats
+
+    def _run_single_process(self, mode,
+                            overrides=None) -> List[ColumnarBatch]:
+        """Plan on the session's device (the whole plan on the CPU
+        fallback on the ``cpu`` rung) and drive it, in the
+        QueryStart/QueryEnd envelope when an event log is set (reference
+        ``api/dataframe.py:838-1180``)."""
+        import time as _time
+        from spark_rapids_tpu_torch.utils import tracing
+        if mode.cpu_only:
+            exec_plan = self.session.plan_cpu_only(self.plan)
+        else:
+            exec_plan = self.session.plan(self.plan, overrides=overrides)
+        self._last_exec = exec_plan
+        events = getattr(self.session, "events", None)
+        logging = events is not None and events.enabled
+        qid = None
+        if logging:
+            qid = next(self.session._query_ids)
+            # the recovery driver stamps RecoveryAction events with the
+            # qid of the attempt that failed
+            self.session._current_qid = qid
+            events.emit("QueryStart", queryId=qid,
+                        logicalPlan=self.plan.tree_string(),
+                        physicalPlan=exec_plan.tree_string(),
+                        explain=(overrides or
+                                 self.session.overrides).last_explain)
         # the planner bound the operators to this session's catalog
         cat = self.session.memory_catalog
         host0, disk0 = cat.spilled_to_host_total, cat.spilled_to_disk_total
+        # this thread's view: concurrent queries on other threads must
+        # not count into this query's
         retry0 = retry_metrics.snapshot_local()
+        t0 = _time.perf_counter()
+        status = "success"
         try:
-            if not conf.get(rc.PIPELINE_ENABLED):
-                self.session.last_pipeline_stats = None
-                return list(exec_plan.execute())
-            from spark_rapids_tpu_torch.exec.pipeline import (
-                PipelineStats, pipelined)
-            stats = PipelineStats(conf.get(rc.PIPELINE_DEPTH))
-            try:
-                return list(pipelined(exec_plan.execute(), stats.depth,
-                                      stats, self.session.device, cat))
-            finally:
-                self.session.last_pipeline_stats = stats
+            return self._drive(exec_plan)
+        except Exception as e:
+            status = f"failed: {type(e).__name__}: {e}"
+            raise
         finally:
-            # this query's share of the session's spill counters and of
-            # this thread's OOM recoveries
-            retry1 = retry_metrics.snapshot_local()
-            self.session.last_memory_stats = {
+            spill = {
                 "spilledToHostBytes": cat.spilled_to_host_total - host0,
-                "spilledToDiskBytes": cat.spilled_to_disk_total - disk0,
-                **{k: retry1[k] - retry0[k] for k in retry1}}
+                "spilledToDiskBytes": cat.spilled_to_disk_total - disk0}
+            retry1 = retry_metrics.snapshot_local()
+            retry = {k: retry1[k] - retry0[k] for k in retry1}
+            self.session.last_memory_stats = {**spill, **retry}
+            wall_ms = (_time.perf_counter() - t0) * 1e3
+            # the span drain runs with or without an event log, so trace
+            # files exist for logless sessions too
+            spans = tracing.finish_query(self.session, qid, wall_ms,
+                                         status)
+            if logging:
+                ps = self.session.last_pipeline_stats
+                sh = self._sharing_info()
+                events.emit(
+                    "QueryEnd", queryId=qid, status=status,
+                    durationMs=round(wall_ms, 3),
+                    metrics=exec_plan.collect_metrics(), spill=spill,
+                    retry=retry,
+                    pipeline=ps.as_dict() if ps is not None else {},
+                    fusion={}, spans=spans,
+                    admission=self._admission_info(),
+                    **({"sharing": sh} if sh else {}))
 
     @property
     def write(self):

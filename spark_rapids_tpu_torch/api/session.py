@@ -36,6 +36,20 @@ its device: less the reserve, times ``allocFraction``, at most
 the same sizing applies to a device of ``CPU_DEVICE_BYTES`` (16 GiB, the
 JAX package's fallback).  ``stop()`` closes the catalog (its live handles
 and spill files).
+
+The query envelope (``_init_observability`` and ``_init_serving``):
+every ``collect`` runs in a ``serving/context.QueryContext``, through the
+session's ``admission`` controller (``serving.concurrentQueries``, 4 by
+default; None when 0) and, when ``serving.interleave.enabled``, its
+``interleaver``, under a ``robustness/driver.QueryRetryDriver`` whose
+actions land on ``recovery_log``, in a watchdog query scope, with
+QueryStart/QueryEnd records on ``events`` when
+``spark.rapids.tpu.eventLog.dir`` is set (``DataFrame._execute_batches``).
+``_current_qid`` is a per-thread view, so concurrent queries on one
+session, each on its own thread, keep their own query ids.
+``TpuSession._active`` is the session of the query running last (set
+per attempt), which subsystems without a session at hand (the watchdog's
+events, the UDF pool's degradation record) resolve.
 """
 
 from __future__ import annotations
@@ -110,12 +124,16 @@ CPU_DEVICE_BYTES = 16 << 30
 
 
 class TpuSession:
+    _active: Optional["TpuSession"] = None
+
     def __init__(self, conf: Optional[Union[RapidsConf, Dict]] = None,
                  device=None, process_group=None):
         self.conf = conf if isinstance(conf, RapidsConf) else \
             RapidsConf(conf)
         self.device = resolve_device(device)
         self._init_memory()
+        self._init_serving()
+        self._init_observability()
         from spark_rapids_tpu_torch.exec.cache import CacheManager
         # the plans df.cache() marked, and their frames once materialized
         self.cache_manager = CacheManager()
@@ -146,6 +164,128 @@ class TpuSession:
         # the error a suppressed planning failure left (see ``plan``)
         self.last_planning_error = None
         self._views: Dict[str, DataFrame] = {}
+        TpuSession._active = self
+
+    def _init_serving(self) -> None:
+        """The admission controller (serving/admission.py: at most
+        ``concurrentQueries`` in flight, their memory weights within
+        ``hbmAdmissionFraction`` of the spill catalog's device budget;
+        None when 0) and the fair interleaver (serving/scheduler.py;
+        None unless ``interleave.enabled``)."""
+        conf = self.conf
+        self.admission = None
+        n = conf.get(rc.SERVING_CONCURRENT_QUERIES)
+        if n > 0:
+            from spark_rapids_tpu_torch.serving.admission import (
+                AdmissionController)
+            self.admission = AdmissionController(
+                max_queries=n,
+                hbm_bytes=int(self.memory_catalog.device_budget *
+                              conf.get(rc.SERVING_HBM_ADMISSION_FRACTION)),
+                default_weight=conf.get(rc.SERVING_QUERY_MEMORY_BUDGET),
+                timeout_ms=conf.get(rc.SERVING_ADMISSION_TIMEOUT_MS),
+                max_queue=conf.get(rc.SERVING_MAX_QUEUED_QUERIES))
+        self.interleaver = None
+        if conf.get(rc.SERVING_INTERLEAVE_ENABLED):
+            from spark_rapids_tpu_torch.serving.scheduler import (
+                FairInterleaver)
+            self.interleaver = FairInterleaver(
+                conf.get(rc.SERVING_INTERLEAVE_QUANTUM))
+
+    def _init_observability(self) -> None:
+        """Query ids, the recovery trail, the event log and the span
+        runtime (reference ``api/session.py:336-381``, without the cost
+        model)."""
+        import itertools
+        import uuid
+        from spark_rapids_tpu_torch.utils import tracing
+        from spark_rapids_tpu_torch.utils.events import EventLogger
+        self._query_ids = itertools.count(1)
+        self.session_id = uuid.uuid4().hex[:12]
+        # recovery actions (robustness/driver.py) in arrival order: the
+        # in-memory mirror of the RecoveryAction events
+        self.recovery_log = []
+        # thread-keyed stores behind the _current_qid / checkpoints
+        # views: one session serves concurrent queries, each on its own
+        # driving thread
+        self._qid_by_ident = {}
+        self._checkpoints_by_ident = {}
+        self.events = EventLogger(
+            self.conf.get(rc.EVENT_LOG_DIR) or None, self.session_id,
+            conf_snapshot=dict(self.conf.settings),
+            flush_ms=self.conf.get(rc.EVENT_LOG_FLUSH_MS))
+        # span tracing: process-global, this session's conf wins
+        trace_dir = self.conf.get(rc.TRACE_DIR) or None
+        self.last_span_stats = None  # the last QueryEnd spans rollup
+        tracing.configure(
+            enabled=bool(self.conf.get(rc.TRACE_ENABLED) or trace_dir),
+            trace_dir=trace_dir,
+            max_events=self.conf.get(rc.TRACE_MAX_EVENTS))
+
+    # per-query state views: call sites read and write
+    # ``session._current_qid`` / ``session.checkpoints`` and get the
+    # CALLING query's value, resolved by effective thread ident (an
+    # adopted pipeline worker resolves to its driving query)
+    @property
+    def _current_qid(self):
+        from spark_rapids_tpu_torch.serving import context as qc
+        return self._qid_by_ident.get(qc.effective_ident())
+
+    @_current_qid.setter
+    def _current_qid(self, qid) -> None:
+        from spark_rapids_tpu_torch.serving import context as qc
+        ident = qc.effective_ident()
+        if qid is None:
+            self._qid_by_ident.pop(ident, None)
+        else:
+            self._qid_by_ident[ident] = qid
+        ctx = qc.current()
+        if ctx is not None:
+            ctx.set_qid(qid)
+
+    @property
+    def checkpoints(self):
+        """The calling query's stage-checkpoint manager: always None
+        until robustness/checkpoint.py is ported."""
+        from spark_rapids_tpu_torch.serving import context as qc
+        return self._checkpoints_by_ident.get(qc.effective_ident())
+
+    @checkpoints.setter
+    def checkpoints(self, mgr) -> None:
+        from spark_rapids_tpu_torch.serving import context as qc
+        ident = qc.effective_ident()
+        if mgr is None:
+            self._checkpoints_by_ident.pop(ident, None)
+        else:
+            self._checkpoints_by_ident[ident] = mgr
+        ctx = qc.current()
+        if ctx is not None:
+            ctx.checkpoints = mgr
+
+    # --------------------------------------------------------- builders --
+    @classmethod
+    def builder(cls) -> "SessionBuilder":
+        return SessionBuilder()
+
+    @classmethod
+    def active(cls) -> "TpuSession":
+        """The active session, made (on ``cuda:0``) if there is none."""
+        if cls._active is None:
+            cls._active = TpuSession()
+        return cls._active
+
+    def set_conf(self, key: str, value) -> None:
+        """Set one conf key on this session: the planner is rebuilt with
+        it, and a changed ``eventLog.dir`` reopens the event log."""
+        old_log_dir = self.conf.get(rc.EVENT_LOG_DIR)
+        self.conf = self.conf.set(key, value)
+        self.overrides = TpuOverrides(self.conf, self.device,
+                                      self.memory_catalog,
+                                      semaphore=self.semaphore,
+                                      cache_manager=self.cache_manager)
+        if self.conf.get(rc.EVENT_LOG_DIR) != old_log_dir:
+            self.events.close()
+            self._init_observability()
 
     def _init_memory(self) -> None:
         """The spill catalog and the admission semaphore
@@ -244,18 +384,21 @@ class TpuSession:
         from spark_rapids_tpu_torch.sql import parse, resolve
         return resolve(self, parse(query))
 
-    def plan(self, logical: L.LogicalPlan):
+    def plan(self, logical: L.LogicalPlan, overrides=None):
         """The physical plan of ``logical`` (``overrides.last_explain``
         then says what runs where).  With
         ``spark.rapids.sql.suppressPlanningFailure`` a planning error
         demotes the whole query to the CPU fallback, keeping the error on
-        ``last_planning_error``."""
+        ``last_planning_error``.  ``overrides``: a one-off planner (the
+        recovery driver's split rung plans with smaller batch sizes this
+        way, leaving the session's conf alone)."""
         if self.stopped:
             raise RuntimeError("session is stopped")
+        ov = overrides if overrides is not None else self.overrides
         if not self.conf.get(rc.SUPPRESS_PLANNING_FAILURE):
-            return self.overrides.apply(logical)
+            return ov.apply(logical)
         try:
-            return self.overrides.apply(logical)
+            return ov.apply(logical)
         except Exception as exc:
             import warnings
             # the root cause first: the CPU plan may itself lack a branch
@@ -279,9 +422,33 @@ class TpuSession:
         return whole_cpu(logical)
 
     def stop(self) -> None:
-        """Stop the session and sweep its spill tiers: live handles
-        close, orphaned spill files go, and the catalog's own directory
-        is removed."""
+        """Stop the session: the event log closes (SessionEnd), and the
+        spill tiers are swept (live handles close, orphaned spill files
+        go, and the catalog's own directory is removed)."""
         self.stopped = True
+        self.events.close()
         self.cache_manager.clear()
         self.memory_catalog.close()
+        if TpuSession._active is self:
+            TpuSession._active = None
+
+
+class SessionBuilder:
+    """``TpuSession.builder().config(k, v).getOrCreate()``."""
+
+    def __init__(self):
+        self._conf: Dict[str, object] = {}
+        self._device = None
+
+    def config(self, key: str, value) -> "SessionBuilder":
+        self._conf[key] = value
+        return self
+
+    def device(self, device) -> "SessionBuilder":
+        """The session's device (default ``cuda:0``; ``"cpu"`` on
+        purpose)."""
+        self._device = device
+        return self
+
+    def getOrCreate(self) -> TpuSession:
+        return TpuSession(RapidsConf(self._conf), device=self._device)

@@ -4,13 +4,15 @@ names, defaults and validation (``spark_rapids_tpu/config/rapids_conf.py``).
 A conf dict written for the JAX engine passes unchanged as long as it only
 sets these keys; any other ``spark.rapids.*`` key is rejected, because a
 knob the port does not read must fail loudly rather than silently no-op.
-Besides the registered keys the planner reads three families of dynamic
+Besides the registered keys the port reads four families of dynamic
 keys, as the JAX package does (``_known_key``):
 ``spark.rapids.sql.exec.<Name>`` and ``spark.rapids.sql.expression.<Name>``
 switch one operator or expression class off (``op_enabled``; a name the
-planner does not know is rejected, so a typo still fails), and
+planner does not know is rejected, so a typo still fails),
 ``spark.rapids.sql.optimizer.{tpu,cpu}OpCost.<Op>`` set the cost-based
-optimizer's per-row weights (``op_cost``).
+optimizer's per-row weights (``op_cost``), and
+``spark.rapids.tpu.watchdog.deadline.<point>`` sets one monitored
+section's deadline (``watchdog_deadline_ms``).
 """
 
 from __future__ import annotations
@@ -318,6 +320,166 @@ SPILL_INTEGRITY_ENABLED = conf(
     "rename).", _to_bool)
 
 
+
+# ------------------------------------------------------- query envelope --
+# the event log (utils/events.py), span tracing (utils/tracing.py), the
+# recovery driver (robustness/driver.py), the watchdog
+# (robustness/watchdog.py) and the serving layer (serving/)
+
+_non_negative = (lambda v: None if v >= 0 else "must be >= 0")
+
+EVENT_LOG_DIR = conf(
+    "spark.rapids.tpu.eventLog.dir", "",
+    "Directory for the session's JSON-lines query event log (plans, "
+    "per-operator metrics, spill, retry, admission and span facts). "
+    "Empty disables logging; tools/eventlog.py parses the files.", str)
+
+EVENT_LOG_FLUSH_MS = conf(
+    "spark.rapids.tpu.eventLog.flushMs", 0,
+    "Batched event-log flushing: lines are written at once but flushes "
+    "are coalesced to at most one per this many milliseconds. 0 flushes "
+    "every line. QueryEnd, QueryFatal and SessionEnd always flush.",
+    _to_int, _non_negative)
+
+TRACE_ENABLED = conf(
+    "spark.rapids.tpu.trace.enabled", False,
+    "Arm the span-tracing runtime (utils/tracing.py): thread-aware, "
+    "query-attributed host wall-clock spans over operator batch pulls, "
+    "host syncs, reader pulls, exchanges, spill tier moves, admission "
+    "and pipeline waits. Spans drain at QueryEnd into its 'spans' "
+    "rollup and, with trace.dir set, a Chrome trace file per query. "
+    "Off by default; answers are the same bits either way. Setting "
+    "trace.dir also arms tracing. Process-global: the last-constructed "
+    "session's setting wins.", _to_bool)
+
+TRACE_DIR = conf(
+    "spark.rapids.tpu.trace.dir", "",
+    "Directory for per-query Chrome-trace-event JSON files "
+    "(tools/traceview.py), one per query envelope, failed ones "
+    "included. Setting this implies trace.enabled.", str)
+
+TRACE_MAX_EVENTS = conf(
+    "spark.rapids.tpu.trace.maxEvents", 100_000,
+    "Bound on span records per thread buffer and per exported trace; "
+    "a trace past it carries an explicit trace-truncated marker.",
+    _to_int, _positive)
+
+QUERY_RECOVERY_ENABLED = conf(
+    "spark.rapids.sql.recovery.enabled", True,
+    "Enable the query-level recovery driver: classified transient "
+    "faults (device OOM past the operator retries, reader and shuffle "
+    "faults, watchdog timeouts) re-drive the query down a bounded "
+    "ladder (retry, spill, smaller batches, one device, CPU) instead of "
+    "failing it. CUDA runtime errors, kernel build failures and "
+    "unported features are fatal and never re-driven.", _to_bool)
+
+QUERY_RECOVERY_MAX_RETRIES = conf(
+    "spark.rapids.sql.recovery.maxRetries", 2,
+    "Plain same-plan retries (with backoff) before the recovery ladder "
+    "escalates to degradation.", _to_int, _non_negative)
+
+QUERY_RECOVERY_BACKOFF_MS = conf(
+    "spark.rapids.sql.recovery.backoffMs", 25,
+    "Base backoff between same-plan query retries, doubled per retry, "
+    "jittered (seeded per driver) and capped at "
+    "spark.rapids.sql.recovery.backoffCapMs.", _to_int, _non_negative)
+
+QUERY_RECOVERY_BACKOFF_CAP_MS = conf(
+    "spark.rapids.sql.recovery.backoffCapMs", 2000,
+    "Ceiling on the exponential retry backoff (before jitter).",
+    _to_int, _positive)
+
+WATCHDOG_ENABLED = conf(
+    "spark.rapids.tpu.watchdog.enabled", True,
+    "Enable the hang watchdog (robustness/watchdog.py): monitored "
+    "sections around reader pulls, shuffle exchanges, host syncs of "
+    "the sharded path, disk spill writes, UDF worker calls and the "
+    "pipeline worker's heartbeat turn deadline overruns into retryable "
+    "TimeoutFaults delivered at the next cooperative checkpoint. It "
+    "cannot interrupt a device sync: the fault is raised after the "
+    "sync returns.", _to_bool)
+
+WATCHDOG_DEFAULT_DEADLINE_MS = conf(
+    "spark.rapids.tpu.watchdog.defaultDeadlineMs", 300_000,
+    "Deadline of every monitored section without a per-point override "
+    "(spark.rapids.tpu.watchdog.deadline.<point>). 0 disables "
+    "monitoring for sections without an override.", _to_int,
+    _non_negative)
+
+WATCHDOG_QUERY_DEADLINE_MS = conf(
+    "spark.rapids.tpu.watchdog.queryDeadlineMs", 0,
+    "Wall-time deadline of one query execution attempt; an overrun is "
+    "a retryable TimeoutFault. 0 disables the whole-query deadline.",
+    _to_int, _non_negative)
+
+WATCHDOG_POLL_MS = conf(
+    "spark.rapids.tpu.watchdog.pollMs", 25,
+    "Target poll interval of the watchdog monitor thread; the cadence "
+    "also adapts to the shortest active deadline.", _to_int, _positive)
+
+SERVING_CONCURRENT_QUERIES = conf(
+    "spark.rapids.tpu.serving.concurrentQueries", 4,
+    "Maximum queries admitted onto the device at once by the session's "
+    "admission controller (serving/admission.py, the query-granularity "
+    "GpuSemaphore). Queries past it wait in a fair FIFO queue; 0 "
+    "disables admission control.", _to_int, _non_negative)
+
+SERVING_HBM_ADMISSION_FRACTION = conf(
+    "spark.rapids.tpu.serving.hbmAdmissionFraction", 0.8,
+    "Fraction of the spill catalog's device budget that admitted "
+    "queries' declared memory weights may claim together; a query "
+    "heavier than the whole budget still admits alone.", _to_float,
+    _fraction)
+
+SERVING_ADMISSION_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.serving.admissionTimeoutMs", 0,
+    "Longest one query may wait in the admission queue before a typed "
+    "AdmissionFault rejects it. 0 waits indefinitely.", _to_int,
+    _non_negative)
+
+SERVING_MAX_QUEUED_QUERIES = conf(
+    "spark.rapids.tpu.serving.maxQueuedQueries", 0,
+    "Bound on the admission queue; a query arriving at a full queue is "
+    "rejected at once with AdmissionFault('queue-full'). 0 leaves the "
+    "queue unbounded.", _to_int, _non_negative)
+
+SERVING_QUERY_MEMORY_BUDGET = conf(
+    "spark.rapids.tpu.serving.queryMemoryBudgetBytes", 0,
+    "Per-query ceiling on the spill-catalog bytes the query's own "
+    "batches hold on the device. Past it the query's own coldest "
+    "batches spill to host first (BudgetExhausted, action=spill); a "
+    "query still over after that is rejected with a typed "
+    "BudgetExhaustedFault. 0 disables it (the admission weight is then "
+    "an equal share of the admission bytes).", _to_int, _non_negative)
+
+SERVING_SYNC_BUDGET = conf(
+    "spark.rapids.tpu.serving.syncBudget", 0,
+    "Per-query ceiling on counted device->host synchronisations "
+    "(utils/hostsync.py); past it the query is rejected with a typed "
+    "BudgetExhaustedFault at the offending sync. 0 disables.", _to_int,
+    _non_negative)
+
+SERVING_DEADLINE_BUDGET_MS = conf(
+    "spark.rapids.tpu.serving.deadlineBudgetMs", 0,
+    "Wall-time deadline of EACH execution attempt of a query (overrides "
+    "spark.rapids.tpu.watchdog.queryDeadlineMs when set); an overrun is "
+    "a retryable TimeoutFault for that query only. 0 defers to the "
+    "watchdog conf.", _to_int, _non_negative)
+
+SERVING_INTERLEAVE_ENABLED = conf(
+    "spark.rapids.tpu.serving.interleave.enabled", False,
+    "Fair batch-for-batch interleaving of admitted queries "
+    "(serving/scheduler.py): queries take weighted round-robin "
+    "timeslices at every batch pull (and sharded exchange stage) "
+    "instead of each dispatching as fast as its thread runs. "
+    "Cooperative: it reorders when batches dispatch, never what they "
+    "compute.", _to_bool)
+
+SERVING_INTERLEAVE_QUANTUM = conf(
+    "spark.rapids.tpu.serving.interleave.quantumBatches", 1,
+    "Base number of batch slices one query may advance per round-robin "
+    "turn of the fair interleaver.", _to_int, _positive)
+
 # -------------------------------------------------------------- planning --
 # the planner's tagging (plan/overrides.py), its CPU fallback
 # (exec/fallback.py) and the cost-based optimizer (plan/cbo.py)
@@ -415,10 +577,16 @@ _COST_PREFIXES = ("spark.rapids.sql.optimizer.tpuOpCost.",
                   "spark.rapids.sql.optimizer.cpuOpCost.")
 
 
+# per-point watchdog deadlines (any monitored section name, e.g.
+# io.reader, pipeline.worker, spill.disk); values in ms, 0 disables
+_WATCHDOG_DEADLINE_PREFIX = "spark.rapids.tpu.watchdog.deadline."
+
+
 def _known_key(key: str) -> bool:
     if key in _REGISTRY:
         return True
-    if key.startswith(_COST_PREFIXES):
+    if key.startswith(_COST_PREFIXES) or \
+            key.startswith(_WATCHDOG_DEADLINE_PREFIX):
         return True
     for p in _DYNAMIC_PREFIXES:
         if key.startswith(p):
@@ -438,13 +606,28 @@ class RapidsConf:
                 raise ValueError(
                     f"unknown configuration key {k!r}: the PyTorch port "
                     f"reads only {sorted(_REGISTRY)}, "
-                    "spark.rapids.sql.{exec,expression}.<Name> and "
-                    "spark.rapids.sql.optimizer.{tpu,cpu}OpCost.<Op>")
+                    "spark.rapids.sql.{exec,expression}.<Name>, "
+                    "spark.rapids.sql.optimizer.{tpu,cpu}OpCost.<Op> and "
+                    "spark.rapids.tpu.watchdog.deadline.<point>")
         for entry in _REGISTRY.values():
             entry.get(self.settings)  # validate eagerly
 
     def get(self, entry: ConfEntry) -> Any:
         return entry.get(self.settings)
+
+    def set(self, key: str, value) -> "RapidsConf":
+        """A new conf with ``key`` set (this one stays as it is)."""
+        s = dict(self.settings)
+        s[key] = value
+        return RapidsConf(s)
+
+    def watchdog_deadline_ms(self, point: str) -> int:
+        """``spark.rapids.tpu.watchdog.deadline.<point>``, else the
+        defaultDeadlineMs entry; 0 disables the point."""
+        raw = self.settings.get(_WATCHDOG_DEADLINE_PREFIX + point)
+        if raw is None:
+            return self.get(WATCHDOG_DEFAULT_DEADLINE_MS)
+        return int(raw)
 
     @property
     def explain(self) -> str:

@@ -128,13 +128,24 @@ class TpuExec:
 
     def execute(self) -> Iterator[ColumnarBatch]:
         """Produce batches, updating numOutputRows/Batches and opTime (the
-        host time of each pull, child pulls included)."""
+        host time of each pull, child pulls included).  With tracing on,
+        each pull is an ``operator.batch`` span named after the operator;
+        spans nest through the child pulls, so the rollup's exclusive
+        time per operator is its own share (host enqueue time: see
+        utils/tracing.py)."""
+        from spark_rapids_tpu_torch.utils import tracing
         it = self.do_execute()
         timer = self.metrics[OP_TIME]
+        name = self.node_name()
         while True:
             t0 = time.perf_counter_ns()
             try:
-                batch = next(it)
+                # one branch per pull when tracing is off
+                if tracing._armed:
+                    with tracing.span("operator.batch", op=name):
+                        batch = next(it)
+                else:
+                    batch = next(it)
             except StopIteration:
                 timer.add(time.perf_counter_ns() - t0)
                 return
@@ -152,8 +163,27 @@ class TpuExec:
     def describe(self) -> str:
         return self.node_name()
 
-    def tree_string(self, depth: int = 0) -> str:
-        lines = ["  " * depth + self.describe()]
-        for c in self.children:
-            lines.append(c.tree_string(depth + 1))
-        return "\n".join(lines)
+    def collect_metrics(self) -> Dict[str, Dict[str, int]]:
+        """Per-node metric dicts keyed by tree path (the QueryEnd
+        ``metrics`` payload).  ``opTime`` includes the child subtree's
+        pulls; the derived ``opTimeSelf`` subtracts the direct
+        children's."""
+        out = {}
+
+        def rec(node, path):
+            key = f"{path}{node.node_name()}"
+            m = {metric.name: metric.value
+                 for metric in getattr(node, "metrics", {}).values()}
+            child_time = sum(c.metrics[OP_TIME].value
+                             for c in node.children
+                             if OP_TIME in getattr(c, "metrics", {}))
+            m["opTimeSelf"] = max(m.get(OP_TIME, 0) - child_time, 0)
+            out[key] = m
+            for i, c in enumerate(node.children):
+                rec(c, f"{key}.{i}.")
+        rec(self, "")
+        return out
+
+    def tree_string(self) -> str:
+        from spark_rapids_tpu_torch.utils.trees import render_tree
+        return render_tree(self)

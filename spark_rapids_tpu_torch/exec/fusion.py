@@ -123,16 +123,25 @@ class FusedStageExec(TpuExec):
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
         """One stage call per batch, under ``with_retry`` (a device OOM
-        spills the catalog, then splits the batch)."""
+        spills the catalog, then splits the batch); each call is a
+        ``stage.fused`` span when tracing is on."""
+        from spark_rapids_tpu_torch.utils import tracing
         names = [e.name for e in self.exprs]
         catalog = self.spill_catalog()
+        stage_op = "+".join(self.members)
+
+        def call(b):
+            if tracing._armed:
+                with tracing.span("stage.fused", op=stage_op):
+                    return self._fn(b)
+            return self._fn(b)
+
         if not self.conds:
             yield from with_retry(
                 self._tallied(),
-                lambda b: ColumnarBatch(dict(zip(names, self._fn(b))),
+                lambda b: ColumnarBatch(dict(zip(names, call(b))),
                                         b.row_count), catalog=catalog)
             return
-        for cols, n in with_retry(self._tallied(), self._fn,
-                                  catalog=catalog):
+        for cols, n in with_retry(self._tallied(), call, catalog=catalog):
             if n:
                 yield ColumnarBatch(dict(zip(names, cols)), n)

@@ -12,13 +12,19 @@ already made.
   ``ACTIVE_ON_DECK_PRIORITY`` before it enters the queue, so a stalled
   consumer's batches can still leave the device under pressure; the
   consumer restores and closes each one as it takes it.
-* The worker counts for the driving thread in ``memory/retry``'s
-  ``retry_metrics`` (and takes its injected OOMs).
+* The worker acts for the driving thread in every thread-attributed
+  registry at once (``worker_attribution``): injection rules, the
+  watchdog, the query's context, host-sync and OOM-retry counters.
+* The worker runs inside a ``pipeline.worker`` watchdog section and
+  beats on every batch and while the queue is full, so the deadline
+  measures silence; the consumer's queue wait is a cancellation
+  checkpoint, where a trip surfaces as a retryable ``TimeoutFault``.
 * An exception on the worker re-raises on the driving thread with its
   original traceback.
 * Closing the returned generator early (LIMIT, an error in the consumer)
   stops the worker at its next queue put, closes the registrations it
-  had queued and joins the thread.
+  had queued and joins the thread, for at most a second: a wedged worker
+  is abandoned (``disown_worker``) rather than joined forever.
 * The batches, and their order, are those of the sequential loop.
 
 Streams: the worker runs with the session's device current (a new
@@ -47,13 +53,63 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 _DONE = object()
 
 
+@contextlib.contextmanager
+def worker_attribution(owner_ident: int, stats=None):
+    """Make the calling thread act as ``owner_ident`` for every
+    thread-attributed registry at once: fault-injection rules
+    (robustness/inject.py), watchdog sections and tokens
+    (robustness/watchdog.py), the query context (serving/context.py),
+    host-sync accounting and upload timing (utils/hostsync.py), and
+    OOM-retry counters (memory/retry.py).  The one place that knows the
+    whole adoption set."""
+    from spark_rapids_tpu_torch.memory.retry import retry_metrics
+    from spark_rapids_tpu_torch.robustness import inject, watchdog
+    from spark_rapids_tpu_torch.serving import context as qcontext
+    from spark_rapids_tpu_torch.utils import hostsync
+    inject.adopt_thread(owner_ident)
+    watchdog.adopt_thread(owner_ident)
+    qcontext.adopt_thread(owner_ident)
+    hostsync.host_sync_metrics.adopt(owner_ident)
+    retry_metrics.adopt(owner_ident)
+    if stats is not None:
+        hostsync.watch_uploads(stats)
+    try:
+        yield
+    finally:
+        if stats is not None:
+            hostsync.unwatch_uploads()
+        retry_metrics.release()
+        hostsync.host_sync_metrics.release()
+        qcontext.release_thread()
+        watchdog.release_thread()
+        inject.release_thread()
+
+
+def disown_worker(ident: int) -> None:
+    """Sever a worker thread's adopted identity in every registry
+    ``worker_attribution`` enrolled it in (a driver abandoning a wedged
+    worker): when it unwedges it must not take the driver's next
+    attempt's cancellation token or rule budgets, nor count its syncs
+    and retries into the next query's views."""
+    from spark_rapids_tpu_torch.memory.retry import retry_metrics
+    from spark_rapids_tpu_torch.robustness import inject, watchdog
+    from spark_rapids_tpu_torch.serving import context as qcontext
+    from spark_rapids_tpu_torch.utils import hostsync
+    watchdog.disown(ident)
+    inject.disown(ident)
+    qcontext.disown(ident)
+    hostsync.host_sync_metrics.disown(ident)
+    retry_metrics.disown(ident)
+
+
 class PipelineStats:
     """One pipelined drive's counters.
 
     ``fill_ratio``: mean queue occupancy (0..1) sampled at each consumer
     get; 1.0 means the worker always had a batch ready, about 0 that the
     consumer waited on the worker.  ``host_sync_count``: counted
-    device -> host syncs while the pipeline ran (process-wide).
+    device -> host syncs of the driving thread's query while the
+    pipeline ran.
     ``upload_overlap_ns``: host time of the uploads made on the worker
     thread (time the sequential loop would spend on the driving thread).
     ``wait_ns``: consumer time blocked on an empty queue."""
@@ -86,10 +142,14 @@ class PipelineStats:
         }
 
 
-def _put(q: "queue.Queue", stop: threading.Event, item) -> bool:
+def _put(q: "queue.Queue", stop: threading.Event, item,
+         beat=None) -> bool:
     """Put ``item`` unless the consumer has stopped; True if it went
-    in."""
+    in.  A full queue is a slow consumer, not a hang: ``beat`` (the
+    worker's watchdog section) beats while it waits."""
     while not stop.is_set():
+        if beat is not None:
+            beat.beat()
         try:
             q.put(item, timeout=0.05)
             return True
@@ -106,9 +166,9 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
     lookahead; yields the same batches in the same order.  The worker
     runs with ``device`` current when it is a CUDA device and registers
     its batches in ``catalog`` (the default catalog when None)."""
-    from spark_rapids_tpu_torch.memory.retry import retry_metrics
     from spark_rapids_tpu_torch.memory.spill import (
         ACTIVE_ON_DECK_PRIORITY, SpillableHandle, default_catalog)
+    from spark_rapids_tpu_torch.robustness import watchdog
     from spark_rapids_tpu_torch.utils import hostsync
 
     catalog = catalog or default_catalog()
@@ -117,39 +177,44 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
     stats = stats or PipelineStats(depth)
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     stop = threading.Event()
-    sync0 = hostsync.host_sync_metrics.snapshot()
+    sync0 = hostsync.host_sync_metrics.snapshot_local()
 
     on_device = torch.cuda.device(device) \
         if device is not None and torch.device(device).type == "cuda" \
         else contextlib.nullcontext()
 
     def worker() -> None:
-        hostsync.watch_uploads(stats)
-        retry_metrics.adopt(owner)
-        try:
-            with on_device:
-                try:
-                    for batch in source:
-                        item = batch
-                        if isinstance(batch, ColumnarBatch):
-                            item = catalog.register(batch,
-                                                    ACTIVE_ON_DECK_PRIORITY)
-                            stats.registered += 1
-                        del batch
-                        if not _put(q, stop, item):
-                            _close(item)
-                            break
-                    else:
-                        _put(q, stop, _DONE)
-                finally:
-                    close = getattr(source, "close", None)
-                    if close is not None:
-                        close()
-        except BaseException as exc:  # noqa: BLE001 - re-raised below
-            _put(q, stop, exc)
-        finally:
-            retry_metrics.release()
-            hostsync.unwatch_uploads()
+        with worker_attribution(owner, stats):
+            try:
+                with on_device:
+                    try:
+                        # heartbeat section: the deadline measures the
+                        # silence since the last batch, so a worker
+                        # wedged inside the operator iterator trips while
+                        # a busy one never does.  The trip cancels the
+                        # DRIVING thread's token (this thread adopted
+                        # it), which the consumer's queue wait delivers
+                        with watchdog.section("pipeline.worker") as beat:
+                            for batch in source:
+                                if beat is not None:
+                                    beat.beat()
+                                item = batch
+                                if isinstance(batch, ColumnarBatch):
+                                    item = catalog.register(
+                                        batch, ACTIVE_ON_DECK_PRIORITY)
+                                    stats.registered += 1
+                                del batch
+                                if not _put(q, stop, item, beat):
+                                    _close(item)
+                                    break
+                            else:
+                                _put(q, stop, _DONE)
+                    finally:
+                        close = getattr(source, "close", None)
+                        if close is not None:
+                            close()
+            except BaseException as exc:  # noqa: BLE001 - re-raised below
+                _put(q, stop, exc)
 
     t = threading.Thread(target=worker, name="torch-pipeline", daemon=True)
     t.start()
@@ -158,7 +223,17 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
             stats.fill_sum += min(q.qsize() / depth, 1.0)
             stats.gets += 1
             t0 = time.perf_counter_ns()
-            item = q.get()
+            # the queue wait is the driving thread's cancellation
+            # checkpoint: when the watchdog trips (a wedged worker, the
+            # query's deadline) the TimeoutFault is raised here instead
+            # of blocking forever on a queue no one will fill
+            while True:
+                watchdog.checkpoint()
+                try:
+                    item = q.get(timeout=0.05)
+                    break
+                except queue.Empty:
+                    continue
             stats.wait_ns += time.perf_counter_ns() - t0
             if item is _DONE:
                 break
@@ -177,12 +252,20 @@ def pipelined(source: Iterator[ColumnarBatch], depth: int,
             del item
     finally:
         stop.set()
-        while t.is_alive():
+        # bound the join: waiting forever on a WEDGED worker would
+        # re-create the hang the watchdog just turned into a fault.  A
+        # healthy worker exits within the grace period; an abandoned one
+        # is a daemon that sees ``stop`` when it unwedges and closes what
+        # it still holds
+        grace_until = time.monotonic() + 1.0
+        while t.is_alive() and time.monotonic() < grace_until:
             _drain(q)
             t.join(timeout=0.05)
         _drain(q)
+        if t.is_alive() and t.ident is not None:
+            disown_worker(t.ident)
         stats.host_sync_count = \
-            hostsync.host_sync_metrics.snapshot() - sync0
+            hostsync.host_sync_metrics.snapshot_local() - sync0
 
 
 def _drain(q: "queue.Queue") -> None:

@@ -362,6 +362,30 @@ class TpuFileScanExec(TpuExec):
             yield self._upload(table.slice(off, n), n, path)
 
     def do_execute(self) -> Iterator[ColumnarBatch]:
+        # "io.read" fires once per produced batch, so a fault can kill a
+        # scan mid-stream; recovery is query-level (the recovery driver
+        # re-drives the plan and the scan reads again).  Each pull runs
+        # in an "io.reader" watchdog section: a stalled decode overruns
+        # its deadline and becomes a retryable TimeoutFault at the next
+        # checkpoint
+        from spark_rapids_tpu_torch.robustness import watchdog
+        from spark_rapids_tpu_torch.robustness.inject import fire
+        it = self._scan_batches()
+        try:
+            while True:
+                with watchdog.section("io.reader"):
+                    batch = next(it, None)
+                    if batch is not None:
+                        fire("io.read")
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            # a fault mid-scan stops the reader's pool now, not when
+            # the traceback that holds this frame is dropped
+            it.close()
+
+    def _scan_batches(self) -> Iterator[ColumnarBatch]:
         if not self.paths:
             return  # bucket pruning removed every file
         if self.file_meta:

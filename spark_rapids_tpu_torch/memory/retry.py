@@ -17,7 +17,11 @@ pressure that raised it.
 
 Test hook: ``inject_oom(num_ooms, skip)`` makes the next ``num_ooms``
 guarded attempts on this thread (after ``skip`` of them pass) raise
-``InjectedOomError``, the port's one named injection point.
+``InjectedOomError``.  Every guarded attempt passes the ``memory.oom``
+point of the unified injection registry (``robustness/inject.py``), so
+``inject_oom`` is a wrapper over ``inject("memory.oom", ...)``, as in the
+JAX package.  An OOM that outlives these retries leaves the operator and
+reaches the query's recovery driver (``robustness/driver.py``).
 """
 
 from __future__ import annotations
@@ -51,40 +55,34 @@ def is_oom(exc: BaseException) -> bool:
 
 
 # ---------------------------------------------------------------- injection --
-# thread ident -> [attempts to pass, OOMs to raise]; a pipeline worker
-# that adopted its driving thread (RetryMetrics.adopt) takes that
-# thread's rule
-_rules = {}
-_rules_lock = threading.Lock()
+# the OOM checkpoint is one named point of the unified injection registry
+# (robustness/inject.py); inject_oom stays as the wrapper the retry tests
+# call.  A pipeline worker adopts its driving thread there
+# (exec/pipeline.worker_attribution), so it takes that thread's rule.
+from spark_rapids_tpu_torch.robustness import inject as _inject  # noqa: E402
+
+_inject.register_point("memory.oom", InjectedOomError)
 
 
 def inject_oom(num_ooms: int = 1, skip: int = 0) -> None:
     """Force the next ``num_ooms`` guarded attempts on this thread, after
     ``skip`` attempts that pass, to raise ``InjectedOomError`` (the last
-    call wins)."""
-    with _rules_lock:
-        _rules[threading.get_ident()] = [int(skip), int(num_ooms)]
+    call wins: it replaces this thread's earlier rule, never another
+    thread's).  Equivalent to ``inject("memory.oom", count=num_ooms,
+    skip=skip)``."""
+    _inject.clear("memory.oom", this_thread_only=True)
+    _inject.inject("memory.oom", count=num_ooms, skip=skip,
+                   exc=InjectedOomError)
 
 
 def clear_injected_oom() -> None:
-    with _rules_lock:
-        _rules.pop(threading.get_ident(), None)
+    _inject.clear("memory.oom", this_thread_only=True)
 
 
 def _checkpoint() -> None:
     """The injection point ``memory.oom``: every guarded attempt passes
     here first."""
-    if not _rules:
-        return
-    with _rules_lock:
-        rule = _rules.get(retry_metrics._effective_ident())
-        if rule is None or rule[1] <= 0:
-            return
-        if rule[0] > 0:
-            rule[0] -= 1
-            return
-        rule[1] -= 1
-    raise InjectedOomError("injected device OOM (memory.oom)")
+    _inject.fire("memory.oom")
 
 
 # ------------------------------------------------------------------ metrics --
@@ -131,14 +129,28 @@ class RetryMetrics:
             return dict(self._per_thread.get(self._effective_ident(), _ZERO))
 
     def adopt(self, owner_ident: int) -> None:
-        """Count this thread's recoveries, and take its injected OOMs,
-        as ``owner_ident``'s (the pipeline's worker)."""
+        """Count this thread's recoveries as ``owner_ident``'s (the
+        pipeline's worker)."""
         with self.lock:
             self._owner[threading.get_ident()] = owner_ident
 
     def release(self) -> None:
         with self.lock:
             self._owner.pop(threading.get_ident(), None)
+
+    def disown(self, ident: int) -> None:
+        """Sever ``ident``'s adoption from the outside (a driver
+        abandoning a wedged worker thread)."""
+        with self.lock:
+            self._owner.pop(ident, None)
+
+    def purge_owner(self, owner_ident: int) -> None:
+        """Drop every adoption mapping TO ``owner_ident`` (the query-exit
+        cleanup, serving/context.QueryContext.__exit__); the per-thread
+        counters survive, since callers take deltas across queries."""
+        from spark_rapids_tpu_torch.robustness.inject import purge_adoptions
+        with self.lock:
+            purge_adoptions(self._owner, owner_ident)
 
     def reset(self) -> None:
         with self.lock:

@@ -41,9 +41,24 @@ priorities of SpillPriorities.scala below).
   payloads in flight; a restore of a batch still being written waits for
   its write.
 
-Not ported: the JAX package's per-query owner budgets, the checkpoint
-eviction floor and the compressed host tier, which serve its serving and
-robustness layers.
+* Owners and budgets: ``register`` tags each handle with the query
+  that registered it (the current ``serving/context.QueryContext``, which
+  an adopted pipeline worker resolves to its driving query), and the
+  catalog keeps each owner's device bytes.  Past the owner's
+  ``spark.rapids.tpu.serving.queryMemoryBudgetBytes`` its own coldest
+  device batches move to the host first (BudgetExhausted, action=spill);
+  a query still over budget after that is rejected with a typed
+  ``BudgetExhaustedFault``, and the registration that busted it is
+  removed first, so the catalog's bytes are as they were.
+* Faults: ``spill.disk`` fires in each disk write before anything is
+  written (on the writer's thread), ``spill.corrupt.host`` and
+  ``spill.corrupt.disk`` offer a payload to corrupt rules on each
+  restore (``robustness/inject.py``), and the wait for the writers is a
+  ``spill.disk`` watchdog section.
+
+Not ported: the JAX package's checkpoint eviction floor and compressed
+host tier, which serve robustness/checkpoint.py and the encoded host
+tier.
 """
 
 from __future__ import annotations
@@ -62,6 +77,8 @@ import torch
 
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import Column, RowCount, to_device
+from spark_rapids_tpu_torch.robustness.faults import (  # noqa: F401
+    CorruptionFault, SpillIOError)
 
 # storage tiers
 DEVICE = "DEVICE"
@@ -75,18 +92,16 @@ AGGREGATE_INTERMEDIATE_PRIORITY = 0
 ACTIVE_ON_DECK_PRIORITY = 1000
 
 
-class SpillCorruptionError(RuntimeError):
+class SpillCorruptionError(CorruptionFault):
     """A spilled batch failed its checksum (or its frame no longer
-    decodes) on restore; the batch was dropped."""
+    decodes) on restore; the batch was dropped.  A ``CorruptionFault``:
+    degradable, the recovery driver re-plans and reads the source
+    again.  (``SpillIOError``, a failed disk write or read, is the fault
+    taxonomy's, re-exported here.)"""
 
     def __init__(self, tier: str, detail: str):
-        super().__init__(f"spill corruption at {tier}: {detail}")
+        Exception.__init__(self, f"spill corruption at {tier}: {detail}")
         self.tier = tier
-
-
-class SpillIOError(OSError):
-    """A disk spill or restore failed; a failed write leaves the batch
-    intact at the host tier."""
 
 
 class IntegrityMetrics:
@@ -111,6 +126,14 @@ class IntegrityMetrics:
 
 
 integrity_metrics = IntegrityMetrics()
+
+
+def _emit_corruption(tier: str, buf_id: int, detail: str) -> None:
+    """Event-log a checksum failure (a SpillCorruption event, stamped
+    with the query in flight on this thread)."""
+    from spark_rapids_tpu_torch.utils.events import emit_on_session
+    emit_on_session("SpillCorruption", tier=tier, bufId=buf_id,
+                    detail=detail)
 
 
 def _payload_checksum(payload: dict, nrows: int) -> int:
@@ -154,10 +177,15 @@ class SpillableHandle:
     _ids = itertools.count()
 
     def __init__(self, catalog: "SpillableBatchCatalog",
-                 batch: ColumnarBatch, priority: int):
+                 batch: ColumnarBatch, priority: int,
+                 owner: Optional[int] = None):
         self.id = next(SpillableHandle._ids)
         self.catalog = catalog
         self.priority = priority
+        # the owning query (the QueryContext owner ident that registered
+        # this batch; None outside any query): per-owner device bytes
+        # and budgets
+        self.owner = owner
         self.tier = DEVICE
         self.size_bytes = batch_bytes(batch)
         # bytes of the host payload (set when it leaves the device): the
@@ -328,6 +356,11 @@ class SpillableHandle:
         returns the file's bytes.  State does not move: on failure the
         batch is intact at the host tier."""
         from spark_rapids_tpu_torch import native
+        from spark_rapids_tpu_torch.robustness.inject import fire
+        # "spill.disk" fires before anything is written: on failure the
+        # batch is still intact at the HOST tier, and the query driver
+        # can retry the whole query
+        fire("spill.disk")
         cat = self.catalog
         path = os.path.join(cat.spill_dir, f"buf-{self.id}.tcf")
         t0 = time.perf_counter_ns()
@@ -385,6 +418,10 @@ class SpillableHandle:
                 return batch
             if self.closed:
                 raise ValueError("spillable batch already closed")
+            from spark_rapids_tpu_torch.utils import tracing
+            if tracing._armed:
+                with tracing.span(f"spill.restore.{self.tier.lower()}"):
+                    return self._materialize_cold()
             return self._materialize_cold()
 
     def _materialize_cold(self) -> ColumnarBatch:
@@ -420,6 +457,7 @@ class SpillableHandle:
             integrity_metrics.bump(tier)
             with cat._lock:
                 cat.integrity_failures += 1
+            _emit_corruption(tier, self.id, bad)
             raise SpillCorruptionError(tier, bad)
         cat.ensure_budget()
         return batch
@@ -427,8 +465,10 @@ class SpillableHandle:
     def _load_payload(self, tier: str):
         """(payload, None), or (None, why) for a frame that no longer
         decodes."""
+        from spark_rapids_tpu_torch.robustness.inject import fire_mutate
         if tier == HOST:
-            return self._host, None
+            return self._corrupt_point(self._host, "spill.corrupt.host"), \
+                None
         from spark_rapids_tpu_torch import native
         t0 = time.perf_counter_ns()
         try:
@@ -437,10 +477,30 @@ class SpillableHandle:
             raise SpillIOError(
                 f"disk restore of buf-{self.id} failed: {e}") from e
         self.catalog._time("disk_read_ns", time.perf_counter_ns() - t0)
+        blob = fire_mutate("spill.corrupt.disk", blob)
         try:
             return self._payload_from_frame(blob), None
         except ValueError as e:
             return None, f"buf-{self.id}: frame decode failed: {e}"
+
+    @staticmethod
+    def _corrupt_point(payload: dict, point: str) -> dict:
+        """Chaos hook: offer ONE payload buffer (the first non-empty one
+        in key order) to an armed corrupt rule.  The mutated copy
+        replaces it in a shallow copy of the dict: the restore sees rot,
+        the stored payload itself is untouched."""
+        from spark_rapids_tpu_torch.robustness.inject import fire_mutate
+        key = next((k for k in sorted(payload)
+                    if isinstance(payload[k], np.ndarray)
+                    and payload[k].size > 0), None)
+        if key is None:
+            return payload
+        mutated = fire_mutate(point, payload[key])
+        if mutated is payload[key]:
+            return payload
+        payload = dict(payload)
+        payload[key] = mutated
+        return payload
 
     def _check(self, payload: dict) -> Optional[str]:
         """The checksum gate of every restore: None, or the mismatch."""
@@ -533,6 +593,11 @@ class SpillableBatchCatalog:
         self.restored_from_host_total = 0
         self.restored_from_disk_total = 0
         self.integrity_failures = 0
+        # per-owner DEVICE-tier byte budgets (a QueryContext installs
+        # its queryMemoryBudgetBytes) and device bytes, the latter
+        # mirrored wherever ``device_bytes`` moves
+        self._owner_budgets: Dict[int, int] = {}
+        self._owner_device: Dict[int, int] = {}
         self._times: Dict[str, int] = {
             k: 0 for k in ("spill_to_host_ns", "checksum_ns", "serialize_ns",
                            "disk_write_ns", "disk_read_ns", "restore_ns")}
@@ -561,16 +626,99 @@ class SpillableBatchCatalog:
 
     # ------------------------------------------------------------- interface --
     def register(self, batch: ColumnarBatch,
-                 priority: int = AGGREGATE_INTERMEDIATE_PRIORITY
-                 ) -> SpillableHandle:
-        h = SpillableHandle(self, batch, priority)
+                 priority: int = AGGREGATE_INTERMEDIATE_PRIORITY,
+                 owner: Optional[int] = None) -> SpillableHandle:
+        if owner is None:
+            # the registering query's scope (the pipeline worker and any
+            # other thread adopted into a QueryContext resolve to it)
+            from spark_rapids_tpu_torch.serving import context as qc
+            ctx = qc.current()
+            owner = ctx.owner_ident if ctx is not None else None
+        from spark_rapids_tpu_torch.utils import tracing
+        if tracing._armed:
+            with tracing.span("spill.register"):
+                return self._register_impl(batch, priority, owner)
+        return self._register_impl(batch, priority, owner)
+
+    def _register_impl(self, batch: ColumnarBatch, priority: int,
+                       owner: Optional[int]) -> SpillableHandle:
+        h = SpillableHandle(self, batch, priority, owner=owner)
         h.last_access = self.next_access_stamp()
         with self._lock:
             self._handles[h.id] = h
             self._issued_ids.add(h.id)
             self.device_bytes += h.size_bytes
+            self._owner_device_adjust(owner, h.size_bytes)
         self.ensure_budget()
+        self._enforce_owner_budget(h)
         return h
+
+    # ------------------------------------------------------- per-owner budgets --
+    def set_owner_budget(self, owner: int, budget: int) -> None:
+        with self._lock:
+            self._owner_budgets[owner] = int(budget)
+
+    def clear_owner_budget(self, owner: int) -> None:
+        with self._lock:
+            self._owner_budgets.pop(owner, None)
+
+    def owner_device_bytes(self, owner: int) -> int:
+        with self._lock:
+            return self._owner_device.get(owner, 0)
+
+    def _owner_device_adjust(self, owner: Optional[int], delta: int) -> None:
+        """Under the lock: mirror a DEVICE-tier byte movement into the
+        owner's count."""
+        if owner is None or not delta:
+            return
+        new = self._owner_device.get(owner, 0) + delta
+        if new:
+            self._owner_device[owner] = new
+        else:
+            self._owner_device.pop(owner, None)
+
+    def _enforce_owner_budget(self, h: SpillableHandle) -> None:
+        """The per-query memory-budget ladder, after each of an owner's
+        registrations: over budget, the owner's OWN coldest device
+        batches move to the host (other queries' batches are untouched);
+        when that still leaves the owner over (the new batch alone is
+        past the budget), the owning query is rejected with a typed
+        BudgetExhaustedFault, after the registration is removed: the
+        caller never receives the handle, so it must not stay behind."""
+        owner = h.owner
+        if owner is None:
+            return
+        with self._lock:
+            budget = self._owner_budgets.get(owner)
+            used = self._owner_device.get(owner, 0)
+            if budget is None or used <= budget:
+                return
+            victims = []
+            for v in sorted((x for x in self._handles.values()
+                             if x.owner == owner and x.tier == DEVICE
+                             and not x._moving and x.id != h.id),
+                            key=lambda x: (x.priority, x.last_access, x.id)):
+                if used <= budget:
+                    break
+                v._moving = True
+                used -= v.size_bytes
+                victims.append(v)
+            moved = sum(v.size_bytes for v in victims)
+            self.device_bytes -= moved
+            self._owner_device_adjust(owner, -moved)
+        if victims:
+            self._to_host(victims)
+        with self._lock:
+            used = self._owner_device.get(owner, 0)
+        from spark_rapids_tpu_torch.serving import context as qc
+        ctx = qc.current()
+        if ctx is None:
+            return
+        if victims:
+            ctx.note_memory_pressure(used, spilled=True)
+        if used > budget:
+            h.close()
+            ctx.note_memory_pressure(used, spilled=False)  # raises
 
     def unspill(self, h: SpillableHandle, batch: ColumnarBatch,
                 tier: str) -> None:
@@ -605,6 +753,7 @@ class SpillableBatchCatalog:
         h._device = batch
         h._host = None
         self.device_bytes += h.size_bytes
+        self._owner_device_adjust(h.owner, h.size_bytes)
 
     def remove(self, h: SpillableHandle) -> None:
         with self._lock:
@@ -615,6 +764,7 @@ class SpillableBatchCatalog:
                 return
             if h.tier == DEVICE:
                 self.device_bytes -= h.size_bytes
+                self._owner_device_adjust(h.owner, -h.size_bytes)
             elif h.tier == HOST:
                 self.host_bytes -= h.host_size
             else:
@@ -631,6 +781,7 @@ class SpillableBatchCatalog:
             if tier == DEVICE:
                 h._moving = True
                 self.device_bytes -= h.size_bytes
+                self._owner_device_adjust(h.owner, -h.size_bytes)
         if tier == DEVICE:
             self._to_host([h])
         if target == DISK:
@@ -674,6 +825,8 @@ class SpillableBatchCatalog:
                 picked.append(h)
             if tier == DEVICE:
                 self.device_bytes -= sum(h.size_bytes for h in picked)
+                for h in picked:
+                    self._owner_device_adjust(h.owner, -h.size_bytes)
             else:
                 self.host_bytes -= sum(h.host_size for h in picked)
             return picked
@@ -688,6 +841,7 @@ class SpillableBatchCatalog:
             if not gone:
                 if tier == HOST:
                     self.device_bytes += h.size_bytes
+                    self._owner_device_adjust(h.owner, h.size_bytes)
                 else:
                     self.host_bytes += h.host_size
             return
@@ -703,11 +857,13 @@ class SpillableBatchCatalog:
                 self.disk_bytes += h.host_size
 
     def _to_host(self, victims: List[SpillableHandle]) -> None:
+        from spark_rapids_tpu_torch.utils import tracing
         with self._lock:
             jobs = [(h, h._device) for h in victims]
         for i, (h, batch) in enumerate(jobs):
             try:
-                payload = None if batch is None else h._copy_out(batch)
+                with tracing.span("spill.demote.host"):
+                    payload = None if batch is None else h._copy_out(batch)
             except BaseException:
                 with self._lock:
                     for v, _ in jobs[i:]:
@@ -784,14 +940,31 @@ class SpillableBatchCatalog:
         instead of hanging)."""
         deadline = time.monotonic() + self.disk_write_timeout_s
         with self._lock:
-            while self._inflight_bytes > limit:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    raise SpillIOError(
-                        f"{self._inflight_bytes} bytes of disk spill "
-                        f"writes did not finish within "
-                        f"{self.disk_write_timeout_s} s")
-                self._moved.wait(left)
+            waiting = self._inflight_bytes > limit
+        if waiting:
+            # a "spill.disk" watchdog section that beats whenever a
+            # write lands, so its deadline measures a stuck writer (a
+            # stalled disk, a delay rule on "spill.disk"); each wait
+            # slice is a cancellation checkpoint, taken outside the lock
+            from spark_rapids_tpu_torch.robustness import watchdog
+            with watchdog.section("spill.disk") as sect:
+                while True:
+                    watchdog.checkpoint()
+                    with self._lock:
+                        before = self._inflight_bytes
+                        if before <= limit:
+                            break
+                        left = deadline - time.monotonic()
+                        if left <= 0:
+                            raise SpillIOError(
+                                f"{before} bytes of disk spill writes "
+                                f"did not finish within "
+                                f"{self.disk_write_timeout_s} s")
+                        self._moved.wait(min(left, 0.05))
+                        landed = self._inflight_bytes < before
+                    if landed and sect is not None:
+                        sect.beat()
+        with self._lock:
             err, self._write_error = self._write_error, None
         if err is not None:
             raise err

@@ -183,6 +183,13 @@ class DistPlanner:
 
     # -- recursion --------------------------------------------------------
     def run(self, plan: L.LogicalPlan, dry: bool) -> ShardedFrame:
+        if not dry and isinstance(plan, (L.Aggregate, L.Join, L.Sort)):
+            # fair-interleaver stage boundary: a sharded query's
+            # "batches" are its exchange stages (serving/scheduler.py; a
+            # no-op unless the interleave knob is on)
+            from spark_rapids_tpu_torch.serving.scheduler import (
+                yield_current)
+            yield_current(self.session)
         if isinstance(plan, (L.InMemoryRelation, L.FileRelation, L.Range)):
             return self._scan(plan, dry)
         if isinstance(plan, L.Aggregate):

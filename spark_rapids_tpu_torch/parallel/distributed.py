@@ -50,6 +50,18 @@ from spark_rapids_tpu_torch.parallel.shuffle import all_gather_cols, exchange
 from spark_rapids_tpu_torch.utils import hostsync
 
 
+def host_sync(group: ShardGroup, per_shard):
+    """``group.host_sync(per_shard)`` as a phase boundary: inside a
+    ``dist.host_sync`` watchdog section (a rank that never arrives
+    becomes a TimeoutFault once the gather returns, not an unnoticed
+    wait) and past the ``dist.host_sync`` injection point."""
+    from spark_rapids_tpu_torch.robustness import watchdog
+    from spark_rapids_tpu_torch.robustness.inject import fire
+    with watchdog.section("dist.host_sync"):
+        fire("dist.host_sync")
+        return group.host_sync(per_shard)
+
+
 def coalesce_buckets(counts, nshards: int):
     """Greedy balanced assignment of hash buckets to shards from the
     materialized [src_shard, bucket] histogram (the AQE partition
@@ -182,7 +194,7 @@ class DistributedAggregate:
             partial_cols.append(list(pkeys) + list(pbufs))
             bids.append(b)
         # phase boundary: the stage statistics
-        counts = self.group.host_sync(hists).astype(np.int64)
+        counts = host_sync(self.group, hists).astype(np.int64)
         lut, dst_counts = coalesce_buckets(counts, self.nshards)
         self.last_stats = {
             "bucket_counts": counts,         # [src_shard, bucket]
@@ -274,7 +286,7 @@ class DistributedHashJoin:
                                              device=device), self.nshards)))
                 ppids.append(pp)
                 bpids.append(bp)
-            pcounts, bcounts = self.group.host_sync(hists)
+            pcounts, bcounts = host_sync(self.group, hists)
             stats.update(probe_counts=pcounts.astype(np.int64),
                          build_counts=bcounts.astype(np.int64))
             rp = exchange(probe, ppids, probe_n, self.nshards, self.group)

@@ -35,7 +35,7 @@ from spark_rapids_tpu_torch.ops.compiler import check_raise, widen
 from spark_rapids_tpu_torch.ops.expressions import (
     ColVal, EmitContext, Expression)
 from spark_rapids_tpu_torch.ops.kernels import histogram
-from spark_rapids_tpu_torch.parallel.distributed import cut
+from spark_rapids_tpu_torch.parallel.distributed import cut, host_sync
 from spark_rapids_tpu_torch.parallel.mesh import Shard, ShardGroup
 from spark_rapids_tpu_torch.parallel.shuffle import all_gather_cols, exchange
 
@@ -167,7 +167,7 @@ class DistributedSort:
                     c.validity[idx] & live
                 parts.append(valid)
             per_shard.append(tuple(parts))
-        got = self.group.host_sync(per_shard)
+        got = host_sync(self.group, per_shard)
         live = got[0].reshape(-1)
         cols = [g.reshape(-1) for g in got[1::2]]
         valids = [g.reshape(-1) & live for g in got[2::2]]
@@ -200,7 +200,7 @@ class DistributedSort:
             hists.append(histogram(p, torch.ones(n, dtype=torch.bool,
                                                  device=device),
                                    self.nshards))
-        counts = self.group.host_sync(hists).astype(np.int64)
+        counts = host_sync(self.group, hists).astype(np.int64)
         self.last_stats = {"partition_counts": counts}
         # phase 3: exchange to the ranges, sort each shard
         recv = exchange(shards, pids, nrows, self.nshards, self.group)

@@ -86,12 +86,19 @@ def exchange(shards: Sequence[Shard], pids: Sequence[torch.Tensor],
     if num_parts != group.nshards:
         raise ValueError(f"exchange over {group.nshards} shards got "
                          f"{num_parts} partitions")
+    from spark_rapids_tpu_torch.robustness import watchdog
+    from spark_rapids_tpu_torch.robustness.inject import fire
     sends, counts = [], []
     for cols, p, n in zip(shards, pids, nrows):
         sorted_cols, cnt, _ = layout_by_partition(cols, p, n, num_parts)
         sends.append(sorted_cols)
         counts.append(cnt)
-    recv, recv_counts = group.all_to_all(sends, counts)
+    # the exchange runs under a "shuffle.exchange" watchdog deadline and
+    # past its injection point; a collective that wedges on the card
+    # surfaces only once its host sync returns (robustness/watchdog.py)
+    with watchdog.section("shuffle.exchange"):
+        fire("shuffle.exchange")
+        recv, recv_counts = group.all_to_all(sends, counts)
     shuffle_metrics.record_exchange(
         int(np.asarray(recv_counts).sum()),
         sum(_shard_bytes(r) for r in recv))

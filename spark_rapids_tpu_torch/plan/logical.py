@@ -71,11 +71,9 @@ class LogicalPlan:
     def describe(self) -> str:
         return f"{type(self).__name__}[{', '.join(n for n, _ in self.schema)}]"
 
-    def tree_string(self, depth: int = 0) -> str:
-        lines = ["  " * depth + self.describe()]
-        for c in self.children:
-            lines.append(c.tree_string(depth + 1))
-        return "\n".join(lines)
+    def tree_string(self) -> str:
+        from spark_rapids_tpu_torch.utils.trees import render_tree
+        return render_tree(self)
 
 
 

@@ -46,6 +46,7 @@ device aggregate.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Type
 
 from spark_rapids_tpu_torch.config import rapids_conf as rc
@@ -697,6 +698,7 @@ class TpuOverrides:
         self.hash_table_slots = conf.get(rc.PALLAS_HASH_TABLE_SLOTS) \
             if self.hash_enabled else None
         self._chain_nodes: set = set()
+        self._apply_lock = threading.RLock()
         self.last_explain: str = ""
         self.last_cbo: List[str] = []
 
@@ -726,10 +728,15 @@ class TpuOverrides:
         return meta
 
     def apply(self, plan: L.LogicalPlan):
-        _pushdown_pass(plan, self.cache_manager)
-        meta = self.tag(plan)
-        self._chain_nodes = set()
-        return self._bind(self._convert(meta))
+        # one planning at a time per planner: concurrent queries on one
+        # session (each on its own thread) would otherwise share
+        # ``_chain_nodes`` and the pushdown's marks on plan nodes that
+        # their DataFrames share; execution stays concurrent
+        with self._apply_lock:
+            _pushdown_pass(plan, self.cache_manager)
+            meta = self.tag(plan)
+            self._chain_nodes = set()
+            return self._bind(self._convert(meta))
 
     def _bind(self, root):
         """Every operator of the tree registers its state in, and

@@ -13,11 +13,13 @@ that does not pickle, or that a worker cannot rebuild (a lambda, a
 function of ``__main__`` pickled by reference), and a pool whose process
 died, degrade to inline evaluation; each degradation counts in
 ``pool_metrics`` (``degradedToInline``, with the last reason), so it is
-never silent.  The JAX package's fault-injection, watchdog and recovery
-hooks are not ported here.
+never silent; a pool fault (a broken pool, the ``udf.worker`` injection
+point) is also recorded on the session's recovery trail
+(``record_degradation``).  The wait for the chunks is a ``udf.worker``
+watchdog section that beats per chunk.
 
-This module imports nothing of torch: a worker that imports it (to run
-``_eval_chunk``) makes no CUDA call.
+This module imports nothing of torch at import time: a worker that
+imports it (to run ``_eval_chunk``) makes no CUDA call.
 """
 
 from __future__ import annotations
@@ -118,7 +120,11 @@ def worth_trying(fn, nrows: int, num_workers: int,
     return True
 
 
-def _degrade(fn, reason: str) -> None:
+def _degrade(fn, reason: str, fault: Optional[str] = None) -> None:
+    """Count a degradation to inline evaluation; a pool fault (``fault``
+    names its kind) is also a recovery action on the session's trail
+    (``robustness/driver.record_degradation``), though no exception ever
+    reaches the query's driver."""
     pool_metrics.bump("degradedToInline")
     pool_metrics.last_degradation = reason
     if fn is not None:
@@ -126,6 +132,12 @@ def _degrade(fn, reason: str) -> None:
             _unpicklable_fns.add(fn)
         except TypeError:
             pass
+    if fault is not None:
+        from spark_rapids_tpu_torch.api.session import TpuSession
+        from spark_rapids_tpu_torch.robustness.driver import (
+            record_degradation)
+        record_degradation(TpuSession._active, fault, "inline_fallback",
+                           reason)
 
 
 def eval_rows(fn, rows: List[tuple], num_workers: int,
@@ -137,6 +149,17 @@ def eval_rows(fn, rows: List[tuple], num_workers: int,
     completed."""
     if not worth_trying(fn, len(rows), num_workers, min_rows_per_worker):
         return None
+    # "udf.worker" models the pool dying before any row evaluates:
+    # degrade to inline evaluation exactly as a broken pool does below
+    from spark_rapids_tpu_torch.robustness import watchdog
+    from spark_rapids_tpu_torch.robustness.faults import InjectedWorkerFault
+    from spark_rapids_tpu_torch.robustness.inject import fire
+    try:
+        fire("udf.worker")
+    except InjectedWorkerFault as e:
+        shutdown_pool()
+        _degrade(None, f"{type(e).__name__}: {e}", e.kind)
+        return None
     try:
         fn_bytes = pickle.dumps(fn)
     except Exception as e:
@@ -144,19 +167,37 @@ def eval_rows(fn, rows: List[tuple], num_workers: int,
         return None
     pool = get_pool(num_workers)
     chunk = max(min_rows_per_worker, -(-len(rows) // num_workers))
+    import concurrent.futures as cf
     from concurrent.futures.process import BrokenProcessPool
+
+    def _result(f):
+        # poll instead of a bare f.result(): the wait is the driving
+        # thread's cancellation checkpoint, so a worker process stuck in
+        # user code trips the deadline and the TimeoutFault is
+        # delivered here
+        while not f.done():
+            watchdog.checkpoint()
+            cf.wait([f], timeout=0.05)
+        return f.result()
+
     try:
         futures = [pool.submit(_eval_chunk, fn_bytes, rows[i:i + chunk])
                    for i in range(0, len(rows), chunk)]
-        out: list = []
-        for f in futures:
-            out.extend(f.result())
+        # a "udf.worker" section that beats per finished chunk: the
+        # deadline measures silence, so a slow stage that keeps
+        # finishing chunks never trips while a wedged worker does
+        with watchdog.section("udf.worker") as sect:
+            out: list = []
+            for f in futures:
+                out.extend(_result(f))
+                if sect is not None:
+                    sect.beat()
     except WorkerUnpicklable as e:
         _degrade(fn, f"a worker could not rebuild the function: {e}")
         return None
     except BrokenProcessPool as e:
         shutdown_pool()
-        _degrade(None, f"the pool broke: {e!r}")
+        _degrade(None, f"the pool broke: {e!r}", "udf_worker")
         return None
     pool_metrics.bump("poolChunks", len(futures))
     pool_metrics.bump("poolRows", len(rows))
