@@ -2602,6 +2602,464 @@ def run_serving(torch, K, tpch, batches, df_answers, card_line, total,
     return secs
 
 
+# ------------------------------------------------------------ reuse phase --
+
+REUSE_BUDGET_S = 45.0
+REUSE_EXACT = ("q3", "q6", "q18")   # RU1: a miss, then a hit, each
+REUSE_CHECK_SF = 0.1                 # RU1's parquet copy of lineitem
+# RU2: five bindings of q6's date range, discount range and quantity (the
+# specification's first)
+RU2_BINDINGS = (
+    ((1994, 1, 1), (1995, 1, 1), 0.05, 0.07, 24.0),
+    ((1995, 1, 1), (1996, 1, 1), 0.04, 0.06, 25.0),
+    ((1993, 1, 1), (1994, 1, 1), 0.06, 0.08, 24.0),
+    ((1996, 1, 1), (1997, 1, 1), 0.02, 0.04, 23.0),
+    ((1997, 1, 1), (1998, 1, 1), 0.07, 0.09, 25.0))
+RU3_QUERY = "q9"      # seven exchange stages, as many as q5's
+RU3_FAULT_SKIP = 2    # the OOM comes as the third stage's frame is saved
+RU4_CUT = (1998, 9, 2)
+
+
+class _SaveClock:
+    """Host time inside ``CheckpointManager.save`` (the lineage log's
+    writes: registering a stage's frame and launching its stamp)."""
+
+    ns = 0
+    installed = False
+
+    @classmethod
+    def install(cls):
+        if cls.installed:
+            return
+        from spark_rapids_tpu_torch.robustness.checkpoint import (
+            CheckpointManager)
+        real = CheckpointManager.save
+
+        def timed(self, *a, **k):
+            t0 = time.perf_counter_ns()
+            try:
+                return real(self, *a, **k)
+            finally:
+                cls.ns += time.perf_counter_ns() - t0
+        CheckpointManager.save = timed
+        cls.installed = True
+
+
+def ckpt_watch():
+    """The checkpoint counters and save time now (``ckpt_report``)."""
+    from spark_rapids_tpu_torch.robustness.checkpoint import (
+        checkpoint_metrics)
+    _SaveClock.install()
+    return checkpoint_metrics.snapshot(), _SaveClock.ns
+
+
+def ckpt_report(label, before, card_line):
+    """The default-on lineage log's writes, bytes and save time since
+    ``before``; a clean phase resumes nothing and drops nothing."""
+    from spark_rapids_tpu_torch.robustness.checkpoint import (
+        checkpoint_metrics)
+    snap0, ns0 = before
+    snap = checkpoint_metrics.snapshot()
+    d = {k: snap[k] - snap0[k] for k in snap}
+    print(f"checkpoints in {label} on {card_line}: {d['writes']} writes, "
+          f"{d['bytesWritten']} bytes, {d['evictions']} evictions, saves "
+          f"{(_SaveClock.ns - ns0) / 1e6:.3f} host ms", flush=True)
+    check(d["resumes"] == 0 and d["invalid"] == 0,
+          f"{label}: no checkpoint resumed or dropped ({d})")
+
+
+def reuse_q6(F, t, d0, d1, lo, hi, qty):
+    """TPC-H q6 with its five literals as arguments: for the
+    specification's values the expression of ``models/tpch.q6``."""
+    import datetime
+    l = t["lineitem"]
+    return (l.filter(
+        (F.col("l_shipdate") >= F.lit(datetime.date(*d0))) &
+        (F.col("l_shipdate") < F.lit(datetime.date(*d1))) &
+        (F.col("l_discount") >= lo) & (F.col("l_discount") <= hi) &
+        (F.col("l_quantity") < qty))
+        .select((F.col("l_extendedprice") * F.col("l_discount"))
+                .alias("rev"))
+        .agg(F.sum("rev").alias("revenue")))
+
+
+def reuse_ru4(F, t, ordered):
+    """RU4's pair over lineitem: a scan, filter and partial aggregate,
+    and the same subtree under a sort."""
+    import datetime
+    agg = (t["lineitem"]
+           .filter(F.col("l_shipdate") <= F.lit(datetime.date(*RU4_CUT)))
+           .groupBy("l_returnflag", "l_linestatus")
+           .agg(F.sum("l_quantity").alias("sum_qty"),
+                F.sum("l_extendedprice").alias("sum_base_price"),
+                F.count("l_quantity").alias("count_order")))
+    return agg.orderBy("l_returnflag", "l_linestatus") if ordered else agg
+
+
+def fresh_copy(batch):
+    """``batch`` with every buffer copied: equal values, other objects."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import Column
+
+    def copy(t):
+        return None if t is None else t.clone()
+    return ColumnarBatch({
+        n: Column(c.dtype, copy(c.data), c.row_count, copy(c.validity),
+                  copy(c.offsets), c.dictionary)
+        for n, c in batch.columns.items()}, batch.row_count)
+
+
+def no_launch(K):
+    snap = K.launches.snapshot()
+    return all(snap[k] == 0 for k in K.launches.NAMES), snap
+
+
+def cached_run(torch, K, query, s, label, want):
+    """A run the result cache must answer: no operator, no kernel
+    launch, the stored answer bit for bit.  Returns (ms, host syncs)."""
+    from spark_rapids_tpu_torch.utils.hostsync import host_sync_metrics
+    K.launches.reset()
+    host_sync_metrics.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = (query() if callable(query) else query).to_pandas()
+    ms = (time.perf_counter() - t0) * 1e3
+    syncs = host_sync_metrics.snapshot()
+    none, snap = no_launch(K)
+    check(s.last_dist_explain.endswith("cache hit"),
+          f"{label}: answered by the result cache "
+          f"({s.last_dist_explain!r})")
+    check(none, f"{label}: the hit launched no kernel ({snap})")
+    check(got.equals(want), f"{label}: the hit's answer equals the "
+          "stored one bit for bit")
+    return ms, syncs
+
+
+def run_reuse(torch, K, fm, tpch, batches, df_answers, card_line,
+              launches, workdir):
+    """The reuse phase over the tpch22 tables (its answers are this run's
+    ``df_answers``): RU1 the result cache's exact tier, RU2 plan
+    templates and a prepared q6, RU3 a sharded resume from stage
+    checkpoints, RU4 the shared stage store over NSHARDS logical shards.
+    Returns the phase's seconds."""
+    import os
+    from spark_rapids_tpu_torch.api import functions as F
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.robustness import inject as I
+    from spark_rapids_tpu_torch.robustness.checkpoint import (
+        checkpoint_metrics)
+    from spark_rapids_tpu_torch.robustness.driver import (
+        QueryRetryDriver, recovery_metrics)
+    t_phase = time.perf_counter()
+    parts = {}
+    cache_conf = dict(tpch_conf(True), **{
+        "spark.rapids.tpu.serving.resultCache.enabled": True})
+
+    # RU1: q3, q6 and q18 miss then hit; equal values in new batches
+    # miss; over parquet a rewritten file misses
+    t0 = time.perf_counter()
+    s = TpuSession(cache_conf)
+    tables = {k: s.create_dataframe(b) for k, b in batches.items()}
+    for name in REUSE_EXACT:
+        label = f"reuse RU1 {name} SF{TPCH_SF}"
+        read = ReadTables(tables)
+        q = tpch.QUERIES[name](read)
+        rows = sum(batches[k].nrows for k in read.read)
+        snap0 = s.result_cache.snapshot()
+        got, lq, _, rate = drive(torch, K, fm, q, rows, card_line,
+                                 f"{label} (miss)", reps=0)
+        snap1 = s.result_cache.snapshot()
+        check(snap1["misses"] == snap0["misses"] + 1
+              and snap1["hits"] == snap0["hits"],
+              f"{label}: the first run is a miss ({snap1})")
+        check(got.equals(df_answers[name]),
+              f"{label}: the miss equals tpch22's answer bit for bit")
+        want = "masked_multi_reduce" if name == "q6" else "hash_insert"
+        check(lq[want] >= 1, f"{label}: the miss launched {want} ({lq})")
+        launches.add(lq)
+        ms, syncs = cached_run(torch, K, lambda n=name: tpch.QUERIES[n](
+            tables), s, f"{label} (hit)", df_answers[name])
+        print(f"{label}: miss {rows / rate * 1e3:.3f} ms, launches "
+              + ", ".join(f"{k} {lq[k]}" for k in K.launches.NAMES)
+              + f"; hit {ms:.3f} ms, {syncs} host syncs, no launch, on "
+              f"{card_line}", flush=True)
+    snap0 = s.result_cache.snapshot()
+    fresh = {"lineitem": s.create_dataframe(fresh_copy(batches["lineitem"]))}
+    li_rows = batches["lineitem"].nrows
+    got, lq, _, _ = drive(torch, K, fm, tpch.q6(fresh), li_rows, card_line,
+                          "reuse RU1 q6 over new batches", reps=0)
+    snap1 = s.result_cache.snapshot()
+    check(snap1["hits"] == snap0["hits"]
+          and snap1["misses"] == snap0["misses"] + 1
+          and lq["masked_multi_reduce"] >= 1,
+          f"reuse RU1 q6 over new batches of equal values: a miss "
+          f"({snap0} -> {snap1}, launches {lq})")
+    check(got.equals(df_answers["q6"]),
+          "reuse RU1 q6 over new batches: tpch22's answer bit for bit")
+    launches.add(lq)
+    del fresh
+    s.stop()
+    del tables
+    # a parquet copy of lineitem at SF0.1
+    root = os.path.join(workdir, "reuse_lineitem")
+    s = TpuSession(tpch_conf(True))
+    cols = tpch.gen_table_columns(REUSE_CHECK_SF)["lineitem"]
+    n_file = len(cols["l_orderkey"][1])
+    s.create_dataframe(device_tables({"l": cols}, s.device)["l"]) \
+        .write.parquet(root)
+    s.stop()
+    del cols
+    s = TpuSession(cache_conf)
+
+    def over_files():
+        return tpch.q6({"lineitem": s.read.parquet(root)})
+    label = f"reuse RU1 q6 over SF{REUSE_CHECK_SF} parquet"
+    want, lq, _, _ = drive(torch, K, fm, over_files, n_file, card_line,
+                           f"{label} (miss)", reps=0)
+    launches.add(lq)
+    cached_run(torch, K, over_files, s, f"{label} (hit)", want)
+    path = sorted(os.path.join(root, f) for f in os.listdir(root)
+                  if f.endswith(".parquet"))[0]
+    with open(path, "rb") as f:
+        blob = f.read()
+    with open(path, "wb") as f:
+        f.write(blob)
+    st = os.stat(path)
+    os.utime(path, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000))
+    snap0 = s.result_cache.snapshot()
+    got, lq, _, _ = drive(torch, K, fm, over_files, n_file, card_line,
+                          f"{label} after a rewrite", reps=0)
+    snap1 = s.result_cache.snapshot()
+    check(snap1["invalidations"] == snap0["invalidations"] + 1
+          and snap1["hits"] == snap0["hits"]
+          and lq["masked_multi_reduce"] >= 1 and got.equals(want),
+          f"{label}: a rewritten file (new mtime) is a miss, invalidated, "
+          f"and the same answer ({snap0} -> {snap1})")
+    launches.add(lq)
+    s.stop()
+    parts["RU1"] = time.perf_counter() - t0
+
+    # RU2: q6 prepared, under five bindings, against the inline q6; then
+    # with the exact tier alone (a prepared run skips it: its plan holds
+    # the literals of prepare time) and with the template tier
+    t0 = time.perf_counter()
+    tpl = dict(tpch_conf(True), **{"spark.rapids.tpu.template.enabled": True})
+    plain = TpuSession(tpch_conf(True))
+    pt = {"lineitem": plain.create_dataframe(batches["lineitem"])}
+    inline = {b: reuse_q6(F, pt, *b).to_pandas() for b in RU2_BINDINGS}
+    check(inline[RU2_BINDINGS[0]].equals(df_answers["q6"]),
+          "reuse RU2: the inline q6 builder equals TPC-H q6")
+    plain.stop()
+    for mode in ("none", "exact", "template"):
+        with_cache = mode == "template"
+        conf = dict(tpl, **({
+            "spark.rapids.tpu.serving.resultCache.enabled": True,
+            "spark.rapids.tpu.template.resultCache.enabled": with_cache}
+            if mode != "none" else {}))
+        s = TpuSession(conf)
+        t = {"lineitem": s.create_dataframe(batches["lineitem"])}
+        h = s.prepare(reuse_q6(F, t, *RU2_BINDINGS[0]))
+        check(h.param_count == 5 and not h.refusals,
+              f"reuse RU2: q6 prepared with 5 parameters ({h.describe()})")
+        plans = []
+        real_plan = s.plan
+        s.plan = lambda *a, **k: (plans.append(1), real_plan(*a, **k))[1]
+        order = {"none": RU2_BINDINGS,
+                 "exact": RU2_BINDINGS[:2] + RU2_BINDINGS[:1],
+                 "template": RU2_BINDINGS[:2] + RU2_BINDINGS[:2]}[mode]
+        for i, b in enumerate(order):
+            label = (f"reuse RU2 prepared q6 SF{TPCH_SF} binding "
+                     f"{RU2_BINDINGS.index(b)}"
+                     + {"none": "", "exact": " (exact tier only)",
+                        "template": " (template cache)"}[mode])
+            repeat = with_cache and i >= 2
+            if repeat:
+                cached_run(torch, K, lambda b=b: _PreparedRun(h, b), s,
+                           label, inline[b])
+                continue
+            got, lq, _, _ = drive(torch, K, fm,
+                                  lambda b=b: _PreparedRun(h, b),
+                                  batches["lineitem"].nrows, card_line,
+                                  label, reps=0)
+            check(lq["masked_multi_reduce"] >= 1,
+                  f"{label}: launched masked_multi_reduce ({lq})")
+            check(np.float64(got["revenue"][0]).tobytes()
+                  == np.float64(inline[b]["revenue"][0]).tobytes(),
+                  f"{label}: equals the inline-literal q6 bit for bit "
+                  f"({got['revenue'][0]!r} vs {inline[b]['revenue'][0]!r})")
+            launches.add(lq)
+        check(not plans, f"reuse RU2: the prepared runs planned nothing "
+              f"({len(plans)} calls into session.plan)")
+        if mode == "exact":
+            snap = s.result_cache.snapshot()
+            check(snap["hits"] == 0 and snap["stores"] == 0,
+                  f"reuse RU2: a prepared run keys no exact-tier entry, "
+                  f"so no binding is served another's answer ({snap})")
+        if with_cache:
+            snap = s.result_cache.snapshot()
+            check(snap["templateHits"] == 2 and snap["templateStores"] == 2,
+                  f"reuse RU2: repeated bindings hit, two bindings two "
+                  f"entries ({snap})")
+            check(inline[RU2_BINDINGS[0]]["revenue"][0]
+                  != inline[RU2_BINDINGS[1]]["revenue"][0],
+                  "reuse RU2: the two bindings' answers differ")
+        s.stop()
+    parts["RU2"] = time.perf_counter() - t0
+
+    # RU3: sharded q9, an OOM as its third stage is saved; the spill
+    # rung's re-attempt resumes from the first two
+    t0 = time.perf_counter()
+    s = TpuSession(sharded_conf(tpch_conf(True)))
+    read = ReadTables({k: s.create_dataframe(b) for k, b in batches.items()})
+    q = tpch.QUERIES[RU3_QUERY](read)
+    rows = sum(batches[k].nrows for k in read.read)
+    label = f"reuse RU3 sharded {RU3_QUERY} SF{TPCH_SF}"
+    ck0 = checkpoint_metrics.snapshot()
+    t1 = time.perf_counter()
+    clean, lc, _, _ = drive(torch, K, fm, q, rows, card_line,
+                            f"{label} (clean)", reps=0)
+    clean_s = time.perf_counter() - t1
+    ck1 = checkpoint_metrics.snapshot()
+    ok, why = frames_match(clean, df_answers[RU3_QUERY], QUERY_RTOL)
+    check(ok and s.last_dist_explain == "distributed",
+          f"{label}: ran distributed and equals tpch22's answer {why}")
+    launches.add(lc)
+    writes = ck1["writes"] - ck0["writes"]
+    at = {}
+    real_spill = QueryRetryDriver._spill_device_store
+
+    def between_attempts(self):
+        at["launches"] = K.launches.snapshot()
+        at["t"] = time.perf_counter()
+        real_spill(self)
+    resumed = {}
+    for corrupt in (False, True):
+        tag = "corrupt restore" if corrupt else "resume"
+        s.recovery_log.clear()
+        ck0 = checkpoint_metrics.snapshot()
+        rules = [I.inject("checkpoint.write", count=1, skip=RU3_FAULT_SKIP,
+                          exc=torch.OutOfMemoryError)]
+        if corrupt:
+            rules.append(I.inject("checkpoint.restore", kind="corrupt",
+                                  count=1))
+        QueryRetryDriver._spill_device_store = between_attempts
+        try:
+            got, lr, _, _ = drive(torch, K, fm, q, rows, card_line,
+                                  f"{label} ({tag})", reps=0)
+            end = time.perf_counter()
+        finally:
+            QueryRetryDriver._spill_device_store = real_spill
+            for r in rules:
+                I.remove(r)
+        ck1 = checkpoint_metrics.snapshot()
+        d = {k: ck1[k] - ck0[k] for k in ck1}
+        first = at["launches"]
+        second = {k: lr[k] - first[k] for k in K.launches.NAMES}
+        actions = [r["action"] for r in s.recovery_log]
+        check(actions == ["spill"],
+              f"{label} ({tag}): one recovery action, spill ({actions})")
+        check(got.equals(clean),
+              f"{label} ({tag}): equals the clean sharded answer bit for "
+              "bit")
+        if corrupt:
+            check(d["invalid"] >= 1
+                  and d["stagesSkipped"] < resumed["stagesSkipped"],
+                  f"{label} ({tag}): the rotten checkpoint dropped "
+                  f"(CheckpointInvalid) and its subtree re-ran ({d}; the "
+                  f"clean resume skipped {resumed['stagesSkipped']})")
+        else:
+            resumed = d
+            check(d["resumes"] >= 1 and d["stagesSkipped"] >= 1
+                  and second["partition_histogram"]
+                  < lc["partition_histogram"],
+                  f"{label} ({tag}): resumed ({d}) with fewer "
+                  f"partition_histogram launches than a clean run "
+                  f"({second['partition_histogram']} vs "
+                  f"{lc['partition_histogram']})")
+        launches.add(lr)
+        print(f"{label} ({tag}) on {card_line}: clean run {clean_s:.3f} s "
+              f"with {writes} checkpoint writes; the re-attempt (spill "
+              f"rung included) {end - at['t']:.3f} s, launches "
+              + json.dumps(second) + f" against the clean run's "
+              + json.dumps({k: lc[k] for k in K.launches.NAMES})
+              + f"; checkpoint counters {d}", flush=True)
+    s.stop()
+    del read, q
+    check(not recovery_metrics.snapshot().keys() - {"spill"},
+          f"reuse RU3: only the injected spill rungs "
+          f"({recovery_metrics.snapshot()})")
+    recovery_metrics.reset()  # RU3's actions were injected
+    parts["RU3"] = time.perf_counter() - t0
+
+    # RU4: two sharded queries sharing lineitem's scan, filter and
+    # partial aggregate; the second splices the first's stage
+    t0 = time.perf_counter()
+    off_s = TpuSession(sharded_conf(tpch_conf(True)))
+    off = {k: off_s.create_dataframe(batches[k]) for k in ("lineitem",)}
+    want_a, la_off, _, _ = drive(torch, K, fm, reuse_ru4(F, off, False),
+                                 li_rows,
+                                 card_line, "reuse RU4 A (store off)",
+                                 reps=0)
+    want_b, lb_off, _, _ = drive(torch, K, fm, reuse_ru4(F, off, True),
+                                 li_rows,
+                                 card_line, "reuse RU4 B (store off)",
+                                 reps=0)
+    off_s.stop()
+    launches.add(la_off)
+    launches.add(lb_off)
+    s = TpuSession(dict(sharded_conf(tpch_conf(True)), **{
+        "spark.rapids.tpu.serving.sharedStage.enabled": True}))
+    on = {k: s.create_dataframe(batches[k]) for k in ("lineitem",)}
+    got_a, la, _, _ = drive(torch, K, fm, reuse_ru4(F, on, False),
+                            li_rows,
+                            card_line, "reuse RU4 A (store on)", reps=0)
+    got_b, lb, _, _ = drive(torch, K, fm, reuse_ru4(F, on, True),
+                            li_rows,
+                            card_line, "reuse RU4 B (store on)", reps=0)
+    snap = s.shared_stages.snapshot()
+    check(got_a.equals(want_a) and got_b.equals(want_b),
+          "reuse RU4: both answers equal their store-off answers bit for "
+          "bit")
+    check(snap["resumes"] >= 1 and
+          lb["partition_histogram"] < lb_off["partition_histogram"],
+          f"reuse RU4: B spliced A's stage ({snap}) with fewer launches "
+          f"(partition_histogram {lb['partition_histogram']} vs "
+          f"{lb_off['partition_histogram']} with the store off)")
+    launches.add(la)
+    launches.add(lb)
+    print(f"reuse RU4 on {card_line}: shared store {snap}; B's launches "
+          + json.dumps({k: lb[k] for k in K.launches.NAMES})
+          + " against " + json.dumps({k: lb_off[k]
+                                      for k in K.launches.NAMES})
+          + " with the store off", flush=True)
+    s.stop()
+    parts["RU4"] = time.perf_counter() - t0
+    check_no_recovery("reuse RU4")
+    secs = time.perf_counter() - t_phase
+    print(f"reuse phase by part on {card_line}: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in parts.items())
+        + f"; {secs:.3f} s in all against REUSE_BUDGET_S "
+        f"{REUSE_BUDGET_S} s", flush=True)
+    return secs
+
+
+def _bind(b):
+    import datetime
+    d0, d1, lo, hi, qty = b
+    return (datetime.date(*d0), datetime.date(*d1), lo, hi, qty)
+
+
+class _PreparedRun:
+    """A prepared q6 run under binding ``b``, shaped as ``drive`` reads a
+    DataFrame (``to_pandas``)."""
+
+    def __init__(self, handle, b):
+        self.handle, self.b = handle, b
+
+    def to_pandas(self):
+        return self.handle.run_pandas(*_bind(self.b))
+
+
 def tpcds_device_tables(data, device):
     """Every TPC-DS table (pandas, from ``tpcds.gen_tables``) as one
     batch on ``device``, through arrow as ``create_dataframe`` takes it."""
@@ -3698,8 +4156,8 @@ class DistLog:
         self._mod, self._real = dataframe, dataframe.try_distributed
         self.runs = []
 
-        def logged(session, plan):
-            got = self._real(session, plan)
+        def logged(session, plan, resume=False):
+            got = self._real(session, plan, resume=resume)
             self.runs.append((session.last_dist_explain,
                               list(session.last_dist_stats or [])))
             return got
@@ -5232,12 +5690,28 @@ def main() -> int:
     # three TPC-DS queries after the tpcds phase
     sharded_launches = PathLaunches(K.launches.NAMES)
     sharded_s = {}
+    ckpt0 = ckpt_watch()
     t0 = time.perf_counter()
     run_sharded_tpch(torch, K, fm, tpch, tpch_sql, tpch_batches, df_answers,
                      mem_rates, sql_rates, card_line, sharded_launches)
     sharded_s["in memory"] = time.perf_counter() - t0
     print(f"sharded_tpch in memory {sharded_s['in memory']:.3f} s; "
           f"launches {sharded_launches.counts}", flush=True)
+    ckpt_report("sharded_tpch in memory", ckpt0, card_line)
+    check_no_recovery("sharded_tpch in memory")
+
+    # the reuse phase: the result cache, templates, a sharded resume and
+    # the shared stage store, over the same tables
+    reuse_launches = PathLaunches(K.launches.NAMES)
+    reuse_s = run_reuse(torch, K, fm, tpch, tpch_batches, df_answers,
+                        card_line, reuse_launches, scratch)
+    print(f"reuse phase {reuse_s:.3f} s (budget {REUSE_BUDGET_S} s); "
+          f"launches {reuse_launches.counts}", flush=True)
+    for k in ("masked_multi_reduce", "hash_insert", "partition_histogram"):
+        check(reuse_launches.counts[k] >= 1,
+              f"reuse launched {k} {reuse_launches.counts[k]}x")
+    total.extend(reuse_launches)
+    ckpt0 = ckpt_watch()
 
     def sharded_files(root):
         t_files = time.perf_counter()
@@ -5328,6 +5802,8 @@ def main() -> int:
               f"sharded_tpch launched {k} {sharded_launches.counts[k]}x")
     total.extend(sharded_launches)
     check_no_recovery("sharded_tpch, files, memory, tpcds")
+    ckpt_report("sharded_tpch files and tpcds, files, memory, tpcds",
+                ckpt0, card_line)
 
     # the tpcds_decimal pass over the same tables with decimal money
     # columns, then the numeric pass over its store_sales
@@ -5365,6 +5841,7 @@ def main() -> int:
                       "tpcds_decimal": dec_launches.counts,
                       "numeric": numeric_launches.counts,
                       "sharded_tpch": sharded_launches.counts,
+                      "reuse": reuse_launches.counts,
                       "memory": memory_launches.counts}
 
     # NCCL allocates its buffers outside PyTorch's caching allocator,

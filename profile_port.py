@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 profile_port.py [tpch] [join] [q6] [tpcds] [files] [sharded_tpch]
                             [memory] [fallback] [tpcds_decimal]
                             [strings_dates] [nested] [udf] [serving]
+                            [reuse]
 
 (no argument runs every section).  It builds the same inputs as
 ``chip_smoke.py`` (the TPC-H tables at SF10, the fact-dim join at 2^26 x
@@ -55,7 +56,11 @@ the results, and the cache's bytes and host time, and (``serving``, only
 when asked for) ``chip_smoke.py``'s serving phase over the SF10 tables
 (its checks included), then one device-only trace of SV1's three
 concurrent TPC-H streams with each stream's wall and admission wait,
-and prints, per run: the host wall
+and (``reuse``, only when asked for) ``chip_smoke.py``'s reuse phase
+over the SF10 tables (its checks included), then one trace of sharded
+TPC-H q9 clean and one of its resume from stage checkpoints after an
+injected OOM, and the 22 sharded TPC-H queries with the default-on
+checkpoint log on and off in one run, and prints, per run: the host wall
 time, the device's busy time (the union of the intervals in which any
 CUDA kernel or copy ran) and its idle share of the wall time, the counted
 host syncs, the host time of the string dictionary (fetching string
@@ -299,9 +304,110 @@ def main() -> int:
         profile_udf(torch, tpch, card_line)
     if "serving" in sys.argv[1:]:
         profile_serving(torch, tpch, card_line)
+    if "reuse" in sys.argv[1:]:
+        profile_reuse(torch, tpch, card_line)
     if "sharded_tpch" in sys.argv[1:]:
         return profile_sharded(torch, TpuSession, tpch, card_line)
     return 0
+
+
+def profile_reuse(torch, tpch, card_line):
+    """``chip_smoke.py``'s reuse phase (its checks included) over the
+    SF10 tables, then one trace of RU3's sharded resume: TPC-H q9 over
+    ``chip_smoke.NSHARDS`` logical shards with a device OOM injected as
+    its third stage's frame is saved, so the spill rung's re-attempt
+    splices the first two stages; then :func:`checkpoint_control`."""
+    import tempfile
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.exec.fusion import fusion_metrics as fm
+    from spark_rapids_tpu_torch.ops import kernels as K
+    from spark_rapids_tpu_torch.robustness import inject as I
+    from spark_rapids_tpu_torch.robustness.checkpoint import (
+        checkpoint_metrics)
+    from spark_rapids_tpu_torch.robustness.driver import recovery_metrics
+    t0 = time.perf_counter()
+    cols = tpch.gen_table_columns(cs.TPCH_SF)
+    batches = cs.device_tables(cols, torch.device(cs.DEVICE))
+    del cols
+    print(f"TPC-H SF{cs.TPCH_SF} generated and on the card in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    K.library()
+    s = TpuSession(cs.tpch_conf(True))
+    t = {k: s.create_dataframe(b) for k, b in batches.items()}
+    answers = {n: tpch.QUERIES[n](t).to_pandas()
+               for n in cs.REUSE_EXACT + ("q9",)}
+    s.stop()
+    total = cs.PathLaunches(K.launches.NAMES)
+    secs = cs.run_reuse(torch, K, fm, tpch, batches, answers, card_line,
+                        total, tempfile.mkdtemp(prefix="profile_reuse_"))
+    print(f"reuse phase {secs:.3f} s (budget {cs.REUSE_BUDGET_S} s); "
+          f"launches {total.counts}", flush=True)
+    s = TpuSession(cs.sharded_conf(cs.tpch_conf(True)))
+    q = tpch.QUERIES[cs.RU3_QUERY](
+        {k: s.create_dataframe(b) for k, b in batches.items()})
+    profile(torch, q, f"RU3 sharded {cs.RU3_QUERY} SF{cs.TPCH_SF} clean "
+            f"over {cs.NSHARDS} shards", card_line)
+
+    def resume():
+        rule = I.inject("checkpoint.write", count=1,
+                        skip=cs.RU3_FAULT_SKIP, exc=torch.OutOfMemoryError)
+        try:
+            q.to_pandas()
+        finally:
+            I.remove(rule)
+    before = checkpoint_metrics.snapshot()
+    profile(torch, q, f"RU3 sharded {cs.RU3_QUERY} SF{cs.TPCH_SF}, an OOM "
+            "at its third stage's save, resumed", card_line, run=resume,
+            catalog=s.memory_catalog)
+    after = checkpoint_metrics.snapshot()
+    print("  checkpoint counters over the warm and the traced run: "
+          + str({k: after[k] - before[k] for k in after}), flush=True)
+    s.stop()
+    recovery_metrics.reset()
+    checkpoint_control(torch, tpch, batches, card_line)
+
+
+def checkpoint_control(torch, tpch, batches, card_line):
+    """The default-on lineage log's cost in one run: the 22 TPC-H
+    DataFrame queries over ``chip_smoke.NSHARDS`` logical shards with
+    ``recovery.checkpoint.enabled`` on and off, one warm pass and then
+    passes in the order on, off, off, on; each pass's wall (the card
+    synchronized at both ends) and the log's writes and bytes."""
+    from spark_rapids_tpu_torch.api.session import TpuSession
+    from spark_rapids_tpu_torch.robustness.checkpoint import (
+        checkpoint_metrics)
+    key = "spark.rapids.sql.recovery.checkpoint.enabled"
+    sessions = {on: TpuSession(dict(cs.sharded_conf(cs.tpch_conf(True)),
+                                    **{key: on}))
+                for on in (True, False)}
+    tables = {on: {k: s.create_dataframe(b) for k, b in batches.items()}
+              for on, s in sessions.items()}
+
+    def one_pass(on):
+        m0 = checkpoint_metrics.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for query in tpch.QUERIES.values():
+            query(tables[on]).to_pandas()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m1 = checkpoint_metrics.snapshot()
+        return wall, {k: m1[k] - m0[k] for k in ("writes", "bytesWritten")}
+    one_pass(True)
+    walls = {True: [], False: []}
+    for on in (True, False, False, True):
+        wall, d = one_pass(on)
+        walls[on].append(wall)
+        print(f"checkpoint control, log {'on' if on else 'off'}: "
+              f"{len(tpch.QUERIES)} sharded TPC-H queries SF{cs.TPCH_SF} "
+              f"in {wall:.3f} s, {d['writes']} writes, "
+              f"{d['bytesWritten']} bytes on {card_line}", flush=True)
+    print(f"checkpoint control: on {sum(walls[True]):.3f} s, off "
+          f"{sum(walls[False]):.3f} s over two passes each, ratio "
+          f"{sum(walls[True]) / sum(walls[False]):.4f} on {card_line}",
+          flush=True)
+    for s in sessions.values():
+        s.stop()
 
 
 def profile_strings_dates(torch, TpuSession, tpch, card_line):

@@ -21,9 +21,11 @@ plans the query on the session's device, runs the operators and fetches
 the result in one counted sync.
 
 Every action (``collect``, ``to_pandas``, ``to_arrow``, a write) runs in
-the query envelope of ``_execute_batches``: a per-query context,
-admission, the recovery driver, a watchdog query scope per attempt, and
-QueryStart/QueryEnd records when the session has an event log.
+the query envelope of ``_execute_batches``: a per-query context, plan
+templates and the result cache when they are on, admission, a stage
+lineage log on a sharded session, the recovery driver, a watchdog query
+scope per attempt, and QueryStart/QueryEnd records when the session has
+an event log.
 """
 
 from __future__ import annotations
@@ -157,6 +159,12 @@ class DataFrame:
         self.session = session
         self.plan = plan
         self._last_exec = None
+        # plan-template state (plan/template.py): the TemplateInfo of the
+        # current execution (set afresh per _execute_batches), and the
+        # PreparedStatement this frame runs for, whose template and
+        # physical plan its runs reuse
+        self._template = None
+        self._prepared = None
 
     @property
     def schema(self):
@@ -565,38 +573,140 @@ class DataFrame:
     # ------------------------------------------------------------ actions --
     def _execute_batches(self) -> List[ColumnarBatch]:
         """Run the plan inside the query envelope (reference
-        ``api/dataframe.py:600-753``, without the result cache, plan
-        templates and the shared stage store): a ``QueryContext`` (the
-        per-query scope for event attribution, budgets and injection
-        scoping, whose exit purges stale thread-ident adoptions), then
-        admission (a typed ``AdmissionFault`` rejects this query only),
-        then the recovery driver, which re-drives classified transient
-        faults down the ladder (retry -> spill -> smaller batches -> one
-        device -> CPU) and re-raises fatal ones untouched."""
+        ``api/dataframe.py:600-753``): a ``QueryContext`` (the per-query
+        scope for event attribution, checkpoint lineage, budgets and
+        injection scoping, whose exit purges stale thread-ident
+        adoptions); plan templates (``spark.rapids.tpu.template.enabled``
+        hoists the literals, a prepared statement brings its own
+        template); the result cache, asked before admission and again
+        after a real admission wait (a twin ahead in the queue may have
+        stored the answer); admission (a typed ``AdmissionFault`` rejects
+        this query only); the shared stage store or a per-query lineage
+        log on a sharded session; then the recovery driver, which
+        re-drives classified transient faults down the ladder (retry ->
+        spill -> smaller batches -> one device -> CPU) and re-raises
+        fatal ones untouched.  A fresh answer is stored on success."""
         import contextlib
 
         import torch
 
+        from spark_rapids_tpu_torch.config import rapids_conf as rc
+        from spark_rapids_tpu_torch.robustness.checkpoint import (
+            CheckpointManager)
         from spark_rapids_tpu_torch.robustness.driver import QueryRetryDriver
         from spark_rapids_tpu_torch.serving.context import QueryContext
+        from spark_rapids_tpu_torch.serving.reuse import in_tick_execution
         # a new thread's current CUDA device is cuda:0: a query driven
         # from any thread runs with the session's device current, and
         # issues its work to that device's default stream, which every
         # query of the session shares (exec/pipeline.py)
-        dev = self.session.device
+        session = self.session
+        dev = session.device
         on_device = torch.cuda.device(dev) if dev.type == "cuda" \
             else contextlib.nullcontext()
-        with on_device, QueryContext(self.session) as ctx:
+        with on_device, QueryContext(session) as ctx:
+            tick = in_tick_execution()
+            prep = self._prepared
+            info = None
+            if prep is not None:
+                info = self._template = prep.info
+            elif not tick and session.conf.get(rc.TEMPLATE_ENABLED):
+                from spark_rapids_tpu_torch.plan.template import (
+                    hoist_literals)
+                info = hoist_literals(self.plan)
+                self._template = info if info.hoisted else None
+            else:
+                self._template = None
+            if info is not None:
+                # the template's facts ride the QueryEnd sharing dict
+                # (only with templates on: the stream is otherwise as it
+                # was)
+                ctx.sharing["template"] = {
+                    "fingerprint": info.fingerprint[:16],
+                    "params": info.param_count,
+                    "refusals": sorted({r for r, _ in info.refusals}),
+                }
+            cache = getattr(session, "result_cache", None)
+            if tick:
+                cache = None
+            use_template_cache = (
+                cache is not None and self._template is not None
+                and session.conf.get(rc.TEMPLATE_RESULT_CACHE_ENABLED))
+            if prep is not None and not use_template_cache:
+                # a prepared frame's plan still holds the literals of
+                # prepare time, whatever the binding: its exact key would
+                # alias every binding to the first one's answer
+                cache = None
+            pend = None
+            if use_template_cache:
+                # a template plan's exact key carries no binding, so a
+                # templated run keys the template tier only
+                pend = cache.offer_template(self._template)
+            elif cache is not None:
+                pend = cache.offer(self.plan)
+            if pend is not None and pend.hit:
+                return self._answer_from_cache(pend)
             ctx.admit()
-            driver = QueryRetryDriver(self.session)
+            if pend is not None and ctx.admission_wait_ms > 0.5:
+                # this query queued: an identical query ahead of it may
+                # have stored the answer meanwhile; its miss is counted
+                pend = cache.offer_template(self._template, count_miss=False) \
+                    if use_template_cache else \
+                    cache.offer(self.plan, count_miss=False)
+                if pend.hit:
+                    return self._answer_from_cache(pend)
+            driver = QueryRetryDriver(session)
+            # the shared stage store rides as this query's checkpoint
+            # manager when on; else a per-query lineage log
+            shared = getattr(session, "shared_stages", None)
+            use_shared = (shared is not None and shared.enabled
+                          and not tick
+                          and getattr(session, "shards", None) is not None
+                          and session.checkpoints is None)
+            mgr = None
+            if use_shared:
+                session.checkpoints = shared
+            else:
+                mgr = CheckpointManager.for_query(session)
             try:
-                return driver.run(self._attempt_batches)
+                batches = driver.run(self._attempt_batches)
+                if pend is not None:
+                    cache.store(pend, batches)
+                return batches
             except Exception as exc:
-                # a fatal or exhausted ladder still writes its recovery
-                # and watchdog trail, so a post-mortem sees what was
-                # tried
+                # a fatal or exhausted ladder still writes its recovery,
+                # watchdog and checkpoint trail, so a post-mortem sees
+                # what was tried
                 self._flush_fatal_trail(driver, exc)
                 raise
+            finally:
+                if use_shared:
+                    # detach only: the store's entries outlive the query;
+                    # drain a tally no QueryEnd took (events off)
+                    shared.take_query_stats()
+                    if session.checkpoints is shared:
+                        session.checkpoints = None
+                elif mgr is not None:
+                    mgr.finish()
+
+    def _answer_from_cache(self, pend) -> List[ColumnarBatch]:
+        """A result-cache hit: a complete (trivial) QueryStart/QueryEnd
+        pair, so the event stream sees the query, then the stored
+        batches, on the host: no operator runs."""
+        events = getattr(self.session, "events", None)
+        note = "template-cache hit" if pend.tier == "template" \
+            else "result-cache hit"
+        if events is not None and events.enabled:
+            qid = next(self.session._query_ids)
+            self.session._current_qid = qid
+            events.emit("QueryStart", queryId=qid,
+                        logicalPlan=self.plan.tree_string(),
+                        physicalPlan="ResultCache", explain=note)
+            events.emit("QueryEnd", queryId=qid, status="success",
+                        durationMs=0.0, metrics={}, spill={}, retry={},
+                        sharing=self._sharing_info(), explain=note)
+        self.session.last_dist_explain = note
+        return pend.batches
 
     def _flush_fatal_trail(self, driver, exc: BaseException) -> None:
         ev = getattr(self.session, "events", None)
@@ -604,6 +714,7 @@ class DataFrame:
             return
         from spark_rapids_tpu_torch.robustness.watchdog import (
             watchdog_metrics)
+        mgr = getattr(self.session, "checkpoints", None)
         try:
             ev.emit(
                 "QueryFatal",
@@ -611,7 +722,7 @@ class DataFrame:
                 error=f"{type(exc).__name__}: {exc}",
                 recovery=list(getattr(driver, "trail", [])),
                 watchdog=watchdog_metrics.snapshot(),
-                checkpoint={})
+                checkpoint=mgr.snapshot() if mgr is not None else {})
         except Exception:
             pass  # the post-mortem record must never mask the fault
 
@@ -636,9 +747,12 @@ class DataFrame:
         return ctx.admission_info() if ctx is not None else {}
 
     def _sharing_info(self) -> dict:
-        """The QueryEnd ``sharing`` dict: the interleaver's wait and
-        slice accounting; empty (and absent from the event) when the
-        interleaver is off."""
+        """The QueryEnd ``sharing`` dict: the result cache's hit and miss
+        notes (a store lands after the envelope and rides its
+        ResultCacheStore event), the template's facts, the shared stage
+        store's write and splice tallies for this query, and the
+        interleaver's wait and slice accounting.  Empty, and so absent
+        from the event, with every reuse setting off."""
         from spark_rapids_tpu_torch.serving import context as qc
         ctx = qc.current()
         out = {}
@@ -647,6 +761,9 @@ class DataFrame:
             t = ctx.interleave_ticket
             if t is not None:
                 out["interleave"] = t.info()
+        shared = getattr(self.session, "shared_stages", None)
+        if shared is not None and shared.enabled:
+            out.update(shared.take_query_stats())
         return out
 
     def _attempt_batches_impl(self, mode) -> List[ColumnarBatch]:
@@ -666,8 +783,16 @@ class DataFrame:
                 if mode.batch_scale == 1.0 else
                 "demoted: single-device split-batch replan "
                 "(query recovery)")
+        template = self._template
+        if group is not None and template is not None:
+            # the sharded path's stages thread no parameters: a templated
+            # plan runs on one device (as in the JAX package)
+            self.session.last_dist_explain = (
+                "template: single-process execution "
+                "(parameterized kernels)")
         if mode.use_mesh and mode.batch_scale == 1.0 and \
-                not mode.cpu_only and group is not None:
+                not mode.cpu_only and group is not None and \
+                template is None:
             # a sharded session offers the plan to the distributed
             # planner first; a plan it declines falls through to the
             # single-device engine, which opens its own envelope.  The
@@ -698,6 +823,10 @@ class DataFrame:
                                              wall_ms, status)
                 if qid is not None:
                     sh = self._sharing_info()
+                    # the lineage log's counters, where one is attached
+                    mgr = self.session.checkpoints
+                    ck = {"checkpoint": mgr.snapshot()} \
+                        if mgr is not None else {}
                     events.emit(
                         "QueryEnd", queryId=qid, status=status,
                         durationMs=round(wall_ms, 3),
@@ -705,11 +834,12 @@ class DataFrame:
                         distributed=True, shuffle=shuffle,
                         fusion={}, spans=spans,
                         admission=self._admission_info(),
-                        **({"sharing": sh} if sh else {}),
+                        **({"sharing": sh} if sh else {}), **ck,
                         explain=self.session.last_dist_explain)
 
             try:
-                dist = try_distributed(self.session, self.plan)
+                dist = try_distributed(self.session, self.plan,
+                                       resume=mode.resume)
             except Exception as exc:
                 _end(f"failed: {type(exc).__name__}: {exc}", {})
                 raise
@@ -774,10 +904,19 @@ class DataFrame:
         ``api/dataframe.py:838-1180``)."""
         import time as _time
         from spark_rapids_tpu_torch.utils import tracing
+        template = self._template
+        logical = template.plan if template is not None else self.plan
+        prep = self._prepared
         if mode.cpu_only:
-            exec_plan = self.session.plan_cpu_only(self.plan)
+            exec_plan = self.session.plan_cpu_only(logical)
+        elif prep is not None and template is not None and \
+                overrides is None:
+            # a prepared run on the first rung: the handle's physical
+            # plan, no planning pass (a rung that re-plans, split or
+            # cpu, plans afresh)
+            exec_plan = prep.exec_plan
         else:
-            exec_plan = self.session.plan(self.plan, overrides=overrides)
+            exec_plan = self.session.plan(logical, overrides=overrides)
         self._last_exec = exec_plan
         events = getattr(self.session, "events", None)
         logging = events is not None and events.enabled

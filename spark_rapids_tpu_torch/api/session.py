@@ -50,6 +50,16 @@ session, each on its own thread, keep their own query ids.
 ``TpuSession._active`` is the session of the query running last (set
 per attempt), which subsystems without a session at hand (the watchdog's
 events, the UDF pool's degradation record) resolve.
+
+Reuse (``serving/reuse.py``, ``robustness/checkpoint.py``,
+``plan/template.py``): a sharded query keeps a lineage log of its stage
+checkpoints on ``session.checkpoints`` (on by default), from which a
+recovery re-attempt resumes; ``result_cache``
+(``serving.resultCache.enabled``) answers a repeated plan over unchanged
+inputs from the host, ``shared_stages`` (``serving.sharedStage.enabled``)
+lets sharded queries splice each other's stages, and ``prepare(df)``
+(``template.enabled``) plans a query once for runs under new literals.
+``stop()`` closes both stores.
 """
 
 from __future__ import annotations
@@ -191,6 +201,16 @@ class TpuSession:
                 FairInterleaver)
             self.interleaver = FairInterleaver(
                 conf.get(rc.SERVING_INTERLEAVE_QUANTUM))
+        # cross-query reuse (serving/reuse.py), off by default
+        self.result_cache = None
+        if conf.get(rc.SERVING_RESULT_CACHE_ENABLED):
+            from spark_rapids_tpu_torch.serving.reuse import ResultCache
+            self.result_cache = ResultCache(self)
+        self.shared_stages = None
+        if conf.get(rc.SERVING_SHARED_STAGE_ENABLED):
+            from spark_rapids_tpu_torch.serving.reuse import (
+                SharedStageCache)
+            self.shared_stages = SharedStageCache(self)
 
     def _init_observability(self) -> None:
         """Query ids, the recovery trail, the event log and the span
@@ -245,8 +265,10 @@ class TpuSession:
 
     @property
     def checkpoints(self):
-        """The calling query's stage-checkpoint manager: always None
-        until robustness/checkpoint.py is ported."""
+        """The calling query's stage-checkpoint manager
+        (``robustness/checkpoint.py``): its lineage log on a sharded
+        session, or the shared stage store; None outside a query and on
+        one device."""
         from spark_rapids_tpu_torch.serving import context as qc
         return self._checkpoints_by_ident.get(qc.effective_ident())
 
@@ -318,7 +340,10 @@ class TpuSession:
                 conf.get(rc.SHUFFLE_COMPRESSION_CODEC)),
             disk_write_threads=conf.get(rc.SPILL_DISK_WRITE_THREADS),
             integrity_check=conf.get(rc.SPILL_INTEGRITY_ENABLED),
-            max_retries=conf.get(rc.OOM_RETRY_MAX))
+            max_retries=conf.get(rc.OOM_RETRY_MAX),
+            checkpoint_floor=conf.get(rc.SERVING_CHECKPOINT_FLOOR_BYTES),
+            host_codec=native.codec_level(
+                conf.get(rc.ENCODING_STORAGE_HOST_CODEC)))
         self.semaphore = TpuSemaphore(conf.get(rc.CONCURRENT_TPU_TASKS))
 
     def create_dataframe(self, data) -> DataFrame:
@@ -384,6 +409,16 @@ class TpuSession:
         from spark_rapids_tpu_torch.sql import parse, resolve
         return resolve(self, parse(query))
 
+    def prepare(self, df: DataFrame):
+        """``df`` as a prepared statement (``api/prepared.py``): its
+        literals hoist into parameter slots and the template is planned
+        once; each ``handle.run(p0=..., ...)`` binds and executes without
+        a planning pass, through admission, the recovery ladder and
+        tracing as any query.  Requires
+        ``spark.rapids.tpu.template.enabled``."""
+        from spark_rapids_tpu_torch.api.prepared import PreparedStatement
+        return PreparedStatement(self, df)
+
     def plan(self, logical: L.LogicalPlan, overrides=None):
         """The physical plan of ``logical`` (``overrides.last_explain``
         then says what runs where).  With
@@ -427,6 +462,12 @@ class TpuSession:
         go, and the catalog's own directory is removed)."""
         self.stopped = True
         self.events.close()
+        for store in (self.result_cache, self.shared_stages):
+            if store is not None:
+                try:
+                    store.close()
+                except Exception:
+                    pass  # teardown must reach the catalog sweep
         self.cache_manager.clear()
         self.memory_catalog.close()
         if TpuSession._active is self:

@@ -24,7 +24,9 @@ Schema = Sequence[Tuple[str, DataType]]
 
 
 class ColumnarBatch:
-    __slots__ = ("columns", "_row_count")
+    # weak references: the result cache (serving/reuse.py) notices a
+    # fingerprinted input batch that died
+    __slots__ = ("columns", "_row_count", "__weakref__")
 
     def __init__(self, columns: Dict[str, Column], nrows=None):
         self.columns: Dict[str, Column] = dict(columns)

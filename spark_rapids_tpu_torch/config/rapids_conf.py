@@ -296,6 +296,16 @@ SHUFFLE_COMPRESSION_CODEC = conf(
     lambda v: None if v in ("none", "zrle", "lz4", "zstd")
     else "unknown codec")
 
+ENCODING_STORAGE_HOST_CODEC = conf(
+    "spark.rapids.tpu.encoding.storage.hostCodec", "none",
+    "Frame codec of the spill catalog's host tier (and so of demoted "
+    "checkpoints and cached results): none keeps numpy buffers; zrle, "
+    "lz4 and zstd keep each payload as one frame of the native codec "
+    "the disk tier writes. The checksum stays over the decoded bytes, "
+    "and a frame that no longer decodes is dropped as corruption.",
+    str, lambda v: None if v in ("none", "zrle", "lz4", "zstd")
+    else "unknown codec")
+
 WINDOW_BATCH_ROWS = conf(
     "spark.rapids.sql.window.batchRows", 1 << 20,
     "Target rows per window-operator chunk when its input arrives sorted "
@@ -388,6 +398,31 @@ QUERY_RECOVERY_BACKOFF_CAP_MS = conf(
     "spark.rapids.sql.recovery.backoffCapMs", 2000,
     "Ceiling on the exponential retry backoff (before jitter).",
     _to_int, _positive)
+
+RECOVERY_CHECKPOINT_ENABLED = conf(
+    "spark.rapids.sql.recovery.checkpoint.enabled", True,
+    "Register the output of every completed exchange stage of the "
+    "sharded path (aggregate, join, sort, top-N) as a stage checkpoint "
+    "in a per-query lineage log (robustness/checkpoint.py). On a "
+    "retryable fault the recovery ladder's re-attempt resumes from the "
+    "completed stages instead of re-reading sources. Checkpoints are "
+    "verified on restore; a corrupt or evicted one is dropped and its "
+    "subtree re-runs.", _to_bool)
+
+RECOVERY_CHECKPOINT_MAX_BYTES = conf(
+    "spark.rapids.sql.recovery.checkpoint.maxBytes", 1 << 30,
+    "Ceiling on the bytes one query's lineage log may hold across all "
+    "spill tiers; the oldest checkpoints evict first (CheckpointEvict "
+    "events) and their subtrees re-run on resume.", _to_int, _positive)
+
+RECOVERY_CHECKPOINT_TIERS = conf(
+    "spark.rapids.sql.recovery.checkpoint.tiers", "device,host,disk",
+    "Spill tiers a checkpoint payload may occupy: 'device,host,disk' "
+    "registers it on the device and lets pressure demote it; "
+    "'host,disk' moves it to the host at write; 'disk' writes it to a "
+    "disk frame at once.", str,
+    lambda v: None if v in ("device,host,disk", "host,disk", "disk")
+    else "must be 'device,host,disk', 'host,disk' or 'disk'")
 
 WATCHDOG_ENABLED = conf(
     "spark.rapids.tpu.watchdog.enabled", True,
@@ -483,6 +518,61 @@ SERVING_INTERLEAVE_QUANTUM = conf(
 # -------------------------------------------------------------- planning --
 # the planner's tagging (plan/overrides.py), its CPU fallback
 # (exec/fallback.py) and the cost-based optimizer (plan/cbo.py)
+
+SERVING_CHECKPOINT_FLOOR_BYTES = conf(
+    "spark.rapids.tpu.serving.checkpointEvictionFloorBytes", 0,
+    "Cross-query isolation floor for stage checkpoints: device pressure "
+    "from one query demotes that query's own batches first, and may not "
+    "demote ANOTHER query's checkpoint-priority payloads below this "
+    "many device bytes (unless the budget cannot be met any other "
+    "way). 0 disables the floor.", _to_int, _non_negative)
+
+SERVING_RESULT_CACHE_ENABLED = conf(
+    "spark.rapids.tpu.serving.resultCache.enabled", False,
+    "Plan-keyed result cache (serving/reuse.py): before planning, a "
+    "query's structural plan signature and the input fingerprint of "
+    "what it reads (file path/size/mtime_ns, in-memory batch "
+    "identities) are looked up in a session store on the host; a hit "
+    "answers without running an operator. A moved fingerprint "
+    "invalidates the entry, every hit is CRC-verified, and plans with "
+    "UDFs or pandas nodes are never cached.", _to_bool)
+
+SERVING_RESULT_CACHE_MAX_BYTES = conf(
+    "spark.rapids.tpu.serving.resultCache.maxBytes", 256 << 20,
+    "Ceiling on the bytes the result cache holds on the host and disk "
+    "tiers; least recently used entries evict first, and a result "
+    "larger than the whole budget is not stored.", _to_int, _positive)
+
+SERVING_SHARED_STAGE_ENABLED = conf(
+    "spark.rapids.tpu.serving.sharedStage.enabled", False,
+    "Cross-query stage store (serving/reuse.py): sharded queries "
+    "register every completed exchange stage in one session store "
+    "keyed by the structural stage id with the input fingerprint "
+    "folded in, and splice each other's stages on first attempts. A "
+    "failed check, an eviction or a moved fingerprint re-runs the "
+    "subtree. Payloads move to the host at write.", _to_bool)
+
+SERVING_SHARED_STAGE_MAX_BYTES = conf(
+    "spark.rapids.tpu.serving.sharedStage.maxBytes", 1 << 30,
+    "Ceiling on the bytes the shared stage store holds on the host and "
+    "disk tiers; the oldest entries evict first.", _to_int, _positive)
+
+TEMPLATE_ENABLED = conf(
+    "spark.rapids.tpu.template.enabled", False,
+    "Parameterized plan templates (plan/template.py): constant "
+    "literals are hoisted into typed parameter slots with value-free "
+    "keys before planning, and session.prepare(df) plans a template "
+    "once for runs under new bindings. Literals whose swap would change "
+    "the plan's shape (nulls, strings, decimals, ANSI-checked "
+    "operations, unaliased projections, LIMIT, join/sort/window "
+    "positions) stay inline.", _to_bool)
+
+TEMPLATE_RESULT_CACHE_ENABLED = conf(
+    "spark.rapids.tpu.template.resultCache.enabled", False,
+    "Template tier of the result cache: a templated query stores and "
+    "looks up its answer under (template fingerprint, parameter "
+    "vector), with the exact tier's checks. Needs template.enabled and "
+    "serving.resultCache.enabled.", _to_bool)
 
 EXPLAIN = conf(
     "spark.rapids.sql.explain", "NONE",

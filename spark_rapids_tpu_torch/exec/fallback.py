@@ -455,7 +455,7 @@ def _eval(expr, df: pd.DataFrame) -> _V:
     from spark_rapids_tpu_torch.ops import stringops as S
     from spark_rapids_tpu_torch.ops.cast import Cast
     from spark_rapids_tpu_torch.ops.expressions import (
-        Alias, BoundReference, Literal)
+        Alias, BoundReference, Literal, ParamSlot)
 
     e = expr
     n = len(df)
@@ -463,7 +463,9 @@ def _eval(expr, df: pd.DataFrame) -> _V:
         return _eval(e.child, df)
     if isinstance(e, BoundReference):
         return _from_series(df.iloc[:, e.ordinal], e.dtype)
-    if isinstance(e, Literal):
+    if isinstance(e, (Literal, ParamSlot)):
+        # a hoisted literal (plan/template.py) evaluates its current
+        # binding, the value the device would have used
         return _full(e.dtype, n, e.value)
     if isinstance(e, NullLiteral):
         return _full(e.dtype, n, None)
@@ -1240,7 +1242,7 @@ def _eval_in(e, df) -> _V:
     import pyarrow as pa
     import pyarrow.compute as pc
     from spark_rapids_tpu_torch.ops import predicates as P
-    from spark_rapids_tpu_torch.ops.expressions import Literal
+    from spark_rapids_tpu_torch.ops.expressions import Literal, ParamSlot
     c = _eval(e.children[0], df)
     n = len(c)
     if isinstance(e, P.InSet):
@@ -1249,7 +1251,7 @@ def _eval_in(e, df) -> _V:
     else:
         options, has_null = [], False
         for o in e.children[1:]:
-            if not isinstance(o, Literal):
+            if not isinstance(o, (Literal, ParamSlot)):
                 raise NotImplementedError(
                     "CPU fallback cannot evaluate IN over non-literal "
                     "options")

@@ -52,6 +52,37 @@ def _dataset(paths, file_format):
     return ds.dataset(src, format=fmt, partitioning="hive")
 
 
+def scan_input_meta(paths: List[str]) -> List[tuple]:
+    """Sorted ``(path, size_bytes, mtime_ns)`` triples of a scan's files,
+    without opening one: the identity of what a FileRelation reads
+    (``robustness/checkpoint.input_fingerprint``).  Appending a file, a
+    new size or a same-size rewrite (which only the mtime shows) changes
+    it; a path that cannot be statted reads (-1, -1), so a vanished file
+    changes it too."""
+    def stat(p):
+        try:
+            st = os.stat(p)
+            return (p, st.st_size, st.st_mtime_ns)
+        except OSError:
+            return (p, -1, -1)
+
+    out = []
+    for p in paths:
+        if os.path.isdir(p):
+            # a partitioned table's root: its file set is the input
+            for root, _dirs, names in sorted(os.walk(p)):
+                out.extend(stat(os.path.join(root, name))
+                           for name in sorted(names))
+            continue
+        out.append(stat(p))
+    return sorted(out)
+
+
+def input_signature(meta: List[tuple]) -> str:
+    """The one string form of a ``scan_input_meta`` result."""
+    return ";".join(f"{p}={s}@{m}" for p, s, m in meta)
+
+
 def infer_file_schema(paths: List[str], file_format: str) -> Schema:
     """The files' columns under the port's types, struct and map columns
     shredded into their flat columns (``columnar/nested.py``); an arrow

@@ -49,16 +49,29 @@ priorities of SpillPriorities.scala below).
   device batches move to the host first (BudgetExhausted, action=spill);
   a query still over budget after that is rejected with a typed
   ``BudgetExhaustedFault``, and the registration that busted it is
-  removed first, so the catalog's bytes are as they were.
+  removed first, so the catalog's bytes are as they were.  An aliased
+  registration (a no-copy stage checkpoint, whose tensors the query's
+  frame still holds) is outside both counts and never a pressure victim
+  while it sits on the device: moving it would free nothing counted.
 * Faults: ``spill.disk`` fires in each disk write before anything is
   written (on the writer's thread), ``spill.corrupt.host`` and
   ``spill.corrupt.disk`` offer a payload to corrupt rules on each
   restore (``robustness/inject.py``), and the wait for the writers is a
   ``spill.disk`` watchdog section.
 
-Not ported: the JAX package's checkpoint eviction floor and compressed
-host tier, which serve robustness/checkpoint.py and the encoded host
-tier.
+* The checkpoint floor: device pressure is attributed to the query that
+  caused it (``for_owner``): that owner's batches move first within a
+  priority class, and another owner's checkpoint-priority batches (at
+  or below ``CHECKPOINT_TIER_MAX``, ``robustness/checkpoint.py``) keep
+  ``checkpoint_floor`` device bytes unless the budget cannot be met any
+  other way (``spark.rapids.tpu.serving.checkpointEvictionFloorBytes``);
+  an aliased checkpoint is not moved by pressure at all.
+* The compressed host tier: with ``host_codec`` > 0
+  (``spark.rapids.tpu.encoding.storage.hostCodec``) a batch on the host
+  is one frame of the native codec (the disk tier's format, so its disk
+  write writes the frame as it is), and the host tier counts the frame's
+  bytes.  The checksum is of the decoded payload, and a frame that no
+  longer decodes is corruption.
 """
 
 from __future__ import annotations
@@ -90,6 +103,10 @@ DISK = "DISK"
 OUTPUT_FOR_SHUFFLE_INITIAL_PRIORITY = -1000
 AGGREGATE_INTERMEDIATE_PRIORITY = 0
 ACTIVE_ON_DECK_PRIORITY = 1000
+# stage checkpoints register at or below this priority
+# (robustness/checkpoint.py); the cross-query eviction floor applies to
+# handles in this class
+CHECKPOINT_TIER_MAX = -1500
 
 
 class SpillCorruptionError(CorruptionFault):
@@ -178,7 +195,7 @@ class SpillableHandle:
 
     def __init__(self, catalog: "SpillableBatchCatalog",
                  batch: ColumnarBatch, priority: int,
-                 owner: Optional[int] = None):
+                 owner: Optional[int] = None, aliased: bool = False):
         self.id = next(SpillableHandle._ids)
         self.catalog = catalog
         self.priority = priority
@@ -186,14 +203,21 @@ class SpillableHandle:
         # this batch; None outside any query): per-owner device bytes
         # and budgets
         self.owner = owner
+        # the device batch shares its tensors with data its registrant
+        # still holds (see SpillableBatchCatalog.register); cleared once
+        # it leaves the device
+        self.aliased = bool(aliased)
         self.tier = DEVICE
         self.size_bytes = batch_bytes(batch)
-        # bytes of the host payload (set when it leaves the device): the
-        # host and disk tiers count these
+        # bytes of the host payload (set when it leaves the device; its
+        # frame's bytes when the host tier compresses): the host and disk
+        # tiers count these
         self.host_size = 0
         self.last_access = 0
         self._device: Optional[ColumnarBatch] = batch
-        self._host: Optional[dict] = None
+        # the host payload: a dict of numpy buffers, or one frame (bytes)
+        # when the catalog's host codec is on
+        self._host = None
         self._disk_path: Optional[str] = None
         self._disk_stored = 0
         # crc32 of the host payload, stamped when the batch leaves the
@@ -219,6 +243,16 @@ class SpillableHandle:
     @property
     def row_count(self) -> RowCount:
         return self._row_count
+
+    @property
+    def stored_bytes(self) -> int:
+        """Bytes the handle occupies at its tier: the device batch's, the
+        host payload's (a compressed frame's own), or the disk frame's."""
+        if self.tier == DEVICE:
+            return self.size_bytes
+        if self.tier == DISK and self._disk_stored:
+            return self._disk_stored
+        return self.host_size
 
     @property
     def nrows_bound(self) -> int:
@@ -275,8 +309,10 @@ class SpillableHandle:
         self.host_size = sum(h.nbytes for h in host)
         return dict(zip(keys, host))
 
-    def _rebuild(self, payload: dict) -> ColumnarBatch:
-        device = self._torch_device
+    def _rebuild(self, payload: dict, device=None) -> ColumnarBatch:
+        """The batch from a host payload, on its own device (or on
+        ``device``: the CPU for a reader that wants host tensors)."""
+        device = self._torch_device if device is None else device
         n = self.nrows
 
         def buf(key, dtype):
@@ -337,9 +373,11 @@ class SpillableHandle:
         self.tier = HOST
         return self.size_bytes
 
-    def _copy_out(self, batch: ColumnarBatch) -> dict:
+    def _copy_out(self, batch: ColumnarBatch):
         """``batch`` (the device batch, taken by the caller: a close may
-        drop ``_device`` meanwhile) as a checksummed host payload."""
+        drop ``_device`` meanwhile) as a checksummed host payload, or,
+        with the catalog's host codec on, as one frame of it (the
+        checksum is of the decoded payload)."""
         cat = self.catalog
         t0 = time.perf_counter_ns()
         payload = self._to_host_payload(batch)
@@ -348,13 +386,23 @@ class SpillableHandle:
             self._integrity_crc = _payload_checksum(payload, self.nrows)
         cat._time("spill_to_host_ns", t1 - t0)
         cat._time("checksum_ns", time.perf_counter_ns() - t1)
-        return payload
+        if not cat.host_codec:
+            return payload
+        from spark_rapids_tpu_torch import native
+        t2 = time.perf_counter_ns()
+        blob = native.serialize_batch(
+            self.nrows, self._frame_columns(payload), cat.host_codec)
+        cat._time("serialize_ns", time.perf_counter_ns() - t2)
+        cat.note_host_encoding(self.host_size, len(blob))
+        self.host_size = len(blob)
+        return blob
 
-    def _write_disk(self, payload: dict) -> int:
+    def _write_disk(self, payload) -> int:
         """Serialize ``payload`` (the host payload, taken by the caller:
-        a close may drop ``_host`` meanwhile) and write it atomically;
-        returns the file's bytes.  State does not move: on failure the
-        batch is intact at the host tier."""
+        a close may drop ``_host`` meanwhile; a compressed host tier's
+        frame is written as it is) and write it atomically; returns the
+        file's bytes.  State does not move: on failure the batch is
+        intact at the host tier."""
         from spark_rapids_tpu_torch import native
         from spark_rapids_tpu_torch.robustness.inject import fire
         # "spill.disk" fires before anything is written: on failure the
@@ -364,8 +412,9 @@ class SpillableHandle:
         cat = self.catalog
         path = os.path.join(cat.spill_dir, f"buf-{self.id}.tcf")
         t0 = time.perf_counter_ns()
-        blob = native.serialize_batch(
-            self.nrows, self._frame_columns(payload), cat.frame_codec)
+        blob = payload if isinstance(payload, bytes) else \
+            native.serialize_batch(
+                self.nrows, self._frame_columns(payload), cat.frame_codec)
         t1 = time.perf_counter_ns()
         # torn-write-proof: a crash before the rename leaves no file at
         # ``path``, so a partial frame is never restorable
@@ -424,6 +473,53 @@ class SpillableHandle:
                     return self._materialize_cold()
             return self._materialize_cold()
 
+    def host_payload(self) -> dict:
+        """The host payload of a batch at the HOST or DISK tier, decoded
+        and checksum-checked as a restore checks it (a mismatch drops the
+        batch and raises ``SpillCorruptionError``), without bringing the
+        batch back to the device and without moving it between tiers:
+        for a store that answers from the host (``serving/reuse.py``)."""
+        if self.closed:
+            raise ValueError("spillable batch already closed")
+        cat = self.catalog
+        with cat._lock:
+            while self._moving:
+                cat._moved.wait()
+            if self.closed:
+                raise ValueError("spillable batch already closed")
+            tier = self.tier
+            if tier == DEVICE:
+                raise ValueError(f"buf-{self.id} is on the device")
+            self._moving = True
+        try:
+            payload, bad = self._load_payload(tier)
+            if bad is None:
+                bad = self._check(payload)
+        finally:
+            with cat._lock:
+                self._moving = False
+                cat._moved.notify_all()
+        if bad is not None:
+            self._drop_corrupt(tier, bad)
+        return payload
+
+    def _drop_corrupt(self, tier: str, bad: str) -> None:
+        """Wrong bytes are never returned: the batch is dropped, counted
+        and reported, and ``SpillCorruptionError`` raised."""
+        self.close()
+        integrity_metrics.bump(tier)
+        with self.catalog._lock:
+            self.catalog.integrity_failures += 1
+        _emit_corruption(tier, self.id, bad)
+        raise SpillCorruptionError(tier, bad)
+
+    def host_batch(self, payload: dict) -> ColumnarBatch:
+        """``payload`` (from :meth:`host_payload`, or a copy of it) as a
+        batch of CPU tensors (copies: the stored payload stays as it
+        was)."""
+        copy = {k: np.array(v, copy=True) for k, v in payload.items()}
+        return self._rebuild(copy, device=torch.device("cpu"))
+
     def _materialize_cold(self) -> ColumnarBatch:
         cat = self.catalog
         with cat._lock:
@@ -452,23 +548,25 @@ class SpillableHandle:
                 self._moving = False
                 cat._moved.notify_all()
         if bad is not None:
-            # wrong bytes are never returned: the batch is dropped
-            self.close()
-            integrity_metrics.bump(tier)
-            with cat._lock:
-                cat.integrity_failures += 1
-            _emit_corruption(tier, self.id, bad)
-            raise SpillCorruptionError(tier, bad)
-        cat.ensure_budget()
+            self._drop_corrupt(tier, bad)
+        cat.ensure_budget(for_owner=self.owner)
         return batch
 
     def _load_payload(self, tier: str):
         """(payload, None), or (None, why) for a frame that no longer
         decodes."""
         from spark_rapids_tpu_torch.robustness.inject import fire_mutate
-        if tier == HOST:
+        if tier == HOST and not isinstance(self._host, bytes):
             return self._corrupt_point(self._host, "spill.corrupt.host"), \
                 None
+        if tier == HOST:
+            # a compressed host frame: the corrupt rule rots its bytes,
+            # as on disk
+            blob = fire_mutate("spill.corrupt.host", self._host)
+            try:
+                return self._payload_from_frame(blob), None
+            except ValueError as e:
+                return None, f"buf-{self.id}: host frame decode failed: {e}"
         from spark_rapids_tpu_torch import native
         t0 = time.perf_counter_ns()
         try:
@@ -554,8 +652,18 @@ class SpillableBatchCatalog:
                  disk_write_threads: int = 2,
                  integrity_check: bool = True,
                  disk_write_timeout_s: float = 600.0,
-                 max_retries: int = 2):
+                 max_retries: int = 2,
+                 checkpoint_floor: int = 0,
+                 host_codec: int = 0):
         self.device_budget = device_budget
+        # device bytes another owner's pressure may not take from an
+        # owner's checkpoint-priority batches (0: no floor)
+        self.checkpoint_floor = int(checkpoint_floor)
+        # the host tier's frame codec level (0: numpy payloads) and the
+        # raw and encoded bytes of the frames it made
+        self.host_codec = int(host_codec)
+        self.host_raw_bytes_total = 0
+        self.host_encoded_bytes_total = 0
         # OOM recoveries per guarded attempt (memory/retry.py)
         self.max_retries = int(max_retries)
         self.host_budget = host_budget
@@ -618,6 +726,11 @@ class SpillableBatchCatalog:
         with self._lock:
             self._times[key] += ns
 
+    def note_host_encoding(self, raw: int, encoded: int) -> None:
+        with self._lock:
+            self.host_raw_bytes_total += int(raw)
+            self.host_encoded_bytes_total += int(encoded)
+
     @staticmethod
     def _write_frame(path: str, blob: bytes) -> None:
         """The pager write (one place, so a test can wedge it)."""
@@ -627,7 +740,16 @@ class SpillableBatchCatalog:
     # ------------------------------------------------------------- interface --
     def register(self, batch: ColumnarBatch,
                  priority: int = AGGREGATE_INTERMEDIATE_PRIORITY,
-                 owner: Optional[int] = None) -> SpillableHandle:
+                 owner: Optional[int] = None,
+                 aliased: bool = False) -> SpillableHandle:
+        """Register a device batch.  ``aliased``: the batch shares its
+        tensors with data the caller still holds (a no-copy stage
+        checkpoint of a frame the query goes on using).  While it stays
+        on the device it is counted in neither the device tier nor its
+        owner's budget, and pressure never picks it: moving it would free
+        nothing the catalog could count.  Its registrant bounds it (the
+        lineage log's ``maxBytes``).  An explicit :meth:`demote` moves it,
+        and from then on it is an ordinary host batch."""
         if owner is None:
             # the registering query's scope (the pipeline worker and any
             # other thread adopted into a QueryContext resolve to it)
@@ -637,20 +759,25 @@ class SpillableBatchCatalog:
         from spark_rapids_tpu_torch.utils import tracing
         if tracing._armed:
             with tracing.span("spill.register"):
-                return self._register_impl(batch, priority, owner)
-        return self._register_impl(batch, priority, owner)
+                return self._register_impl(batch, priority, owner,
+                                           aliased)
+        return self._register_impl(batch, priority, owner, aliased)
 
     def _register_impl(self, batch: ColumnarBatch, priority: int,
-                       owner: Optional[int]) -> SpillableHandle:
-        h = SpillableHandle(self, batch, priority, owner=owner)
+                       owner: Optional[int],
+                       aliased: bool = False) -> SpillableHandle:
+        h = SpillableHandle(self, batch, priority, owner=owner,
+                            aliased=aliased)
         h.last_access = self.next_access_stamp()
         with self._lock:
             self._handles[h.id] = h
             self._issued_ids.add(h.id)
-            self.device_bytes += h.size_bytes
-            self._owner_device_adjust(owner, h.size_bytes)
-        self.ensure_budget()
-        self._enforce_owner_budget(h)
+            if not aliased:
+                self.device_bytes += h.size_bytes
+                self._owner_device_adjust(owner, h.size_bytes)
+        if not aliased:
+            self.ensure_budget(for_owner=owner)
+            self._enforce_owner_budget(h)
         return h
 
     # ------------------------------------------------------- per-owner budgets --
@@ -696,7 +823,8 @@ class SpillableBatchCatalog:
             victims = []
             for v in sorted((x for x in self._handles.values()
                              if x.owner == owner and x.tier == DEVICE
-                             and not x._moving and x.id != h.id),
+                             and not x._moving and not x.aliased
+                             and x.id != h.id),
                             key=lambda x: (x.priority, x.last_access, x.id)):
                 if used <= budget:
                     break
@@ -725,7 +853,7 @@ class SpillableBatchCatalog:
         """Back on the device after a restore from ``tier``."""
         with self._lock:
             self._restored(h, batch, tier)
-        self.ensure_budget()
+        self.ensure_budget(for_owner=h.owner)
 
     def _restored(self, h: SpillableHandle, batch: Optional[ColumnarBatch],
                   tier: str) -> None:
@@ -763,8 +891,9 @@ class SpillableBatchCatalog:
                 # the mover accounts for the handle when it finishes
                 return
             if h.tier == DEVICE:
-                self.device_bytes -= h.size_bytes
-                self._owner_device_adjust(h.owner, -h.size_bytes)
+                if not h.aliased:
+                    self.device_bytes -= h.size_bytes
+                    self._owner_device_adjust(h.owner, -h.size_bytes)
             elif h.tier == HOST:
                 self.host_bytes -= h.host_size
             else:
@@ -780,8 +909,9 @@ class SpillableBatchCatalog:
             tier = h.tier
             if tier == DEVICE:
                 h._moving = True
-                self.device_bytes -= h.size_bytes
-                self._owner_device_adjust(h.owner, -h.size_bytes)
+                if not h.aliased:
+                    self.device_bytes -= h.size_bytes
+                    self._owner_device_adjust(h.owner, -h.size_bytes)
         if tier == DEVICE:
             self._to_host([h])
         if target == DISK:
@@ -793,36 +923,85 @@ class SpillableBatchCatalog:
             self._to_disk([h])
             self.wait_for_writes()
 
-    def ensure_budget(self, extra_needed: int = 0) -> None:
+    def ensure_budget(self, extra_needed: int = 0,
+                      for_owner: Optional[int] = None) -> None:
         """Demote the coldest handles until the budgets hold (the
         synchronous spill of RapidsBufferStore.scala:146); callers may ask
-        for ``extra_needed`` device bytes of headroom."""
-        victims = self._pick(DEVICE, self.device_budget - extra_needed)
+        for ``extra_needed`` device bytes of headroom.  ``for_owner``: the
+        query whose registration caused the pressure (the checkpoint
+        floor's attribution)."""
+        victims = self._pick(DEVICE, self.device_budget - extra_needed,
+                             for_owner)
         if victims:
             self._to_host(victims)
         victims = self._pick(HOST, self.host_budget)
         if victims:
             self._to_disk(victims)
 
-    def _pick(self, tier: str, budget: int) -> List[SpillableHandle]:
+    def _floor_protected(self, h: SpillableHandle,
+                         for_owner: Optional[int],
+                         device_left: Dict[int, int]) -> bool:
+        """Under the lock: whether pressure from ``for_owner`` may not
+        take ``h``, another owner's checkpoint-priority batch, because
+        that owner's device checkpoint bytes would fall below the floor.
+        An owner's own batches are never protected from its own
+        pressure."""
+        if not self.checkpoint_floor or h.owner is None or \
+                h.owner == for_owner or h.priority > CHECKPOINT_TIER_MAX:
+            return False
+        left = device_left.get(h.owner)
+        if left is None:
+            left = sum(x.size_bytes for x in self._handles.values()
+                       if x.owner == h.owner and x.tier == DEVICE
+                       and not x._moving and not x.aliased
+                       and x.priority <= CHECKPOINT_TIER_MAX)
+            device_left[h.owner] = left
+        if left - h.size_bytes < self.checkpoint_floor:
+            return True
+        device_left[h.owner] = left - h.size_bytes
+        return False
+
+    def _pick(self, tier: str, budget: int,
+              for_owner: Optional[int] = None) -> List[SpillableHandle]:
         """Under the lock: the coldest handles of ``tier`` whose move
         brings it within ``budget``, marked moving and taken off the
-        tier's count."""
+        tier's count.  Coldest: the lowest priority, then (under
+        attributed pressure) the causing owner's before another's, then
+        the least recently used.  A batch the checkpoint floor protects
+        moves only when nothing else brings the tier within budget."""
         with self._lock:
             used = self.device_bytes if tier == DEVICE else self.host_bytes
             if used <= budget:
                 return []
+
+            def key(h):
+                foreign = 1 if (for_owner is not None and
+                                h.owner != for_owner) else 0
+                return (h.priority, foreign, h.last_access, h.id)
+
             candidates = sorted(
                 (h for h in self._handles.values()
-                 if h.tier == tier and not h._moving),
-                key=lambda h: (h.priority, h.last_access, h.id))
-            picked = []
+                 if h.tier == tier and not h._moving and not h.aliased),
+                key=key)
+            picked, deferred = [], []
+            device_left: Dict[int, int] = {}
             for h in candidates:
                 if used <= budget:
                     break
-                h._moving = True
+                if tier == DEVICE and \
+                        self._floor_protected(h, for_owner, device_left):
+                    deferred.append(h)
+                    continue
                 used -= h.size_bytes if tier == DEVICE else h.host_size
                 picked.append(h)
+            # the floor is isolation, not a leak
+            for h in deferred:
+                if used <= budget:
+                    break
+                used -= h.size_bytes
+                picked.append(h)
+            for h in picked:
+                h._moving = True
             if tier == DEVICE:
                 self.device_bytes -= sum(h.size_bytes for h in picked)
                 for h in picked:
@@ -840,12 +1019,14 @@ class SpillableBatchCatalog:
         if not ok:
             if not gone:
                 if tier == HOST:
-                    self.device_bytes += h.size_bytes
-                    self._owner_device_adjust(h.owner, h.size_bytes)
+                    if not h.aliased:
+                        self.device_bytes += h.size_bytes
+                        self._owner_device_adjust(h.owner, h.size_bytes)
                 else:
                     self.host_bytes += h.host_size
             return
         if tier == HOST:
+            h.aliased = False  # the host payload is the catalog's own copy
             self.spilled_to_host_total += h.size_bytes
             self.host_copy_bytes_total += h.host_size
             if not gone:
@@ -1023,6 +1204,8 @@ class SpillableBatchCatalog:
                 "restored_from_disk_total": self.restored_from_disk_total,
                 "num_handles": len(self._handles),
                 "integrity_failures": self.integrity_failures,
+                "host_raw_bytes_total": self.host_raw_bytes_total,
+                "host_encoded_bytes_total": self.host_encoded_bytes_total,
             }
             out.update(self._times)
         return out

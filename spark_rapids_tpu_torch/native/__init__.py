@@ -296,7 +296,13 @@ def deserialize_batch(blob: bytes, max_cols: int = 4096
             outs.append(None)
             dst[i] = None
         else:
-            a = np.empty(lens[i], dtype=np.uint8)
+            try:
+                a = np.empty(lens[i], dtype=np.uint8)
+            except (MemoryError, ValueError, OverflowError) as e:
+                # a flipped bit in a length field: no real frame
+                # decodes to this much
+                raise ValueError(
+                    f"bad frame: buffer length {lens[i]}") from e
             outs.append(a)
             dst[i] = a.ctypes.data_as(u8p)
     rc = lib.frame_deserialize(srcp, len(blob), dst, lens, nc, off)

@@ -323,6 +323,54 @@ class Literal(Expression):
         return f"lit({self.value!r})"
 
 
+class ParamSlot(Expression):
+    """A hoisted literal: a typed parameter position in a plan template
+    (``plan/template.py``).
+
+    ``cache_key`` is value-free, so two bindings of one template share
+    every key.  The current binding lives on the slot (``bind_value``,
+    under the prepared handle's lock).  The port's stages are eager, so
+    the slot emits exactly what ``Literal.emit`` emits for its bound
+    value at each batch, and a templated answer has the inline literal's
+    bits (the JAX package threads the values into its traced stages as
+    arguments instead).  An unbound slot raises, never answering with a
+    stale value; no literal the hoister takes is null, so None is
+    unbound."""
+
+    def __init__(self, index: int, dtype: DataType, value=None):
+        self.index = index
+        self._dtype = dtype
+        self.value = value
+
+    @property
+    def dtype(self) -> DataType:
+        return self._dtype
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def bind_value(self, value) -> None:
+        self.value = value
+
+    def emit(self, ctx: EmitContext) -> ColVal:
+        if self.value is None:
+            raise RuntimeError(
+                f"ParamSlot ${self.index} evaluated unbound: no "
+                "parameter value was bound to it")
+        return Literal(self.value, self._dtype).emit(ctx)
+
+    @property
+    def name(self) -> str:
+        return f"$p{self.index}"
+
+    def cache_key(self):
+        return ("Param", self.index, self._dtype.name)
+
+    def __str__(self):
+        return f"$p{self.index}:{self._dtype.name}"
+
+
 class Alias(Expression):
     def __init__(self, child: Expression, alias: str):
         self.children = (child,)

@@ -171,7 +171,7 @@ def _concat_cols(parts: Sequence[ColVal], dtype: DataType) -> ColVal:
 class DistPlanner:
     """Eager recursive executor with a dry pre-flight mode."""
 
-    def __init__(self, session, group: ShardGroup):
+    def __init__(self, session, group: ShardGroup, resume: bool = False):
         self.session = session
         self.group = group
         self.conf = session.conf
@@ -180,9 +180,42 @@ class DistPlanner:
         self.broadcast_rows = self.conf.get(rc.BROADCAST_JOIN_THRESHOLD_ROWS)
         # each exchange-bearing operator's last_stats, in execution order
         self.stats: List[Tuple[str, dict]] = []
+        # stage-checkpoint lineage (robustness/checkpoint.py): the
+        # manager the query's envelope installed (None when off), and
+        # whether this attempt restores from it (a retry-class
+        # re-attempt; every attempt for the shared stage store, whose
+        # stage ids fold in the input fingerprint)
+        self._ckpt = getattr(session, "checkpoints", None)
+        self._fp_inputs = bool(getattr(self._ckpt, "always_resume", False))
+        self._resume = self._ckpt is not None and self._ckpt.enabled and \
+            (bool(resume) or self._fp_inputs)
+        # each scan's input fingerprint, once per planner run
+        self._fp_memo: Dict[int, str] = {}
+
+    @staticmethod
+    def _checkpointable(plan: L.LogicalPlan) -> bool:
+        """Stage boundaries worth checkpointing: every exchange consumer
+        (no sharded Window yet), and top-N (a Limit over a Sort, one
+        distributed pass of its own)."""
+        if isinstance(plan, (L.Aggregate, L.Join, L.Sort)):
+            return True
+        return isinstance(plan, L.Limit) and isinstance(plan.child, L.Sort)
+
+    def _count_stages(self, plan: L.LogicalPlan) -> int:
+        """Exchange stages inside a subtree: what a resume of its
+        checkpoint saves (CheckpointResume.stagesSaved)."""
+        n = 1 if self._checkpointable(plan) else 0
+        return n + sum(self._count_stages(c) for c in plan.children)
 
     # -- recursion --------------------------------------------------------
     def run(self, plan: L.LogicalPlan, dry: bool) -> ShardedFrame:
+        """Execute (or dry-run) one subtree, splicing in and registering
+        stage checkpoints at exchange boundaries: on a resume attempt a
+        completed subtree restores from the lineage log (its scans,
+        stages and exchanges never run), and each freshly completed
+        stage registers its frame for the next attempt.  A checkpoint
+        that fails its stamp or was evicted is dropped by the manager and
+        the subtree re-runs here."""
         if not dry and isinstance(plan, (L.Aggregate, L.Join, L.Sort)):
             # fair-interleaver stage boundary: a sharded query's
             # "batches" are its exchange stages (serving/scheduler.py; a
@@ -190,6 +223,33 @@ class DistPlanner:
             from spark_rapids_tpu_torch.serving.scheduler import (
                 yield_current)
             yield_current(self.session)
+        if dry or self._ckpt is None or not self._ckpt.enabled or \
+                not self._checkpointable(plan):
+            return self._dispatch(plan, dry)
+        from spark_rapids_tpu_torch.robustness import checkpoint as cp
+        from spark_rapids_tpu_torch.utils import tracing
+        sid = cp.stage_id(plan, self.group, memo=self._fp_memo,
+                          inputs=self._fp_inputs)
+        if self._resume:
+            frame = self._ckpt.restore(sid, self.group)
+            if frame is not None:
+                return frame
+        if tracing._armed:
+            # one span per stage, keyed by its stage id
+            with tracing.span("stage.dist", site=sid,
+                              op=type(plan).__name__):
+                frame = self._dispatch(plan, dry)
+        else:
+            frame = self._dispatch(plan, dry)
+        # the JAX package resolves its async exchange window here, so no
+        # unverified exchange enters the log; the port's exchanges are
+        # synchronous (parallel/exchange_async.py is not ported)
+        self._ckpt.save(sid, frame, stages=self._count_stages(plan),
+                        pins=cp.inmemory_batches(plan)
+                        if self._fp_inputs else ())
+        return frame
+
+    def _dispatch(self, plan: L.LogicalPlan, dry: bool) -> ShardedFrame:
         if isinstance(plan, (L.InMemoryRelation, L.FileRelation, L.Range)):
             return self._scan(plan, dry)
         if isinstance(plan, L.Aggregate):
@@ -879,7 +939,7 @@ def _user_code_reason(node: L.LogicalPlan, cache_manager) -> List[str]:
     return []
 
 
-def try_distributed(session, plan: L.LogicalPlan):
+def try_distributed(session, plan: L.LogicalPlan, resume: bool = False):
     """Entry point from DataFrame execution: a list holding one batch when
     the plan ran on the session's shard group, else None: the plan runs
     on one device, through the CPU fallback where the planner tags it
@@ -889,7 +949,8 @@ def try_distributed(session, plan: L.LogicalPlan):
     or torch UDF, a pandas node) and a cached plan send the whole plan
     there; an expression is tagged after it is lowered, so one over an
     encoded string column still runs distributed as a lookup over its
-    dictionary."""
+    dictionary.  ``resume``: a recovery re-attempt, which splices the
+    stage checkpoints the failed attempt recorded."""
     from spark_rapids_tpu_torch.plan.overrides import (
         _pushdown_pass, node_reasons)
     group = getattr(session, "shards", None)
@@ -912,7 +973,7 @@ def try_distributed(session, plan: L.LogicalPlan):
                 f"fallback: {type(node).__name__}: " + "; ".join(reasons))
             return None
         stack.extend(node.children)
-    planner = DistPlanner(session, group)
+    planner = DistPlanner(session, group, resume=resume)
     try:
         planner.run(plan, dry=True)  # support pre-flight: no data moves
         batch = planner.collect(planner.run(plan, dry=False))

@@ -75,7 +75,7 @@ from spark_rapids_tpu_torch.ops import regexops as RX
 from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.ops.expressions import (
-    Alias, BoundReference, Expression, Literal, UnresolvedColumn,
+    Alias, BoundReference, Expression, Literal, ParamSlot, UnresolvedColumn,
     substitute_bound)
 from spark_rapids_tpu_torch.parallel.dict_lowering import DictLookup
 from spark_rapids_tpu_torch.plan import logical as L
@@ -106,8 +106,9 @@ def expr_rule(cls, sig=ts.COMMON, incompat="", host_only=""):
     _EXPR_RULES[cls] = ExprRule(cls, sig, incompat, host_only)
 
 
-# a class the port lacks gets its rule when it is ported
-for _c in (Alias, BoundReference, Literal, UnresolvedColumn, Cast,
+# a class the port lacks gets its rule when it is ported (ParamSlot: a
+# hoisted literal, plan/template.py, a structural leaf as Literal is)
+for _c in (Alias, BoundReference, Literal, ParamSlot, UnresolvedColumn, Cast,
            WindowExpression, NullLiteral,
            # the sharded path's lookup over a string dictionary
            # (parallel/dict_lowering.py), tagged after lowering
@@ -309,7 +310,7 @@ class ExprMeta(BaseMeta):
                         "spark.rapids.sql.decimalType.enabled")
                 reason = sig.reason_if_unsupported(dt, f"expression {name}")
                 if reason and not isinstance(expr, (BoundReference, Alias,
-                                                    Literal)):
+                                                    Literal, ParamSlot)):
                     self.will_not_work(reason)
             except (RuntimeError, TypeError, ValueError) as e:
                 self.will_not_work(str(e))

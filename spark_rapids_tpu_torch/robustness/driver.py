@@ -64,6 +64,9 @@ CPU_FALLBACK = "cpu"
 # canonical escalation order (every ladder is a subsequence of this)
 RUNG_ORDER = [RETRY, SPILL_RETRY, SPLIT_RETRY, DEMOTE_SINGLE_DEVICE,
               CPU_FALLBACK]
+# rungs whose attempt no longer runs on the shard layout the lineage log
+# was keyed to
+_LAYOUT_CHANGING = (SPLIT_RETRY, DEMOTE_SINGLE_DEVICE, CPU_FALLBACK)
 
 def on_card(session) -> bool:
     """Whether ``session`` runs on a CUDA device: its ladder then ends
@@ -84,9 +87,8 @@ class AttemptMode:
     # scale of the scan and coalesce batch sizes
     batch_scale: float = 1.0
     # resume capability, orthogonal to the rungs: a re-attempt that
-    # keeps the shard layout may splice completed stages from a
-    # stage-checkpoint lineage log.  robustness/checkpoint.py is not
-    # ported, so nothing reads it yet (see _update_lineage)
+    # keeps the shard layout splices completed stages from the query's
+    # stage-checkpoint lineage log (robustness/checkpoint.py)
     resume: bool = False
 
 
@@ -244,13 +246,20 @@ class QueryRetryDriver:
         self._pos = max(self._pos, entry_pos)
 
     def _update_lineage(self, rung: str, mode: AttemptMode) -> None:
-        """Stage-checkpoint wiring, as the JAX package's: retry-class
-        re-attempts that keep the shard layout would resume from the
-        query's lineage log, and layout-changing rungs (split, demote,
-        cpu) would clear it.  robustness/checkpoint.py is not ported, so
-        no session holds a lineage log: ``mode.resume`` stays False and
-        this hook does nothing else."""
-        mode.resume = False
+        """Stage-checkpoint wiring: a retry-class re-attempt keeps the
+        shard layout and resumes from the lineage log; a layout-changing
+        rung (split, demote, cpu) clears it (``clear()``: the per-query
+        manager drops every entry, keyed to a layout this query no
+        longer runs on; the shared stage store keeps its entries, whose
+        layout serves other queries)."""
+        mgr = getattr(self.session, "checkpoints", None)
+        if rung in _LAYOUT_CHANGING or not mode.use_mesh or \
+                mode.cpu_only or mode.batch_scale != 1.0:
+            mode.resume = False
+            if mgr is not None:
+                mgr.clear(f"rung:{rung}")
+        elif mgr is not None:
+            mode.resume = True
 
     # --------------------------------------------------------------- run --
     def run(self, attempt: Callable[[AttemptMode], Any]) -> Any:

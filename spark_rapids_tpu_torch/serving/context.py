@@ -17,6 +17,9 @@ action):
   doing its work;
 - the session's ``_current_qid`` / ``checkpoints`` attributes are
   thread-keyed views through this registry;
+- entry drops the spans its thread closed while no query ran there (the
+  previous query's ``to_arrow``, say: ``utils/tracing.discard_owner``),
+  so this query's span rollup holds only its own;
 - it carries the query's budgets (memory bytes, host syncs, deadline)
   and the admission ticket, and gathers the BudgetExhausted and
   admission facts the QueryEnd event reports;
@@ -105,8 +108,8 @@ class QueryContext:
         self.admission_wait_ms = 0.0
         self.admission_weight = 0
         # per-query stage-checkpoint manager (the session's
-        # ``checkpoints`` view); robustness/checkpoint.py is not ported,
-        # so it stays None
+        # ``checkpoints`` view, robustness/checkpoint.py): the query's
+        # lineage log or the shared stage store on a sharded session
         self.checkpoints = None
         self.budget_events: list = []  # BudgetExhausted facts emitted
         # facts for the QueryEnd ``sharing`` dict (the interleaver's
@@ -128,6 +131,8 @@ class QueryContext:
                 "concurrent queries must run on distinct threads")
         self.owner_ident = ident
         _contexts[ident] = self
+        from spark_rapids_tpu_torch.utils import tracing
+        tracing.discard_owner(ident)
         if self.memory_budget:
             cat = getattr(self.session, "memory_catalog", None)
             if cat is not None:

@@ -51,6 +51,10 @@ class QueryInfo:
     # CheckpointWrite/Resume/Evict/Invalid; "kind" is
     # write|resume|evict|invalid)
     checkpoint: List[Dict[str, str]] = field(default_factory=list)
+    # the lineage log's counters at a sharded QueryEnd (writes,
+    # bytesWritten, resumes, stagesSkipped, evictions, invalid, live,
+    # liveBytes, liveBytesRaw); empty without a log
+    checkpoint_stats: Dict[str, int] = field(default_factory=dict)
     # continuous-ingest events (robustness/incremental.py
     # StateCommit/StateRollback/StateEvict/IncrementalResume/
     # StateWatermark; "kind" is commit|rollback|evict|resume|
@@ -366,6 +370,7 @@ def parse_event_log(path: str) -> AppInfo:
                 q.fusion = rec.get("fusion", {})
                 q.spans = rec.get("spans", {}) or {}
                 q.sharing = rec.get("sharing", {}) or {}
+                q.checkpoint_stats = rec.get("checkpoint", {}) or {}
                 q.planner = rec.get("planner", {}) or {}
                 q.fleet_health = rec.get("fleet", {}) or {}
                 q.admission = rec.get("admission", {}) or q.admission

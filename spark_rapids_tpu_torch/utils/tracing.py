@@ -272,6 +272,16 @@ def _drain(owner: int) -> Tuple[List[tuple], int]:
     return out, dropped
 
 
+def discard_owner(owner: int) -> None:
+    """Drop ``owner``'s closed records without reporting them.  A query
+    calls this as it begins: a span closed on its thread while no query
+    ran there (the previous query's ``to_arrow`` fetches, after that
+    query's QueryEnd) belongs to no query, and would otherwise land in
+    this query's rollup, outside its wall."""
+    if _armed:
+        _drain(owner)
+
+
 def rollup(records: List[tuple], wall_ms: float,
            dropped: int = 0) -> Dict[str, Any]:
     """Exclusive-time rollup: per point, per operator, per structural

@@ -77,6 +77,24 @@ def test_event_logs_read_alike(runs):
     assert names.count("QueryStart") == names.count("QueryEnd") == 3
 
 
+def _own_thread_ms(trace_path):
+    """Per thread, the summed duration of its outermost spans from the
+    query's ``admission.wait`` on: a thread's exclusive times add up to
+    its outermost spans' durations, and those never overlap."""
+    events = [e for e in load_trace(trace_path)["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") != "async"]
+    start = min(e["ts"] for e in events if e["name"] == "admission.wait")
+    per_thread = {}
+    for e in sorted(events, key=lambda e: (e["ts"], -e["dur"])):
+        if e["ts"] < start:
+            continue
+        total, end = per_thread.get(e["tid"], (0.0, -1.0))
+        if e["ts"] >= end:
+            total, end = total + e["dur"], e["ts"] + e["dur"]
+        per_thread[e["tid"]] = (total, max(end, e["ts"] + e["dur"]))
+    return {t: total / 1e3 for t, (total, _) in per_thread.items()}
+
+
 def test_logs_parse_into_the_same_queries(runs):
     apps = {"torch": eventlog.parse_event_log(runs["torch"][2]),
             "jax": jeventlog.parse_event_log(runs["jax"][2])}
@@ -87,10 +105,19 @@ def test_logs_parse_into_the_same_queries(runs):
         for q in app.queries:
             assert set(q.admission) == {"waitMs", "weightBytes"}
             assert q.spans["events"] > 0
-            # the admission.wait span comes before the attempt whose wall
-            # the rollup reports; 2e-3: three figures rounded to 1e-3 ms
-            assert q.spans["exclusiveMs"] <= \
-                q.spans["wallMs"] + q.admission["waitMs"] + 2e-3, pkg
+            # each thread's spans lie in the query's admission wait and
+            # its attempt's wall; 2e-3: three figures rounded to 1e-3 ms
+            bound = q.spans["wallMs"] + q.admission["waitMs"] + 2e-3
+            for tid, ms in _own_thread_ms(q.spans["traceFile"]).items():
+                assert ms <= bound, (pkg, q.query_id, tid)
+    # the port's rollup holds only its query's spans, on one thread at a
+    # time (the pipeline worker while the consumer waits); the JAX
+    # package's also holds spans its thread closed after the previous
+    # query had ended (that query's to_arrow), so only its threads'
+    # spans in the query's own window are bounded
+    for q in apps["torch"].queries:
+        assert q.spans["exclusiveMs"] <= \
+            q.spans["wallMs"] + q.admission["waitMs"] + 2e-3
     t, j = apps["torch"], apps["jax"]
     # the plans' root operators (the two packages describe them apart)
     assert [q.logical_plan.split("[")[0] for q in t.queries] == \
@@ -151,6 +178,25 @@ def test_exclusive_times_add_up():
     assert roll["operators"] == {"A": {
         "count": 1, "ms": round(o[tracing.R_DUR] / 1e6, 3),
         "exclusiveMs": round(o[tracing.R_EXCL] / 1e6, 3)}}
+
+
+def test_spans_between_queries_join_no_query(data, tmp_path):
+    """A span its thread closes while no query runs there (the previous
+    query's ``to_arrow`` fetch, say) is not drained into the next
+    query's rollup, which would put it outside that query's wall."""
+    from spark_rapids_tpu_torch.serving.context import QueryContext
+    s = TpuSession({"spark.rapids.tpu.trace.dir": str(tmp_path)},
+                   device="cpu")
+    try:
+        tpch.load(s, data)["lineitem"].count()
+        with tracing.span("between.queries"):
+            pass
+        with QueryContext(s):
+            records, _ = tracing._drain(threading.get_ident())
+    finally:
+        s.stop()
+        tracing.configure(False)
+    assert records == []
 
 
 def test_tracing_off_records_nothing():

@@ -43,16 +43,25 @@ def _clean_registries():
 
 def test_points_are_the_references():
     """Every point the port registers is one of the reference's (with
-    the same default fault kind), and every point it wires is there."""
+    the same default fault kind), and every point it wires is there.
+    The reuse layer's points (``checkpoint.*``, ``resultcache.load``,
+    ``templatecache.load``) register when their modules import, in both
+    packages, and raise no fault of their own kind (None)."""
+    import spark_rapids_tpu.robustness.checkpoint  # noqa: F401
+    import spark_rapids_tpu.serving.reuse  # noqa: F401
+    import spark_rapids_tpu_torch.serving.reuse  # noqa: F401
     ported = set(I.injection_points())
     assert ported <= set(JI.injection_points())
     assert ported >= {"io.read", "shuffle.exchange", "dist.host_sync",
                       "spill.disk", "spill.corrupt.host",
-                      "spill.corrupt.disk", "udf.worker", "memory.oom"}
+                      "spill.corrupt.disk", "udf.worker", "memory.oom",
+                      "checkpoint.write", "checkpoint.restore",
+                      "resultcache.load", "templatecache.load"}
     for p in ported:
         if p == "memory.oom":
             continue
-        assert I._POINTS[p].kind == JI._POINTS[p].kind, p
+        assert getattr(I._POINTS[p], "kind", None) == \
+            getattr(JI._POINTS[p], "kind", None), p
     with pytest.raises(KeyError):
         I.inject("no.such.point")
     with pytest.raises(ValueError):

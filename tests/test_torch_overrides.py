@@ -148,13 +148,39 @@ def test_conf_docs_generate():
 
 
 @pytest.mark.parametrize("key", [
-    # serving is not ported: a key nothing reads is rejected, not
-    # silently ignored
-    "spark.rapids.tpu.serving.resultCache.enabled"])
+    # continuous ingest and the fleet store are not ported: a key
+    # nothing reads is rejected, not silently ignored
+    "spark.rapids.tpu.incremental.enabled",
+    "spark.rapids.tpu.fleet.sharedStage.epoch.enabled"])
 def test_unread_reference_keys_rejected(key):
     JaxConf({key: "false"})
     with pytest.raises(ValueError, match="unknown configuration key"):
         RapidsConf({key: "false"})
+
+
+@pytest.mark.parametrize("key", [
+    "spark.rapids.sql.recovery.checkpoint.enabled",
+    "spark.rapids.sql.recovery.checkpoint.maxBytes",
+    "spark.rapids.sql.recovery.checkpoint.tiers",
+    "spark.rapids.tpu.serving.checkpointEvictionFloorBytes",
+    "spark.rapids.tpu.serving.resultCache.enabled",
+    "spark.rapids.tpu.serving.resultCache.maxBytes",
+    "spark.rapids.tpu.serving.sharedStage.enabled",
+    "spark.rapids.tpu.serving.sharedStage.maxBytes",
+    "spark.rapids.tpu.template.enabled",
+    "spark.rapids.tpu.template.resultCache.enabled",
+    "spark.rapids.tpu.encoding.storage.hostCodec"])
+def test_reuse_keys_registered(key):
+    """The reuse layer's keys, read since it was ported, with the
+    reference's defaults and checks."""
+    reg = rc._REGISTRY
+    assert reg[key].default == JaxConf.registry()[key].default
+    RapidsConf({key: reg[key].default})
+    if isinstance(reg[key].default, str):
+        with pytest.raises(ValueError):
+            RapidsConf({key: "bogus"})
+        with pytest.raises(ValueError):
+            JaxConf({key: "bogus"}).get(JaxConf.registry()[key])
 
 
 def test_udf_keys_registered():
